@@ -1,0 +1,39 @@
+"""yart_tpu_torch imports no JAX: the machine with the GPU has none.
+
+A fresh interpreter imports every module of the port, builds and renders a
+tiny scene through the renderer and the CLI parser, and then checks that
+no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import yart_tpu_torch
+for m in pkgutil.walk_packages(yart_tpu_torch.__path__, "yart_tpu_torch."):
+    importlib.import_module(m.name)
+import torch
+torch.set_num_threads(1)
+from yart_tpu_torch.config import CameraConfig, RenderConfig
+from yart_tpu_torch.cli import parse_args
+from yart_tpu_torch.render.renderer import Renderer
+from yart_tpu_torch.scene.procedural import cornell_box
+parse_args(["cornell-mat", "--device", "cpu"])
+scene, meta = cornell_box(extra_materials=True).compile()
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4)), RenderConfig(samples=2, max_depth=2)).render()
+assert res.samples_taken == 2
+bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu") or m.startswith(("jax.", "jaxlib", "yart_tpu.")))
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO_JAX_OK" in out.stdout

@@ -1,0 +1,62 @@
+"""Configuration dataclasses of the port.
+
+The port keeps its own copies so that it depends on nothing of the JAX
+package. Every field has the name and default of its counterpart in
+`yart_tpu/config.py` (tests/test_torch_render.py holds them equal), so a
+configuration written for one package reads the same in the other. Only
+the knobs this slice reads are here; `shade_kernel` and `diff_geometry`
+stay so that their unported values can be refused by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraConfig:
+    """Thin-lens physical camera (src/core/camera.hpp:10-165)."""
+
+    image_size: Tuple[int, int] = (512, 512)  # (width, height) pixels
+    focal_length: float = 35.0  # mm
+    f_number: float = 0.0  # 0 disables depth of field
+    sensor_size: Tuple[float, float] = (36.0, 24.0)  # mm, 35mm full frame
+    position: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    forward: Tuple[float, float, float] = (0.0, 0.0, -1.0)
+    up: Tuple[float, float, float] = (0.0, 1.0, 0.0)
+    exposure: float = 0.0  # EV stops, applied as 2**exposure to samples
+    aperture_sides: int = 0  # 0 = circular aperture, >=3 = bladed
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render/integrator/scheduler knobs (see yart_tpu/config.py for the
+    reference line behind each default)."""
+
+    samples: int = 64
+    max_depth: int = 30
+    integrator: str = "mis"  # "mis" | "naive"
+    sampler: str = "zsobol"  # "zsobol" | "hash"
+    estimator: str = "gmon"  # "gmon" | "gmonb" | "mon" | "mean"
+    light_sampler: str = "power"  # "power" | "uniform"
+    estimator_buckets: int = 15
+    regularize_threshold: float = 0.5
+    # Lanes with >= k prior near-specular scatters sample roughened lobes;
+    # None = reference-parity behaviour.
+    regularize_specular: Optional[int] = None
+    first_wave_samples: int = 64
+    max_wave_samples: int = 128
+    tonemap: str = "agx"  # "agx" | "none"
+    agx_look: str = "none"  # "none" | "golden" | "punchy"
+    rr_start_depth: int = 2
+    clamp: Optional[float] = None  # per-sample radiance clamp, None = off
+    # Staged wavefront compaction: after `compact_depth` bounces the
+    # survivors move into n / compact_factor lanes. "auto" = 2 for env-lit
+    # scenes, off for closed ones, then retuned from the first wave.
+    compact_depth: object = "auto"  # "auto" | int | None
+    compact_factor: int = 4
+    lane_chunk: Optional[int] = None  # pixels per chunk; None = ~2^20 lanes
+    seed: int = 0
+    shade_kernel: str = "off"  # only "off" is ported
+    diff_geometry: bool = False  # only False is ported (no gradients yet)

@@ -1,0 +1,81 @@
+"""Build CUDA sources from `yart_tpu_torch/csrc/` and load them with ctypes.
+
+Each library is compiled at first use with nvcc into
+`build/yart_tpu_torch/<name>-<hash>/lib<name>.so` at the root of the
+checkout (`build/` is git-ignored), keyed by a hash of the sources and the
+flags, so a changed source rebuilds and an unchanged one loads from disk.
+The sources have a plain C interface and include no PyTorch headers, which
+keeps a build to seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
+BUILD_ROOT = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "build", "yart_tpu_torch")
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels build only where the CUDA toolkit "
+        "is installed"
+    )
+
+
+def library_path(name: str, sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
+
+
+def load(name: str, sources) -> tuple:
+    """Build (if needed) and load library `name` from `sources` (file names
+    under csrc/). Returns (ctypes.CDLL, built_now)."""
+    path = library_path(name, sources)
+    with _lock:
+        if path in _loaded:
+            return _loaded[path], False
+        built = False
+        if not os.path.exists(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in sources]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed building {name} (exit {proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, path)  # atomic: a concurrent loader sees old or new
+            built = True
+        lib = ctypes.CDLL(path)
+        _loaded[path] = lib
+        return lib, built

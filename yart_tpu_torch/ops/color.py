@@ -1,0 +1,27 @@
+"""Color transfer functions; port of `yart_tpu/ops/color.py`
+(src/core/color-utils.hpp:12-40, texture.hpp:112-114, ppm.cpp:5-21)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def srgb_decode(v):
+    """sRGB EOTF: encoded [0, 1] -> linear."""
+    return torch.where(v <= 0.04045, v / 12.92, ((v + 0.055) / 1.055) ** 2.4)
+
+
+def srgb_encode(v):
+    """Linear [0, 1] -> sRGB-encoded."""
+    safe = torch.clamp_min(v, 1e-12)
+    return torch.where(v <= 0.0031308, v * 12.92, 1.055 * safe ** (1.0 / 2.4) - 0.055)
+
+
+def gamma2_decode(v):
+    """Texture storage decode: linear = stored * stored."""
+    return v * v
+
+
+def gamma22_encode(v):
+    """Output gamma 1/2.2 clamp-encode of the PPM writer."""
+    return torch.clamp(v, 0.0, 1.0) ** (1.0 / 2.2)

@@ -1,0 +1,139 @@
+"""Batched 3-vector math over ``[..., 3]`` float32 tensors.
+
+Port of `yart_tpu/ops/vecmath.py` (the subset the forward path uses):
+reflect/refract/fresnel (src/math/math.hpp:15-100) and the orthonormal
+shading frames (src/math/frame.hpp:21-59).
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-12
+
+
+def dot(a, b, keepdim: bool = False):
+    return (a * b).sum(dim=-1, keepdim=keepdim)
+
+
+def absdot(a, b, keepdim: bool = False):
+    return dot(a, b, keepdim=keepdim).abs()
+
+
+def cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack(
+        [ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=-1
+    )
+
+
+def length2(v, keepdim: bool = False):
+    return (v * v).sum(dim=-1, keepdim=keepdim)
+
+
+def normalize(v):
+    """v / |v|, with 0 for zero-length inputs."""
+    n2 = length2(v, keepdim=True)
+    pos = n2 > 0
+    return v * torch.where(pos, torch.rsqrt(torch.where(pos, n2, 1.0)), 0.0)
+
+
+def safe_sqrt(x):
+    """sqrt(max(x, 0))."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def max_component(v):
+    return v.amax(dim=-1)
+
+
+def refract(wi, n, ior):
+    """Refract wi through the interface with normal n and relative ior
+    (src/math/math.hpp:22-42). Returns (wt, tir); wt is undefined under
+    total internal reflection. `ior` is lane-shaped [...]."""
+    cos_theta = dot(wi, n)
+    below = cos_theta < 0.0
+    eta = torch.where(below, 1.0 / ior, ior)
+    cos_theta = cos_theta.abs()
+    n = torch.where(below[..., None], -n, n)
+
+    sin2 = torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0)
+    sin2_t = sin2 / (eta * eta)
+    tir = sin2_t >= 1.0
+
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    wt = -wi / eta[..., None] + (cos_theta / eta - cos_t)[..., None] * n
+    return wt, tir
+
+
+def fresnel_dielectric(cos_theta, ior):
+    """Exact dielectric Fresnel (src/math/math.hpp:44-62); cos < 0 inverts
+    the ior; 1 under total internal reflection."""
+    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    below = cos_theta < 0.0
+    if isinstance(ior, torch.Tensor):
+        ior = torch.where(below, 1.0 / ior, ior)
+    else:
+        ior = torch.where(below, 1.0 / ior, torch.full_like(cos_theta, ior))
+    cos_theta = cos_theta.abs()
+
+    sin2 = 1.0 - cos_theta * cos_theta
+    sin2_t = sin2 / (ior * ior)
+    tir = sin2_t >= 1.0
+
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    r_prl = (ior * cos_theta - cos_t) / (ior * cos_theta + cos_t + EPS)
+    r_per = (cos_theta - ior * cos_t) / (cos_theta + ior * cos_t + EPS)
+    f = 0.5 * (r_prl * r_prl + r_per * r_per)
+    return torch.where(tir, 1.0, f)
+
+
+def fresnel_schlick(r0, cos_theta):
+    """Schlick's approximation (src/math/math.hpp:81-88)."""
+    k = 1.0 - cos_theta
+    k5 = (k * k) * (k * k) * k
+    return r0 + (1.0 - r0) * k5
+
+
+def _axis(ref, i):
+    e = torch.zeros(3, dtype=ref.dtype, device=ref.device)
+    e[i] = 1.0
+    return e.expand_as(ref)
+
+
+def frame_from_normal(n):
+    """(x, y, z=n) basis from a normal alone (Frame(n), frame.hpp:27-32)."""
+    a = torch.where(n[..., 0:1].abs() > 0.5, _axis(n, 1), _axis(n, 0))
+    y = normalize(cross(n, a))
+    x = cross(n, y)
+    return x, y, n
+
+
+def frame_from_normal_tangent(n, t):
+    """Basis from normal + tangent with the degenerate-tangent fallback
+    (Frame(n, t), frame.hpp:34-50), handedness +1."""
+    fx, fy, _ = frame_from_normal(n)
+    y = normalize(cross(n, t))
+    x = cross(y, n)
+    degen = (absdot(t, n) > 0.9)[..., None]
+    return torch.where(degen, fx, x), torch.where(degen, fy, y), n
+
+
+def world_to_local(w, fx, fy, fz):
+    """Frame::wtl (frame.hpp:52-54)."""
+    return torch.stack([dot(w, fx), dot(w, fy), dot(w, fz)], dim=-1)
+
+
+def local_to_world(v, fx, fy, fz):
+    """Frame::ltw (frame.hpp:56-58)."""
+    return v[..., 0:1] * fx + v[..., 1:2] * fy + v[..., 2:3] * fz
+
+
+def shading_tangent(n):
+    """The integrator's shading tangent (src/cpu/ray-integrator.cpp:72-77):
+    normalize(cross(n, +Y)), +X when n is within 0.999 of +/-Y."""
+    tg = normalize(cross(n, _axis(n, 1)))
+    degen = (n[..., 1].abs() > 0.999)[..., None]
+    return torch.where(degen, _axis(n, 0), tg)

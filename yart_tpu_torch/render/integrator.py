@@ -1,0 +1,317 @@
+"""Wavefront path-tracing integrators (MIS+NEE and naive).
+
+Port of `yart_tpu/render/integrator.py` (src/cpu/mis-integrator.cpp,
+naive-integrator.cpp) for untextured, non-instanced scenes. The JAX
+package's `lax.while_loop` over the wavefront becomes a host loop over
+depth with one `any(active)` sync per bounce; every lane advances one
+bounce per iteration and dead lanes are masked.
+
+Sampler dimensions are assigned statically per bounce (dims 0-1 film,
+2-3 lens, then per bounce k at base 4 + 8k: BSDF u (2), uc, uc2, NEE light
+select, NEE u (2), roulette), so every lane keeps an aligned counter-based
+stream and results do not depend on which lanes run together.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from yart_tpu_torch.config import RenderConfig
+from yart_tpu_torch.ops import lut
+from yart_tpu_torch.ops.vecmath import (
+    absdot,
+    frame_from_normal_tangent,
+    local_to_world,
+    max_component,
+    normalize,
+    shading_tangent,
+    world_to_local,
+)
+from yart_tpu_torch.render import bsdf as B
+from yart_tpu_torch.render import lights
+from yart_tpu_torch.render.camera import CameraParams, generate_rays
+from yart_tpu_torch.render.intersect import intersect
+from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
+
+INF = 1e30
+RAY_EPS = 1e-3  # tMin (mis-integrator.cpp:26)
+
+
+class Shading(NamedTuple):
+    """Per-lane surface data after a hit (ray-integrator.cpp:56-82)."""
+
+    p: torch.Tensor  # [N, 3]
+    n: torch.Tensor  # [N, 3] shading normal
+    tg: torch.Tensor  # [N, 3] integrator tangent
+    mat: torch.Tensor  # [N] int32
+    light: torch.Tensor  # [N] int32, -1 = not emissive
+    back: torch.Tensor  # [N] bool
+
+
+def shading_data(scene: CompiledScene, meta: SceneMeta, hit, o, d) -> Shading:
+    """Interpolated shading normal, material and light id of each hit
+    (non-instanced, untextured). Miss lanes are pinned to the ray origin."""
+    tri = torch.clamp(hit.tri, 0, meta.n_tris - 1).long()
+    row = scene.shade_pack[tri]  # one packed row per lane
+    w = (1.0 - hit.u - hit.v)[..., None]
+    u = hit.u[..., None]
+    v = hit.v[..., None]
+    n = normalize(w * row[..., 0:3] + u * row[..., 3:6] + v * row[..., 6:9])
+    return Shading(
+        p=o + d * torch.where(hit.mask, hit.t, 0.0)[..., None],
+        n=n,
+        tg=shading_tangent(n),
+        mat=scene.tri_mat[tri],
+        light=scene.tri_light[tri],
+        back=hit.back_side,
+    )
+
+
+@dataclasses.dataclass
+class _State:
+    o: torch.Tensor
+    d: torch.Tensor
+    L: torch.Tensor
+    atten: torch.Tensor
+    active: torch.Tensor
+    specular: torch.Tensor
+    acc_rough: torch.Tensor
+    last_pdf: torch.Tensor
+    last_p: torch.Tensor
+    spec_depth: torch.Tensor  # near-specular scatters so far (roughness < 0.3)
+    depth: int = 0
+
+    _LANE_FIELDS = (
+        "o", "d", "L", "atten", "active", "specular", "acc_rough",
+        "last_pdf", "last_p", "spec_depth",
+    )
+
+    def take(self, idx) -> "_State":
+        return _State(**{f: getattr(self, f)[idx] for f in self._LANE_FIELDS}, depth=self.depth)
+
+
+class _Counters:
+    """Ray count and per-depth active-lane counts, accumulated as device
+    tensors so the loop syncs only on its exit test."""
+
+    def __init__(self, max_depth: int, device):
+        self.rays = torch.zeros((), dtype=torch.float64, device=device)
+        self.live = torch.zeros(max_depth, dtype=torch.float64, device=device)
+
+
+def _check_supported(meta: SceneMeta, cfg: RenderConfig, differentiable: bool) -> None:
+    if differentiable or cfg.diff_geometry:
+        raise NotImplementedError(
+            "differentiable rendering is not ported yet (ROADMAP.md A.8)"
+        )
+    if cfg.shade_kernel != "off":
+        raise NotImplementedError(
+            f"shade_kernel={cfg.shade_kernel!r}: the fused shade path (B5/B6) is "
+            "not ported yet (ROADMAP.md A.11)"
+        )
+    if meta.any_textures:
+        raise NotImplementedError(
+            "textured scenes are not ported yet (ROADMAP.md A.3, the "
+            "env-lighting + textures slice)"
+        )
+
+
+def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters, mis: bool) -> _State:
+    """One bounce of every lane in `st` (the body of li's loop)."""
+    n = st.active.shape[0]
+    depth = st.depth
+    dim0 = 4 + depth * 8
+    n_act = st.active.sum().to(torch.float64)
+    cnt.rays += n_act
+    cnt.live[depth] += n_act
+
+    # Retired lanes trace with t_max = -1: instant misses.
+    tmax_lane = torch.where(st.active, INF, -1.0)
+    hit = intersect(scene, meta, st.o, st.d, tmax_lane, t_min=RAY_EPS)
+    found = hit.mask & st.active
+
+    # ---- miss: background (mis-integrator.cpp:27-43) ----
+    miss = st.active & ~hit.mask
+    L = st.L + torch.where(miss[..., None], st.atten * scene.background, 0.0)
+
+    # ---- surface shading ----
+    sh = shading_data(scene, meta, hit, st.o, st.d)
+    mat = B.resolve_material(scene, meta, sh.mat)
+    u = sampler.get2d(lane_state, dim0)
+    uc = sampler.get1d(lane_state, dim0 + 2)
+    uc2 = sampler.get1d(lane_state, dim0 + 3)
+
+    regularized = st.acc_rough > cfg.regularize_threshold
+    if cfg.regularize_specular is not None:
+        regularized = regularized | (st.spec_depth >= cfg.regularize_specular)
+    fx, fy, fz = frame_from_normal_tangent(sh.n, sh.tg)
+    wo_local = world_to_local(-st.d, fx, fy, fz)
+    smp = B.bsdf_sample(tables, mat, wo_local, u, uc, uc2, regularized, meta=meta)
+    wi_world = local_to_world(smp.wi, fx, fy, fz)
+
+    # ---- emitted radiance (mis-integrator.cpp:60-74) ----
+    emitted = B.has_flag(smp.flags, B.EMITTED) & found
+    if mis:
+        dist2 = ((st.last_p - sh.p) ** 2).sum(dim=-1)
+        if meta.n_lights:
+            lidx = torch.clamp(sh.light, 0, meta.n_lights - 1).long()
+            pdf_area = 1.0 / torch.clamp_min(scene.light_area[lidx], 1e-20)
+            sel_p = lights.select_p_area(scene, meta, lidx, kind=cfg.light_sampler)
+        else:
+            pdf_area = torch.zeros(n, dtype=torch.float32, device=L.device)
+            sel_p = pdf_area
+        pdf_light = pdf_area * dist2 * sel_p / torch.clamp_min(absdot(-st.d, sh.n), 1e-9)
+        first = depth == 0
+        w_b = torch.where(
+            st.specular | (sh.light < 0) | first,
+            1.0,
+            st.last_pdf / torch.clamp_min(st.last_pdf + pdf_light, 1e-20),
+        )
+        L = L + torch.where(emitted[..., None], st.atten * smp.Le * w_b[..., None], 0.0)
+    else:
+        L = L + torch.where(emitted[..., None], st.atten * smp.Le, 0.0)
+
+    scattered = B.has_flag(smp.flags, B.REFLECTED | B.TRANSMITTED) & found
+
+    # ---- NEE direct lighting (mis-integrator.cpp:76-80, 111-133) ----
+    if mis and meta.n_lights > 0:
+        do_nee = scattered & ~B.has_flag(smp.flags, B.EMITTED | B.SPECULAR)
+        uc_l = sampler.get1d(lane_state, dim0 + 4)
+        u_l = sampler.get2d(lane_state, dim0 + 5)
+        ls = lights.sample_light(scene, meta, sh.p, uc_l, u_l, kind=cfg.light_sampler)
+
+        wi_l_local = world_to_local(ls.wi, fx, fy, fz)
+        f_l = B.bsdf_f(tables, mat, wo_local, wi_l_local, meta=meta)
+        pdf_b = B.bsdf_pdf(tables, mat, wo_local, wi_l_local, meta=meta)
+        to_l = ls.p - sh.p
+        dist2_l = (to_l * to_l).sum(dim=-1)
+        dist_l = torch.sqrt(torch.clamp_min(dist2_l, 1e-20))
+        nee_need = do_nee & ls.valid & ((f_l * f_l).sum(dim=-1) > 0.0)
+        shadow_d = to_l / dist_l[..., None]
+        shadow_tmax = torch.where(nee_need, dist_l - 1e-3, -1.0)
+        occ = intersect(scene, meta, sh.p, shadow_d, shadow_tmax, t_min=RAY_EPS, nee=True)
+        cnt.rays += nee_need.sum().to(torch.float64)
+
+        pdf_light = ls.select_p * ls.pdf / torch.clamp_min(absdot(ls.n, ls.wi), 1e-9)
+        pdf_light = torch.where(ls.is_env, pdf_light, pdf_light * dist2_l)
+        contrib = ls.Li * f_l * (absdot(ls.wi, sh.n) / torch.clamp_min(pdf_b + pdf_light, 1e-20))[..., None]
+        ok = nee_need & ~occ.mask
+        L = L + torch.where(ok[..., None], st.atten * contrib, 0.0)
+
+    # ---- throughput update (mis-integrator.cpp:83-96) ----
+    fcos = smp.f * absdot(wi_world, sh.n)[..., None]
+    atten = st.atten * fcos / torch.clamp_min(smp.pdf, 1e-20)[..., None]
+    vol = B.volume_attenuation(mat, hit.t)
+    atten = torch.where((sh.back & scattered)[..., None], atten * vol, atten)
+
+    active = st.active & scattered
+    specular = B.has_flag(smp.flags, B.SPECULAR)
+    acc_rough = st.acc_rough + torch.where(scattered, smp.roughness, 0.0)
+    depth_new = depth + 1
+
+    # ---- russian roulette (mis-integrator.cpp:98-102) ----
+    if mis and depth_new >= cfg.rr_start_depth:
+        u_rr = sampler.get1d(lane_state, dim0 + 7)
+        q = torch.clamp_min(1.0 - max_component(atten), 0.0)
+        active = active & ~(u_rr < q)
+        scale = torch.where(active, 1.0 / torch.clamp_min(1.0 - q, 1e-9), 1.0)
+        atten = atten * scale[..., None]
+
+    atten = torch.where(active[..., None], atten, st.atten)
+    a3 = active[..., None]
+    return _State(
+        o=torch.where(a3, sh.p, st.o),
+        d=torch.where(a3, wi_world, st.d),
+        L=L,
+        atten=atten,
+        active=active,
+        specular=torch.where(active, specular, st.specular),
+        acc_rough=acc_rough,
+        last_pdf=torch.where(active, smp.pdf, st.last_pdf),
+        last_p=torch.where(a3, sh.p, st.last_p),
+        spec_depth=torch.where(
+            active, st.spec_depth + (smp.roughness < 0.3).to(torch.int32), st.spec_depth
+        ),
+        depth=depth_new,
+    )
+
+
+def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: RenderConfig,
+       mis: bool = True, return_live: bool = False, differentiable: bool = False):
+    """Trace radiance for a wavefront of camera rays.
+
+    Returns (L [N, 3], ray count []) — plus the [max_depth] per-depth
+    active-lane counts when `return_live` (the compaction autotune probe).
+    `lane_state` comes from `sampler.init_lanes`. `differentiable=True` is
+    refused: the gradient path is a later slice.
+    """
+    _check_supported(meta, cfg, differentiable)
+    n = o.shape[0]
+    dev = o.device
+    tables = lut.load_tables(dev)
+    cnt = _Counters(cfg.max_depth, dev)
+    st = _State(
+        o=o,
+        d=d,
+        L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        atten=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        specular=torch.zeros(n, dtype=torch.bool, device=dev),
+        acc_rough=torch.zeros(n, dtype=torch.float32, device=dev),
+        last_pdf=torch.zeros(n, dtype=torch.float32, device=dev),
+        last_p=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        spec_depth=torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+
+    def run(st, lanes, stop):
+        while st.depth < stop and bool(st.active.any()):
+            st = _bounce(scene, meta, sampler, lanes, cfg, tables, st, cnt, mis)
+        return st
+
+    split = cfg.compact_depth
+    if split == "auto":
+        # Env-lit scenes retire most lanes within two bounces; closed scenes
+        # keep too many survivors for the cap (integrator.py:834-839).
+        split = 2 if meta.has_env else None
+    cap = 0
+    if split and split < cfg.max_depth:
+        cap = max(128, (n // max(cfg.compact_factor, 2)) // 128 * 128)
+    if not cap or cap >= n:
+        st = run(st, lane_state, cfg.max_depth)
+    else:
+        # Staged wavefront compaction (integrator.py:848-885): after `split`
+        # bounces the survivors move into `cap` lanes (stable sort: active
+        # lanes first, in lane order) with their sampler state, so every
+        # draw and hence the image is unchanged; active lanes beyond the cap
+        # drain afterwards at full width from depth `split`.
+        st = run(st, lane_state, split)
+        idx = torch.argsort((~st.active).to(torch.uint8), stable=True)[:cap]
+        st_c = run(st.take(idx), lane_state[idx], cfg.max_depth)
+        in_idx = torch.zeros(n, dtype=torch.bool, device=dev)
+        in_idx[idx] = True
+        st.L = st.L.index_put((idx,), st_c.L)
+        st.active = st.active & ~in_idx
+        st = run(st, lane_state, cfg.max_depth)
+    if return_live:
+        return st.L, cnt.rays, cnt.live
+    return st.L, cnt.rays
+
+
+def render_wave(scene: CompiledScene, meta: SceneMeta, cam: CameraParams, sampler,
+                cfg: RenderConfig, px, py, sample_idx, return_live: bool = False):
+    """Camera raygen + Li for a batch of (pixel, sample) lanes. px, py: [N]
+    int pixel coords; sample_idx: [N] global sample indices. Returns
+    (radiance [N, 3] scaled by exposure, ray count) (+ live counts)."""
+    lane_state = sampler.init_lanes(px, py, sample_idx)
+    u_film = sampler.get2d(lane_state, 0)
+    u_lens = sampler.get2d(lane_state, 2)
+    o, d = generate_rays(cam, px, py, u_film, u_lens)
+    out = li(scene, meta, sampler, lane_state, o, d, cfg,
+             mis=cfg.integrator == "mis", return_live=return_live)
+    L = out[0]
+    if cfg.clamp is not None:
+        L = torch.clamp_max(L, float(cfg.clamp))
+    return (L * cam.exposure_scale,) + tuple(out[1:])
