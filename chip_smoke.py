@@ -5,20 +5,36 @@
 Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no final "ok" line:
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — build every kernel of the render path from csrc/ (nvcc).
+  2. build   — build every kernel of the render paths from csrc/ (nvcc),
+               one nvcc per source, all started together.
   3. kernel  — B1 (brute-force intersection) against its plain PyTorch twin
                on the card, bitwise, at cornell-mat's triangles with 2^20
                camera rays and at a seeded 4096-triangle soup with 2^20
                random rays (+ a ragged N and retired t_max = -1 lanes);
                median times from CUDA events.
+  3b. kernel — B2 (presort) and B3 (fused trace) against their twins,
+               bitwise, on the bench's big scene (60 seeded spheres,
+               132,480 triangles, clusters of 128, built by the port's own
+               builder) with 262,144 incoherent and coherent rays (+ a
+               block of retired lanes and a ragged N through the whole
+               block trace); median times from CUDA events.
+  3c. kernel — B2 and B3 against their twins, bitwise, at the spheres
+               render's shapes: 2^20 camera rays from the CLI's camera
+               (closest hit), then shadow rays from their hits as any-hit
+               queries (nee) with a finite t_max. This case gives the
+               kernels line its times and bounds.
   4. render  — the main path: Renderer on cuda, cornell-mat 512x512, max
                depth 30, ZSobol, GMoN, AgX, 64 spp in the CLI's waves;
                B1's launch count must be > 0 and the plain twin must not
                have run on CUDA.
-  5. reference — the golden_v1 cornell_mat_64 configuration: the kernel
-               path's image must equal the plain-twin path's bitwise, and
-               its per-channel mean must lie within 2% of the golden's.
-The line before the last is the card as nvidia-smi reports it; the last
+  4b. render — the same for `spheres` (14,402 triangles, env-lit, the
+               CLI's camera): every ray goes through B2 and B3.
+  5. reference — the golden_v1 cornell_mat_64 and spheres_dof
+               configurations: the kernel path's image must equal the
+               plain-twin path's bitwise, and its per-channel mean must
+               lie within 2% of the golden's.
+The kernels line lists B1, B2 and B3 with their launches on the main
+paths, times and bounds; then the card as nvidia-smi reports it; the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -31,11 +47,20 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "golden_v1.npz")
 GOLDEN_MEAN_RTOL = 0.02  # statistical: the port's own scene has another triangle order
+# Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
+# cores and HBM bandwidth; the bound of a kernel is the larger of its
+# operations over the first and its bytes over the second.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+FLOPS_MT = 40  # B1: one Moller-Trumbore ray-triangle test
+FLOPS_SLAB = 24  # B2: one conservative ray-box slab test with margins
+FLOPS_PLANE = 30  # B3: one plane + barycentric ray-triangle test
 
 
 def emit(obj) -> None:
@@ -50,14 +75,14 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5, warmup_s: float = 0.25) -> float:
-    """Median milliseconds of fn() from CUDA events, after at least two
-    warm-up calls and `warmup_s` seconds of them (so the clocks have ramped
-    up before a sub-millisecond kernel is timed)."""
+def cuda_ms(fn, reps: int = 5, warmup_s: float = 0.25, warmup_calls: int = 2) -> float:
+    """Median milliseconds of fn() from CUDA events, after at least
+    `warmup_calls` warm-up calls and `warmup_s` seconds of them (so the
+    clocks have ramped up before a sub-millisecond kernel is timed)."""
     import torch
 
     calls, t_end = 0, time.perf_counter() + warmup_s
-    while calls < 2 or time.perf_counter() < t_end:
+    while calls < warmup_calls or time.perf_counter() < t_end:
         fn()
         torch.cuda.synchronize()
         calls += 1
@@ -72,6 +97,16 @@ def cuda_ms(fn, reps: int = 5, warmup_s: float = 0.25) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def bits_equal(a, b) -> bool:
@@ -104,26 +139,221 @@ def compare_brute(name, tri_pack, o, d, t_max, n_tris):
     if o.shape[0] >= 1 << 20:
         rec["ms"] = cuda_ms(lambda: brute.brute_cuda(tri_pack, o, d, t_max, n_tris, 1e-3), reps=21)
         rec["plain_ms"] = cuda_ms(lambda: brute.brute_plain(tri_pack, o, d, t_max, n_tris, 1e-3), reps=3)
+        live = int((t_max > 1e-3).sum())
+        rec["bound_ms"], rec["bound_by"] = bound(
+            FLOPS_MT * live * n_tris, nbytes(tri_pack[:n_tris], o, d, t_max, *k))
+    return rec
+
+
+def big_scene(dev):
+    """tools/perf_trace.py:31-43 `build_scene(60, 128)`, the bench's big
+    scene, built by the port's builder."""
+    import numpy as np
+
+    from yart_tpu_torch.scene.builder import SceneBuilder
+    from yart_tpu_torch.scene.procedural import uv_sphere
+
+    rng = np.random.default_rng(7)
+    b = SceneBuilder()
+    m = b.add_material(roughness=0.4)
+    for _ in range(60):
+        c = rng.uniform(-6, 6, size=3)
+        r = rng.uniform(0.4, 1.2)
+        pos, nrm, tri = uv_sphere(c, r, n_theta=24, n_phi=48)
+        b.add_mesh(pos, tri, m, normals=nrm)
+    return b.compile(dev)
+
+
+def make_rays(n: int, coherent: bool):
+    """tools/perf_trace.py:46-57 (the rays of bench.py's bigscene rows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    if coherent:
+        o = np.tile(np.asarray([[0.0, 0.0, 20.0]], np.float32), (n, 1))
+        xy = rng.uniform(-0.45, 0.45, size=(n, 2))
+        d = np.concatenate([xy, -np.ones((n, 1))], axis=1).astype(np.float32)
+    else:
+        o = rng.uniform(-8, 8, size=(n, 3)).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def camera_rays(cam_cfg, dev):
+    """One ZSobol-jittered camera ray per pixel of the square image of
+    `cam_cfg`, as a render's first bounce makes them."""
+    import torch
+
+    from yart_tpu_torch.ops.qmc import make_sampler
+    from yart_tpu_torch.render.camera import build_camera, generate_rays
+
+    side = cam_cfg.image_size[0]
+    cam = build_camera(cam_cfg, dev)
+    yy, xx = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
+    px, py = xx.reshape(-1), yy.reshape(-1)
+    sampler = make_sampler("zsobol", 1, (side, side), device=dev)
+    state = sampler.init_lanes(px, py, torch.zeros_like(px))
+    o, d = generate_rays(cam, px, py, sampler.get2d(state, 0), sampler.get2d(state, 2))
+    return o.contiguous(), d.contiguous()
+
+
+def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = False):
+    """B2 and B3 kernels vs their plain twins on the same card tensors, as
+    the block trace calls them (ray matrix, presort, schedule, one gather);
+    raises on any bit difference. Returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
+
+    t_min = 1e-3
+    rays = blocktrace.ray_matrix(o, d, t_max)
+    box, n_clus = scene.clus_box, meta.n_clusters
+    pk = presort.presort_cuda(rays, box, n_clus, t_min)
+    pk_p = presort.presort_plain(rays, box, n_clus, t_min)
+    torch.cuda.synchronize()
+    b2_rows = int((pk != pk_p).any(dim=1).sum())
+    b2_err = float((pk.long() - pk_p.long()).abs().max())
+    if b2_rows:
+        raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows (max abs {b2_err})")
+    order, blive = blocktrace.schedule(pk)
+    args = (rays[order].contiguous(), pk[order, 1 : 1 + presort.N_SLOTS].contiguous(), box,
+            scene.clus_pack, blocktrace.cluster_counts(scene), blive, t_min, nee)
+    out = fusedtrace.fused_trace_cuda(*args)
+    out_p = fusedtrace.fused_trace_plain(*args)
+    torch.cuda.synchronize()
+    hit = out[:, 4].contiguous().view(torch.int32) >= 0
+    b3_err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
+    if not bits_equal(out, out_p):
+        diff = [i for i in range(8) if not bits_equal(out[:, i].contiguous(), out_p[:, i].contiguous())]
+        raise AssertionError(f"{name}: B3 kernel and plain twin differ in columns {diff} "
+                             f"(max abs t/u/v over hits {b3_err})")
+    live = int((rays[:, 6] > 0).sum())
+    rec = {"case": name, "nee": nee, "n_rays": int(o.shape[0]), "n_tris": int(meta.n_tris),
+           "n_clusters": int(n_clus), "live_rays": live, "hit_frac": float(hit.float().mean()),
+           "bitwise_equal": True, "b2_rows_differ": b2_rows, "b2_max_abs_err": b2_err,
+           "b3_max_abs_err": b3_err, "live_blocks": int(blive.sum()),
+           "clusters_tested": float(out[:, 5].double().sum()),
+           "tris_tested": float(out[:, 6].double().sum()),
+           "entered_mean": float(pk[:, 5].double().sum() / max(live, 1))}
+    if timed:
+        rec["b2_ms"] = cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11)
+        rec["b2_plain_ms"] = cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)
+        rec["b2_bound_ms"], rec["b2_bound_by"] = bound(
+            FLOPS_SLAB * live * n_clus, nbytes(rays, box, pk))
+        rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args), reps=11)
+        rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args), reps=1,
+                                     warmup_s=0.0, warmup_calls=1)
+        rec["b3_bound_ms"], rec["b3_bound_by"] = bound(
+            FLOPS_PLANE * rec["tris_tested"], nbytes(*args[:6], out))
+        rec["pipeline_ms"] = cuda_ms(
+            lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee), reps=11)
+        rec["mrays_per_s"] = o.shape[0] / rec["pipeline_ms"] / 1e3
     return rec
 
 
 @contextlib.contextmanager
 def intersection_forced_to_plain():
-    """Test-only switch for phase 5a: route the render path's B1 calls to
-    the plain twin (on the same CUDA tensors) instead of the kernel."""
-    from yart_tpu_torch.kernels import brute
+    """Test-only switch for phase 5: route the render path's B1, B2 and B3
+    calls to the plain twins (on the same CUDA tensors) instead of the
+    kernels."""
+    from yart_tpu_torch.kernels import brute, fusedtrace, presort
 
-    saved = brute.brute_intersect
+    saved = brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace
     brute.brute_intersect = brute.brute_plain
+    presort.presort_keys = presort.presort_plain
+    fusedtrace.fused_trace = fusedtrace.fused_trace_plain
     try:
         yield
     finally:
-        brute.brute_intersect = saved
+        brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace = saved
+
+
+def reset_counts():
+    from yart_tpu_torch.kernels import brute, fusedtrace, presort
+
+    for m in (brute, presort, fusedtrace):
+        m.COUNTS.reset()
+
+
+def render_main_path(name, scene, meta, cam_cfg, spp, dev):
+    """Drive Renderer on the card with every kernel count set to 0 just
+    before; returns (record, image, {kernel: launches}) read just after."""
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.config import RenderConfig
+    from yart_tpu_torch.io.image import write_png
+    from yart_tpu_torch.kernels import brute, fusedtrace, presort
+    from yart_tpu_torch.render.renderer import Renderer
+
+    # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
+    # probes per-depth live lanes and the later ones run the compaction
+    # the autotune picks, so the staged-compaction path runs on the card.
+    cfg = RenderConfig(samples=spp, max_depth=30, sampler="zsobol", estimator="gmon",
+                       tonemap="agx", first_wave_samples=8, max_wave_samples=128)
+    waves = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.time()
+    res = Renderer(scene, meta, cam_cfg, cfg, device=dev).render(
+        on_wave=lambda wd, _: waves.append(
+            {"wave": wd.wave, "spp": wd.wave_samples, "compaction": wd.compact,
+             "seconds": round(wd.time, 3)}
+        )
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
+                "fused_trace": fusedtrace.COUNTS.launches}
+    plain_cuda = brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
+    peak = torch.cuda.max_memory_allocated(dev)
+    if plain_cuda != 0:
+        raise AssertionError(f"{name}: the plain twins ran {plain_cuda} times on CUDA tensors in the render")
+    hdr = res.hdr
+    if not np.isfinite(hdr).all() or not hdr.mean() > 0.01:
+        raise AssertionError(f"{name}: bad image: finite={np.isfinite(hdr).all()} mean={hdr.mean()}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    png = os.path.join(OUT_DIR, f"{name}_{cam_cfg.image_size[0]}.png")
+    write_png(png, res.display)
+    rec = {"phase": "render", "scene": name, "n_tris": int(meta.n_tris), "size": list(cam_cfg.image_size),
+           "spp": res.samples_taken, "max_depth": 30, "wall_s": round(wall, 3), "rays": res.total_rays,
+           "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
+           "launches": launches, "plain_calls_on_cuda": plain_cuda, "waves": waves,
+           "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)}
+    return rec, launches
+
+
+def reference_check(name, scene, meta, gcam, gcfg, golden_key, dev):
+    """Kernel-path image == plain-path image bitwise; channel means within
+    GOLDEN_MEAN_RTOL of the golden's."""
+    import numpy as np
+
+    from yart_tpu_torch.render.renderer import Renderer
+
+    img_k = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
+    with intersection_forced_to_plain():
+        img_p = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
+    if not np.array_equal(img_k.view(np.int32), img_p.view(np.int32)):
+        raise AssertionError(
+            f"{name}: kernel-path and plain-path images differ (max abs {np.abs(img_k - img_p).max()})"
+        )
+    with np.load(GOLDEN) as z:
+        golden = z[golden_key]
+    gm, km = golden.mean(axis=(0, 1)), img_k.mean(axis=(0, 1))
+    rel = np.abs(km - gm) / gm
+    if not (rel <= GOLDEN_MEAN_RTOL).all():
+        raise AssertionError(f"{name}: channel means {km} vs golden {gm}: rel {rel} > {GOLDEN_MEAN_RTOL}")
+    return {"phase": "reference", "config": f"golden_v1 {golden_key}", "kernel_eq_plain_bitwise": True,
+            "mean": [float(x) for x in km], "golden_mean": [float(x) for x in gm],
+            "rel_err": [float(x) for x in rel], "rtol": GOLDEN_MEAN_RTOL}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 render")
+    ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 renders")
     args = ap.parse_args()
 
     import numpy as np
@@ -134,13 +364,11 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA GPU")
     # Imported before anything is printed: a copy of this script without the
     # package fails here with no output.
+    from yart_tpu_torch.cli import CAMERAS
     from yart_tpu_torch.config import CameraConfig, RenderConfig
-    from yart_tpu_torch.io.image import write_png
-    from yart_tpu_torch.kernels import brute
-    from yart_tpu_torch.ops.qmc import make_sampler
-    from yart_tpu_torch.render.camera import build_camera, generate_rays
-    from yart_tpu_torch.render.renderer import Renderer
-    from yart_tpu_torch.scene.procedural import cornell_box
+    from yart_tpu_torch.kernels import brute, fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
+    from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -153,23 +381,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    # ---- 2. build -------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.time()
-    compiled = brute.build()
-    emit({"phase": "build", "kernel": "brute_intersect", "compiled_now": compiled,
+    kernels = {"brute_intersect": brute, "presort_keys": presort, "fused_trace": fusedtrace}
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        compiled = dict(zip(kernels, pool.map(lambda m: m.build(), kernels.values())))
+    emit({"phase": "build", "kernels": list(kernels), "compiled_now": compiled,
           "seconds": round(time.time() - t0, 3)})
 
-    # ---- 3. kernel vs plain twin ----------------------------------------
+    # ---- 3. B1 vs plain twin --------------------------------------------
     scene, meta = cornell_box(extra_materials=True).compile(dev)
-    side = 1024  # 2^20 camera rays, one per pixel
-    cam = build_camera(CameraConfig(image_size=(side, side), focal_length=28.0,
+    side = 1024  # 2^20 camera rays, one per pixel: one chunk of the render
+    o, d = camera_rays(CameraConfig(image_size=(side, side), focal_length=28.0,
                                     position=(0, 1.0, 3.4), forward=(0, 0, -1)), dev)
-    yy, xx = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
-    px, py = xx.reshape(-1), yy.reshape(-1)
-    sampler = make_sampler("zsobol", 1, (side, side), device=dev)
-    state = sampler.init_lanes(px, py, torch.zeros_like(px))
-    o, d = generate_rays(cam, px, py, sampler.get2d(state, 0), sampler.get2d(state, 2))
-    o, d = o.contiguous(), d.contiguous()
     t_max = torch.full((o.shape[0],), 1e30, device=dev)
     rec_a = compare_brute("cornell_mat_camera", scene.tri_pack, o, d, t_max, meta.n_tris)
     emit({"phase": "kernel", **rec_a})
@@ -194,75 +418,99 @@ def main() -> int:
     rec_c = compare_brute("soup_4096_ragged_1000", soup_t, ro_t[-1000:], rd_t[-1000:], tm_t[-1000:], n_soup)
     emit({"phase": "kernel", **rec_c})
 
-    # ---- 4. main path ---------------------------------------------------
-    cam_cfg = CameraConfig(image_size=(512, 512), focal_length=35.0,
-                           position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
-    # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
-    # probes per-depth live lanes and the later ones run the compaction
-    # the autotune picks, so the staged-compaction path runs on the card.
-    cfg = RenderConfig(samples=args.spp, max_depth=30, sampler="zsobol",
-                       estimator="gmon", tonemap="agx",
-                       first_wave_samples=8, max_wave_samples=128)
-    waves = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    brute.COUNTS.reset()
+    # ---- 3b. B2 + B3 vs plain twins on the bench's big scene ------------
     t0 = time.time()
-    res = Renderer(scene, meta, cam_cfg, cfg, device=dev).render(
-        on_wave=lambda wd, _: waves.append(
-            {"wave": wd.wave, "spp": wd.wave_samples, "compaction": wd.compact,
-             "seconds": round(wd.time, 3)}
-        )
-    )
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches, plain_cuda = brute.COUNTS.launches, brute.COUNTS.plain_cuda
-    peak = torch.cuda.max_memory_allocated(dev)
-    if launches <= 0:
-        raise AssertionError("the render path launched B1 no time")
-    if plain_cuda != 0:
-        raise AssertionError(f"the plain twin ran {plain_cuda} times on CUDA tensors in the render")
-    hdr = res.hdr
-    if not np.isfinite(hdr).all() or not hdr.mean() > 0.01:
-        raise AssertionError(f"bad image: finite={np.isfinite(hdr).all()} mean={hdr.mean()}")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    png = os.path.join(OUT_DIR, "cornell_mat_512.png")
-    write_png(png, res.display)
-    emit({"phase": "render", "scene": "cornell-mat", "size": [512, 512], "spp": res.samples_taken,
-          "max_depth": 30, "wall_s": round(wall, 3), "rays": res.total_rays,
-          "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
-          "b1_launches": launches, "plain_calls_on_cuda": plain_cuda, "waves": waves,
-          "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)})
+    big, big_meta = big_scene(dev)
+    emit({"phase": "scene", "scene": "bench bigscene (60 spheres)", "n_tris": big_meta.n_tris,
+          "n_clusters": big_meta.n_clusters, "n_clus_pad": big_meta.n_clus_pad,
+          "build_s": round(time.time() - t0, 3)})
+    lanes = 262144  # bench.py's lane count
+    recs = {}
+    for case, coherent in (("incoherent", False), ("coherent", True)):
+        bo, bd = (torch.from_numpy(a).to(dev) for a in make_rays(lanes, coherent))
+        bt = torch.full((lanes,), 100.0, device=dev)
+        if not coherent:
+            bt[: 1 << 14] = -1.0  # a block of retired lanes
+        recs[case] = compare_blocktrace(f"bigscene_{case}", big, big_meta, bo, bd, bt, timed=True)
+        emit({"phase": "kernel", **recs[case]})
+    rec_r = compare_blocktrace("bigscene_incoherent_ragged_1000", big, big_meta, bo[-1000:], bd[-1000:],
+                               torch.full((1000,), 100.0, device=dev), timed=False)
+    emit({"phase": "kernel", **rec_r})
 
-    # ---- 5. reference check --------------------------------------------
+    # ---- 3c. B2 + B3 vs plain twins at the spheres render's shapes -------
+    # A chunk of 2^20 camera rays from the CLI's camera (closest hit), then
+    # shadow rays from their hits as any-hit queries (nee) with a finite
+    # t_max, the misses retired, as the render's NEE sends them.
+    spheres, spheres_meta = material_test_spheres().compile(dev)
+    pos, target = CAMERAS["spheres"]
+    spheres_fwd = tuple(t - p for p, t in zip(pos, target))
+    so, sd = camera_rays(CameraConfig(image_size=(side, side), focal_length=35.0, position=pos,
+                                      forward=spheres_fwd), dev)
+    st = torch.full((so.shape[0],), 1e30, device=dev)
+    rec_s = compare_blocktrace("spheres_camera", spheres, spheres_meta, so, sd, st, timed=True)
+    emit({"phase": "kernel", **rec_s})
+    t_hit, _, _, _, tri_hit, _, _ = blocktrace.intersect_blocktrace(spheres, spheres_meta, so, sd, st)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sh_d = torch.randn(so.shape, generator=gen, device=dev)
+    sh_d = sh_d / sh_d.norm(dim=1, keepdim=True)
+    sh_d = torch.where((sh_d * sd).sum(dim=1, keepdim=True) > 0, -sh_d, sh_d)  # back toward the camera side
+    sh_o = (so + t_hit[:, None] * sd).contiguous()
+    sh_t = torch.where(tri_hit >= 0, torch.rand(so.shape[0], generator=gen, device=dev) * 20.0 + 0.1, -1.0)
+    rec_n = compare_blocktrace("spheres_shadow_nee", spheres, spheres_meta, sh_o, sh_d.contiguous(), sh_t,
+                               timed=False, nee=True)
+    emit({"phase": "kernel", **rec_n})
+    bt_recs = [recs["incoherent"], recs["coherent"], rec_r, rec_s, rec_n]
+
+    # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
+    cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
+                               position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
+    rec, launches_cornell = render_main_path("cornell-mat", scene, meta, cornell_cam, args.spp, dev)
+    emit(rec)
+    if launches_cornell["brute_intersect"] <= 0:
+        raise AssertionError("the cornell-mat render launched B1 no time")
+
+    spheres_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=pos, forward=spheres_fwd)
+    rec, launches_spheres = render_main_path("spheres", spheres, spheres_meta, spheres_cam, args.spp, dev)
+    emit(rec)
+    if launches_spheres["presort_keys"] <= 0 or launches_spheres["fused_trace"] <= 0:
+        raise AssertionError(f"the spheres render did not launch B2 and B3: {launches_spheres}")
+    if launches_spheres["brute_intersect"] != 0:
+        raise AssertionError("a spheres ray went to B1 instead of the block trace")
+
+    # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
     gcfg = RenderConfig(samples=16, max_depth=6, tonemap="none", estimator="gmon",
                         first_wave_samples=16, max_wave_samples=16)
-    img_k = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
-    with intersection_forced_to_plain():
-        img_p = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
-    if not np.array_equal(img_k.view(np.int32), img_p.view(np.int32)):
-        raise AssertionError(
-            f"kernel-path and plain-path images differ (max abs {np.abs(img_k - img_p).max()})"
-        )
-    with np.load(GOLDEN) as z:
-        golden = z["cornell_mat_64"]
-    gm, km = golden.mean(axis=(0, 1)), img_k.mean(axis=(0, 1))
-    rel = np.abs(km - gm) / gm
-    if not (rel <= GOLDEN_MEAN_RTOL).all():
-        raise AssertionError(f"channel means {km} vs golden {gm}: rel {rel} > {GOLDEN_MEAN_RTOL}")
-    emit({"phase": "reference", "config": "golden_v1 cornell_mat_64", "kernel_eq_plain_bitwise": True,
-          "mean": [float(x) for x in km], "golden_mean": [float(x) for x in gm],
-          "rel_err": [float(x) for x in rel], "rtol": GOLDEN_MEAN_RTOL})
+    emit(reference_check("cornell-mat", scene, meta, gcam, gcfg, "cornell_mat_64", dev))
+    scam = CameraConfig(image_size=(48, 48), focal_length=40.0, f_number=2.8, position=(0, 2.2, 5.5),
+                        forward=(0, -1.8, -6.1), aperture_sides=6)
+    scfg = RenderConfig(samples=16, max_depth=6, tonemap="none", estimator="mean",
+                        first_wave_samples=16, max_wave_samples=16)
+    emit(reference_check("spheres", spheres, spheres_meta, scam, scfg, "spheres_dof", dev))
 
-    print(json.dumps({"kernels": [{
-        "name": "brute_intersect", "route": "cuda",
-        "source": "yart_tpu_torch/csrc/brute_intersect.cu",
-        "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
-        "launches": launches,
-        "max_abs_err": max(rec_a["max_abs_err"], rec_b["max_abs_err"], rec_c["max_abs_err"]),
-        "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "brute_intersect", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/brute_intersect.cu",
+         "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
+         "launches": launches_cornell["brute_intersect"],
+         "max_abs_err": max(rec_a["max_abs_err"], rec_b["max_abs_err"], rec_c["max_abs_err"]),
+         "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
+         "bound_ms": rec_a["bound_ms"], "bound_by": rec_a["bound_by"], "library_ms": None},
+        {"name": "presort_keys", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/presort_keys.cu",
+         "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:999",
+         "launches": launches_spheres["presort_keys"],
+         "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs),
+         "ms": rec_s["b2_ms"], "plain_ms": rec_s["b2_plain_ms"],
+         "bound_ms": rec_s["b2_bound_ms"], "bound_by": rec_s["b2_bound_by"], "library_ms": None},
+        {"name": "fused_trace", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/fused_trace.cu",
+         "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:1128",
+         "launches": launches_spheres["fused_trace"],
+         "max_abs_err": max(r["b3_max_abs_err"] for r in bt_recs),
+         "ms": rec_s["b3_ms"], "plain_ms": rec_s["b3_plain_ms"],
+         "bound_ms": rec_s["b3_bound_ms"], "bound_by": rec_s["b3_bound_by"], "library_ms": None},
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

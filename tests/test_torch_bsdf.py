@@ -52,7 +52,7 @@ def _random_materials_scene(rng, n_mat=24):
         )
     verts = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     b.add_mesh(verts, np.asarray([[0, 1, 2]]), 0)
-    return b.compile()
+    return b.compile()  # the JAX builder
 
 
 @pytest.fixture(scope="module", params=["cornell_mat", "random_materials"])
@@ -62,7 +62,7 @@ def case(request):
         js, jm = cornell_box(extra_materials=True).compile()
     else:
         js, jm = _random_materials_scene(rng)
-    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm))
+    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm), device="cpu")
 
     def unit():
         w = rng.normal(size=(N, 3)).astype(np.float32)
@@ -132,6 +132,7 @@ def test_textured_materials_refused():
     _, tm = from_numpy(
         jax.tree_util.tree_map(np.asarray, cornell_box().compile()[0]),
         dict(n_tris=12, n_materials=4, n_lights=2, any_textures=True),
+        device="cpu",
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TB.resolve_material(None, tm, torch.zeros(1, dtype=torch.int32))

@@ -1,21 +1,24 @@
-"""B1 on the card: the Hopper kernel against its plain PyTorch twin.
+"""B1, B2 and B3 on the card: each Hopper kernel against its plain
+PyTorch twin, and renders that go through them.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernel is built with --fmad=false and follows `_mt_test`'s operation
-order, so kernel and twin must agree bitwise."""
+The kernels are built with --fmad=false and repeat their twins' float
+operations in order, so kernel and twin must agree bitwise."""
 
 import numpy as np
 import pytest
 import torch
 
 from yart_tpu_torch.config import CameraConfig, RenderConfig
-from yart_tpu_torch.kernels import brute
+from yart_tpu_torch.kernels import brute, fusedtrace, presort
+from yart_tpu_torch.render import blocktrace
 from yart_tpu_torch.render.renderer import Renderer
-from yart_tpu_torch.scene.procedural import cornell_box
+from yart_tpu_torch.scene.builder import SceneBuilder
+from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
 
 pytestmark = pytest.mark.cuda
 
@@ -73,3 +76,98 @@ def test_render_on_card_goes_through_kernel(dev):
     img = Renderer(scene, meta, cam, cfg, device=dev).render().hdr
     assert brute.COUNTS.launches > 0 and brute.COUNTS.plain_cuda == 0
     assert np.isfinite(img).all() and img.mean() > 0.01
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def quad_soup():
+    """A port-built soup of 3000 random quads (6000 triangles) in clusters
+    of 64, and rays through and around it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(5)
+    q = 3000
+    c = rng.uniform(-4, 4, (q, 1, 3))
+    corners = c + rng.normal(0, 0.3, (q, 4, 3))
+    b = SceneBuilder()
+    m = b.add_material()
+    idx = np.asarray([[0, 1, 2], [0, 2, 3]])
+    b.add_mesh(corners.reshape(-1, 3), (idx[None] + 4 * np.arange(q)[:, None, None]).reshape(-1, 3), m)
+    return b.compile(device="cuda", cluster_size=64)
+
+
+def _trace_rays(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform(-6, 6, (n, 3)).astype(np.float32)).to(dev)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    return o, d / d.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("n_rays", [128, 1000, 65536])
+def test_presort_kernel_equals_plain(quad_soup, n_rays):
+    scene, meta = quad_soup
+    o, d = _trace_rays(n_rays, n_rays, scene.clus_box.device)
+    t_max = torch.full((n_rays, 1), 20.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    rays = torch.cat([o, d, t_max, torch.zeros_like(t_max)], dim=1).contiguous()
+    before = presort.COUNTS.launches
+    k = presort.presort_keys(rays, scene.clus_box, meta.n_clusters, 1e-3)
+    assert presort.COUNTS.launches == before + 1
+    p = presort.presort_plain(rays, scene.clus_box, meta.n_clusters, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert (k[: n_rays // 8, 0] == presort.SKEY_NOTHING).all()
+
+
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_fused_trace_kernel_equals_plain(quad_soup, n_rays, nee):
+    scene, meta = quad_soup
+    o, d = _trace_rays(n_rays, 7 * n_rays, scene.clus_box.device)
+    t_max = torch.full((n_rays,), 8.0 if nee else 100.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    floor = torch.zeros(n_rays, device=o.device)
+    floor[n_rays // 2 :] = 1.5
+    before = fusedtrace.COUNTS.launches
+    k = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor)
+    assert fusedtrace.COUNTS.launches == before + 1
+    saved = fusedtrace.fused_trace, presort.presort_keys
+    fusedtrace.fused_trace, presort.presort_keys = fusedtrace.fused_trace_plain, presort.presort_plain
+    try:
+        p = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor)
+    finally:
+        fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    hit = k[4] >= 0
+    assert 0.05 < hit.float().mean() < 0.95
+    assert not hit[: n_rays // 8].any()
+    assert (k[0][hit & (floor > 0)] > 1.5).all()
+    if not nee:
+        # Moller-Trumbore (B1) and the plane test may flip a lane that grazes
+        # an edge; B1 has no floor.
+        ref = brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, 1e-3)
+        low = floor == 0
+        assert (hit[low] == (ref[4][low] >= 0)).float().mean() >= 0.999
+
+
+def test_spheres_render_on_card_goes_through_blocktrace():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    scene, meta = material_test_spheres().compile()
+    cam = CameraConfig(image_size=(16, 16), focal_length=35.0, position=(0, 2.2, 5.5),
+                       forward=(0, -1.8, -6.1))
+    cfg = RenderConfig(samples=4, max_depth=6, tonemap="none", first_wave_samples=4)
+    for c in (brute.COUNTS, presort.COUNTS, fusedtrace.COUNTS):
+        c.reset()
+    img = Renderer(scene, meta, cam, cfg).render().hdr
+    assert presort.COUNTS.launches > 0 and fusedtrace.COUNTS.launches > 0
+    assert brute.COUNTS.launches == 0
+    assert presort.COUNTS.plain_cuda == fusedtrace.COUNTS.plain_cuda == 0
+    assert np.isfinite(img).all() and img.mean() > 0.05

@@ -28,7 +28,7 @@ torch.set_num_threads(2)
 
 def _case(n_tris, n_rays, seed, n_retired=0):
     js, jm = make_scene(n_tris)
-    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm))
+    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm), device="cpu")
     o, d = random_rays(np.random.default_rng(seed), n_rays)
     t_max = np.full(n_rays, 1e30, np.float32)
     t_max[:n_retired] = -1.0  # retired lanes (integrator.py:486)
@@ -119,7 +119,7 @@ def test_wrapper_routes_cpu_to_plain_and_validates():
 @pytest.mark.parametrize(
     "fields,nee",
     [
-        (dict(n_tris=5000), False),
+        (dict(n_tris=5000, n_clusters=(1 << 13) + 1), False),  # past the block trace's cap
         (dict(any_alpha=True), False),
         (dict(any_transparent=True), True),
         (dict(n_instances=2), False),

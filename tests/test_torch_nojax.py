@@ -1,7 +1,8 @@
 """yart_tpu_torch imports no JAX: the machine with the GPU has none.
 
-A fresh interpreter imports every module of the port, builds and renders a
-tiny scene through the renderer and the CLI parser, and then checks that
+A fresh interpreter imports every module of the port, builds and renders
+tiny cornell-mat and spheres scenes through the renderer and the CLI
+(spheres through the block trace), and then checks that
 no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
@@ -22,9 +23,21 @@ from yart_tpu_torch.cli import parse_args
 from yart_tpu_torch.render.renderer import Renderer
 from yart_tpu_torch.scene.procedural import cornell_box
 parse_args(["cornell-mat", "--device", "cpu"])
-scene, meta = cornell_box(extra_materials=True).compile()
-res = Renderer(scene, meta, CameraConfig(image_size=(4, 4)), RenderConfig(samples=2, max_depth=2)).render()
+scene, meta = cornell_box(extra_materials=True).compile(device="cpu")
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4)), RenderConfig(samples=2, max_depth=2), device="cpu").render()
 assert res.samples_taken == 2
+# spheres (14,402 triangles, env-lit) through the block trace's twins.
+from yart_tpu_torch.scene.procedural import material_test_spheres
+scene, meta = material_test_spheres().compile(device="cpu")
+assert meta.n_tris > 4096 and meta.has_env
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 2.2, 5.5), forward=(0, -1.8, -6.1)),
+               RenderConfig(samples=2, max_depth=3), device="cpu").render()
+assert res.samples_taken == 2 and res.hdr.mean() > 0
+import tempfile, os
+from yart_tpu_torch.cli import main
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["spheres", "--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "2",
+                 "--quiet", "-o", os.path.join(tmp, "s.png")]) == 0
 bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu") or m.startswith(("jax.", "jaxlib", "yart_tpu.")))
 assert not bad, bad
 print("NO_JAX_OK")

@@ -34,7 +34,7 @@ def _bits(a):
 def test_zsobol_draws_bit_exact(spp, res, seed):
     px, py, s = _lanes(spp, res)
     js = J.ZSobolSampler(spp, (res, res), seed)
-    ts = T.ZSobolSampler(spp, (res, res), seed)
+    ts = T.ZSobolSampler(spp, (res, res), seed, device="cpu")
     jst = js.init_lanes(jnp.asarray(px).astype(jnp.uint32), jnp.asarray(py).astype(jnp.uint32), jnp.asarray(s))
     tst = ts.init_lanes(torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(s.astype(np.int64)))
     # The 64-bit Morton keys agree (JAX holds them as (hi, lo) u32 pairs).
@@ -52,7 +52,7 @@ def test_zsobol_draws_bit_exact(spp, res, seed):
 def test_hash_draws_bit_exact():
     px, py, s = _lanes(16, 64)
     jh = J.HashSampler(16, (64, 64), seed=3)
-    th = T.HashSampler(16, (64, 64), seed=3)
+    th = T.HashSampler(16, (64, 64), seed=3, device="cpu")
     jst = jh.init_lanes(jnp.asarray(px), jnp.asarray(py), jnp.asarray(s))
     tst = th.init_lanes(torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(s.astype(np.int64)))
     np.testing.assert_array_equal(np.asarray(jst).astype(np.int64), tst.numpy())
@@ -86,10 +86,10 @@ def test_u32_helpers_bit_exact():
 
 
 def test_make_sampler_refuses_unported_kinds():
-    assert isinstance(T.make_sampler("zsobol:fastowen", 4, (8, 8)), T.ZSobolSampler)
-    assert isinstance(T.make_sampler("hash", 4, (8, 8)), T.HashSampler)
+    assert isinstance(T.make_sampler("zsobol:fastowen", 4, (8, 8), device="cpu"), T.ZSobolSampler)
+    assert isinstance(T.make_sampler("hash", 4, (8, 8), device="cpu"), T.HashSampler)
     for kind in ("stratified", "zsobol:owen", "zsobol:null"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.make_sampler(kind, 4, (8, 8))
+            T.make_sampler(kind, 4, (8, 8), device="cpu")
     with pytest.raises(ValueError):
-        T.make_sampler("sobol", 4, (8, 8))
+        T.make_sampler("sobol", 4, (8, 8), device="cpu")

@@ -41,7 +41,7 @@ def cornell_mat():
     """cornell-mat as compiled by the JAX package: (jax scene, jax meta,
     port scene, port meta)."""
     js, jm = j_cornell(extra_materials=True).compile()
-    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm))
+    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm), device="cpu")
     return js, jm, ts, tm
 
 
@@ -79,7 +79,7 @@ def test_config_mirrors_jax(name):
     ],
 )
 def test_camera_matches_jax(cfg):
-    jc, tc = JCam.build_camera(cfg), TCam.build_camera(cfg)
+    jc, tc = JCam.build_camera(cfg), TCam.build_camera(cfg, "cpu")
     for f in ("position", "top_left_pixel", "pixel_delta_u", "pixel_delta_v", "frame_x", "frame_y"):
         np.testing.assert_array_equal(np.asarray(getattr(jc, f)), getattr(tc, f).numpy(), err_msg=f)
     assert float(jc.aperture_radius) == tc.aperture_radius
@@ -125,11 +125,14 @@ def test_sample_light_matches_jax(cornell_mat, kind):
     assert TLi.p_infinite(tm) == JLi.p_infinite(jm)
 
 
-def test_env_lights_refused(cornell_mat):
-    _, _, ts, tm = cornell_mat
-    env = dataclasses.replace(tm, has_env=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLi.sample_light(ts, env, torch.zeros(1, 3), torch.zeros(1), torch.zeros(1, 2))
+def test_env_lights_refused(capsys):
+    """Env lights from an HDR file wait for the HDR loader; the procedural
+    env scenes render (tests/test_torch_env.py)."""
+    for argv in (["spheres", "--env-hdr", "sky.hdr"], ["furnace", "--env-scale", "2"]):
+        with pytest.raises(SystemExit) as e:
+            cli.parse_args(argv)
+        assert e.value.code == 2
+        assert "ROADMAP.md A.10" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------- estimator
@@ -189,7 +192,7 @@ def _image_matches_golden(img, golden):
 def test_slice_matches_golden(cornell_mat, key, size):
     _, _, ts, tm = cornell_mat
     cam, cfg = _golden_cfg(size)
-    res = TR.Renderer(ts, tm, cam, cfg).render()
+    res = TR.Renderer(ts, tm, cam, cfg, device="cpu").render()
     with np.load(GOLDEN) as z:
         golden = z[key]
     assert res.hdr.shape == golden.shape and np.isfinite(res.hdr).all()
@@ -198,11 +201,11 @@ def test_slice_matches_golden(cornell_mat, key, size):
 
 
 def test_port_built_scene_matches_golden_statistically():
-    """The port's own builder (insertion order, no JAX) renders the same
+    """The port's own builder (its numpy BVH order, no JAX) renders the same
     image statistics as the JAX-built golden."""
-    ts, tm = t_cornell(extra_materials=True).compile()
+    ts, tm = t_cornell(extra_materials=True).compile(device="cpu")
     cam, cfg = _golden_cfg(16)
-    img = TR.Renderer(ts, tm, cam, cfg).render().hdr
+    img = TR.Renderer(ts, tm, cam, cfg, device="cpu").render().hdr
     with np.load(GOLDEN) as z:
         golden = z["cornell_mat"]
     np.testing.assert_allclose(img.mean(axis=(0, 1)), golden.mean(axis=(0, 1)), rtol=0.02)
@@ -214,9 +217,9 @@ def test_compaction_is_bit_identical(cornell_mat, compact):
     compacted stage below the survivor count), changes no bit."""
     _, _, ts, tm = cornell_mat
     cam, cfg = _golden_cfg(16)
-    off = TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, compact_depth=None)).render().hdr
+    off = TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, compact_depth=None), device="cpu").render().hdr
     on = TR.Renderer(ts, tm, cam, dataclasses.replace(
-        cfg, compact_depth=compact[0], compact_factor=compact[1])).render().hdr
+        cfg, compact_depth=compact[0], compact_factor=compact[1]), device="cpu").render().hdr
     np.testing.assert_array_equal(off.view(np.int32), on.view(np.int32))
 
 
@@ -229,7 +232,7 @@ def test_naive_integrator_hash_sampler_and_waves(cornell_mat):
     cfg = RenderConfig(samples=6, max_depth=4, integrator="naive", sampler="hash", estimator="mean",
                        first_wave_samples=2, max_wave_samples=4, tonemap="agx", agx_look="punchy",
                        clamp=10.0, regularize_specular=1)
-    res = TR.Renderer(ts, tm, cam, cfg).render(on_wave=lambda wd, prev: waves.append((wd, prev)))
+    res = TR.Renderer(ts, tm, cam, cfg, device="cpu").render(on_wave=lambda wd, prev: waves.append((wd, prev)))
     assert [wd.wave_samples for wd, _ in waves] == [2, 4]
     assert waves[0][1].shape == (8, 8, 3)
     assert np.isfinite(res.hdr).all() and res.hdr.max() <= 10.0 and res.hdr.mean() > 0
@@ -240,11 +243,11 @@ def test_checkpoint_resume_equals_full_render(cornell_mat, tmp_path):
     _, _, ts, tm = cornell_mat
     cam = CameraConfig(image_size=(8, 8), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
     cfg = RenderConfig(samples=12, max_depth=4, first_wave_samples=4, max_wave_samples=8, tonemap="none")
-    full = TR.Renderer(ts, tm, cam, cfg).render().hdr
+    full = TR.Renderer(ts, tm, cam, cfg, device="cpu").render().hdr
     ck = str(tmp_path / "ck.npz")
-    part = TR.Renderer(ts, tm, cam, cfg).render(checkpoint=ck, max_waves=1)
+    part = TR.Renderer(ts, tm, cam, cfg, device="cpu").render(checkpoint=ck, max_waves=1)
     assert part.samples_taken == 4 and os.path.exists(ck)
-    resumed = TR.Renderer(ts, tm, cam, cfg).render(checkpoint=ck)
+    resumed = TR.Renderer(ts, tm, cam, cfg, device="cpu").render(checkpoint=ck)
     assert resumed.samples_taken == 12
     np.testing.assert_array_equal(resumed.hdr, full)
 
@@ -253,13 +256,17 @@ def test_renderer_refusals(cornell_mat):
     _, _, ts, tm = cornell_mat
     cam, cfg = _golden_cfg(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, cfg, devices=2)
+        TR.Renderer(ts, tm, cam, cfg, devices=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, shade_kernel="pallas")).render()
+        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, shade_kernel="pallas"), device="cpu").render()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, dataclasses.replace(tm, has_env=True), cam, cfg).render()
+        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"), device="cpu")
+    for fields in (dict(n_instances=2), dict(any_alpha=True)):  # the atrium slice
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TR.Renderer(ts, dataclasses.replace(tm, **fields), cam, cfg, device="cpu").render()
+    # An env-lit scene renders: the env light is ported.
+    env = TR.Renderer(ts, dataclasses.replace(tm, has_env=True), cam, cfg, device="cpu").render()
+    assert env.samples_taken == cfg.samples and np.isfinite(env.hdr).all()
 
 
 def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
@@ -279,7 +286,7 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["spheres"],
+        ["atrium"],
         ["scene.glb"],
         ["cornell", "--env-hdr", "sky.hdr"],
         ["cornell", "--devices", "2"],

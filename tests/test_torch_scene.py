@@ -31,12 +31,12 @@ def jax_scene():
 
 def _bits(a):
     a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-    return a.view(np.uint8)
+    return np.atleast_1d(a).view(np.uint8)  # 0-d fields: env_power, scene_radius
 
 
 def test_from_numpy_bit_exact(jax_scene):
     leaves, jm = jax_scene
-    ts, tm = from_numpy(leaves, dataclasses.asdict(jm))
+    ts, tm = from_numpy(leaves, dataclasses.asdict(jm), device="cpu")
     for f in dataclasses.fields(CompiledScene):
         if f.name == "materials":
             for g in MaterialTable._fields:
@@ -58,7 +58,7 @@ def test_from_numpy_bit_exact(jax_scene):
 
 def test_builder_matches_jax_up_to_permutation(jax_scene):
     leaves, jm = jax_scene
-    ts, tm = t_cornell(extra_materials=True).compile()
+    ts, tm = t_cornell(extra_materials=True).compile(device="cpu")
     assert (tm.n_tris, tm.n_materials, tm.n_lights) == (jm.n_tris, jm.n_materials, jm.n_lights)
     for f in ("has_env", "any_alpha", "any_textures", "any_transparent", "any_metallic",
               "any_transmissive", "any_clearcoat", "any_anisotropy"):
@@ -88,11 +88,11 @@ def test_builder_flags_and_errors():
     from yart_tpu_torch.scene.builder import SceneBuilder
 
     with pytest.raises(ValueError, match="no geometry"):
-        SceneBuilder().compile()
+        SceneBuilder().compile(device="cpu")
     b = SceneBuilder()
     m = b.add_material(tex_base=0)
     b.add_mesh(2 * np.eye(3, dtype=np.float32), [[0, 1, 2]], m)
-    s, meta = b.compile()
+    s, meta = b.compile(device="cpu")
     assert meta.any_textures and meta.n_lights == 0 and s.light_cdf.tolist() == [0.0]
     np.testing.assert_array_equal(s.tri_pack[0, :9].numpy(), 2 * np.eye(3).reshape(-1))
     np.testing.assert_allclose(s.shade_pack[0, :9].numpy(), np.tile(np.full(3, 3 ** -0.5), 3), rtol=1e-6)

@@ -4,11 +4,17 @@ The JAX package `yart_tpu` is the reference; this package mirrors its
 layout (`ops/`, `render/`, `scene/`, `kernels/`, plus `csrc/` for the CUDA
 sources) and is held against it by `tests/test_torch_*.py`.
 
-Ported so far: the forward MIS/naive render path for ungated scenes of at
-most 4096 triangles without textures or environment light (the Cornell
-boxes), with the brute-force intersection as a hand-written Hopper kernel
-(`kernels/brute.py`, `csrc/brute_intersect.cu`). Everything else raises
-`NotImplementedError` naming its ROADMAP.md item.
+Ported so far: the forward MIS/naive render path for ungated,
+non-instanced, untextured scenes lit by area lights and an environment
+light (`cornell`, `cornell-mat`, `furnace`, `spheres`), with a numpy scene
+builder (SAH BVH, triangle clusters, env alias tables) and three
+hand-written Hopper kernels: the brute-force intersection B1
+(`kernels/brute.py`, `csrc/brute_intersect.cu`) for scenes of at most 4096
+triangles, and above that the block trace (`render/blocktrace.py`) with
+its presort B2 (`kernels/presort.py`, `csrc/presort_keys.cu`) and fused
+closest-hit trace B3 (`kernels/fusedtrace.py`, `csrc/fused_trace.cu`).
+Entry points run on the card unless given `device="cpu"`. Everything else
+raises `NotImplementedError` naming its ROADMAP.md item.
 
 This package imports torch and nothing of jax or of `yart_tpu`; its
 configuration dataclasses (`config.py`) mirror `yart_tpu/config.py`.

@@ -3,10 +3,11 @@
 Usage:
     python -m yart_tpu_torch.cli cornell-mat -o out.png --spp 64 --size 512x512 --device cuda
 
-Mirrors `yart_tpu/cli.py` for what this slice supports: the `cornell` and
-`cornell-mat` scenes, the MIS and naive integrators, the zsobol and hash
-samplers, every estimator, AgX with its looks, the thin-lens camera and
-checkpoint/resume. Every other scene or flag of the JAX CLI is refused
+Mirrors `yart_tpu/cli.py` for what the port supports: the `cornell` and
+`cornell-mat` scenes (area lights, kernel B1), `furnace` (env light, B1)
+and `spheres` (env light, 14,402 triangles through the block trace B2 +
+B3), the MIS and naive integrators, the zsobol and hash samplers, every
+estimator, AgX with its looks, the thin-lens camera and checkpoint/resume. Every other scene or flag of the JAX CLI is refused
 with an error naming the ROADMAP.md item that will bring it; none is
 ignored.
 """
@@ -16,13 +17,13 @@ from __future__ import annotations
 import argparse
 import sys
 
-SCENES = ("cornell", "cornell-mat")
+SCENES = ("cornell", "cornell-mat", "spheres", "furnace")
 
 # JAX-CLI flags this slice lacks: dest -> (value meaning "unused", ROADMAP item)
 _REFUSED = {
     "config": (None, "A.10 application layer (JSON flag files)"),
-    "env_hdr": (None, "A.3 env lighting + textures"),
-    "env_scale": (1.0, "A.3 env lighting + textures"),
+    "env_hdr": (None, "A.10 application layer (io.load_hdr)"),
+    "env_scale": (1.0, "A.10 application layer (io.load_hdr)"),
     "shade_kernel": ("off", "A.11 shade kernels B5/B6"),
     "preview": (None, "A.10 application layer (preview PNG)"),
     "serve": (None, "A.10 application layer (preview server)"),
@@ -37,7 +38,7 @@ _REFUSED = {
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="yart-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("scene", help="procedural scene: cornell | cornell-mat")
+    p.add_argument("scene", help="procedural scene: " + " | ".join(SCENES))
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("-o", "--output", default="out.png", help="output image (.png/.ppm)")
     p.add_argument("--spp", type=int, default=64)
@@ -81,7 +82,7 @@ def parse_args(argv=None):
         p.error(
             f"scene {args.scene!r} is not ported yet: this slice renders "
             f"{' | '.join(SCENES)}; glTF files and the other procedural scenes "
-            "need textures, env lighting and the big-scene traversal "
+            "need textures, instancing and alpha gates "
             "(ROADMAP.md A.3, A.6, A.10)"
         )
     for dest, (unused, item) in _REFUSED.items():
@@ -98,13 +99,27 @@ def parse_args(argv=None):
 def build_scene(args, device):
     from yart_tpu_torch.scene import procedural
 
-    b = procedural.cornell_box(extra_materials=args.scene == "cornell-mat")
+    if args.scene == "spheres":
+        b = procedural.material_test_spheres()
+    elif args.scene == "furnace":
+        b = procedural.furnace()
+    else:
+        b = procedural.cornell_box(extra_materials=args.scene == "cornell-mat")
     b.set_background([float(x) for x in args.background.split(",")])
     return b.compile(device)
 
 
+# The JAX CLI's cameras (yart_tpu/cli.py:163-167): (position, target).
+CAMERAS = {
+    "cornell": ((0, 1.0, 3.4), (0, 1.0, 0)),
+    "cornell-mat": ((0, 1.0, 3.4), (0, 1.0, 0)),
+    "spheres": ((0, 2.2, 5.5), (0, 0.4, -0.6)),
+    "furnace": ((0, 0, 3.5), (0, 0, 0)),
+}
+
+
 def default_camera(args):
-    pos, target = (0, 1.0, 3.4), (0, 1.0, 0)  # the JAX CLI's cornell camera
+    pos, target = CAMERAS[args.scene]
     if args.camera_pos:
         pos = tuple(float(x) for x in args.camera_pos.split(","))
     if args.camera_target:
@@ -112,22 +127,11 @@ def default_camera(args):
     return pos, tuple(t - q for q, t in zip(pos, target))
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    import torch
-
+def render_configs(args):
+    """(CameraConfig, RenderConfig) of the parsed arguments."""
     from yart_tpu_torch.config import CameraConfig, RenderConfig
-    from yart_tpu_torch.io.image import write_png, write_ppm
-    from yart_tpu_torch.render.renderer import Renderer
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"--device {args.device}: no CUDA device is available "
-            "(torch.cuda.is_available() is False); pass --device cpu to render on the CPU"
-        )
     w, h = (int(x) for x in args.size.lower().split("x"))
-    scene, meta = build_scene(args, device)
     pos, fwd = default_camera(args)
     cam = CameraConfig(
         image_size=(w, h), focal_length=args.focal, f_number=args.fnumber,
@@ -141,6 +145,25 @@ def main(argv=None) -> int:
         max_wave_samples=args.max_wave, lane_chunk=args.chunk_pixels,
         clamp=args.clamp, regularize_specular=args.regularize_specular,
     )
+    return cam, cfg
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    import torch
+
+    from yart_tpu_torch.io.image import write_png, write_ppm
+    from yart_tpu_torch.render.renderer import Renderer
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA device is available "
+            "(torch.cuda.is_available() is False); pass --device cpu to render on the CPU"
+        )
+    scene, meta = build_scene(args, device)
+    cam, cfg = render_configs(args)
+    w, h = cam.image_size
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     if not args.quiet:
         print(

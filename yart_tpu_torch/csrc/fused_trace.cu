@@ -1,0 +1,214 @@
+// Fused block-trace closest hit for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel yart_tpu/kernels/pallas_fusedtrace.py
+// `fused_trace_pallas` (its pallas_call at :1128) for ungated,
+// non-instanced scenes. It computes what that kernel computes, not how:
+// the TPU kernel runs a block-wide nearest-entry loop over the cluster
+// packs with a winners epilogue; here one thread owns one ray and walks
+// the clusters itself.
+//
+// Per ray (row of the presorted ray matrix: o3, d3, t_cur, floor):
+// - visit order: the (up to) 4 nearest clusters of its presort slots
+//   (kernel B2), nearest first, then every other cluster in ascending id;
+// - a cluster is tested when the ray enters its box (B2's slab test and
+//   margins) and its entry is <= the ray's current best t;
+// - a test runs `_t_only`'s plane test over the cluster's real triangles:
+//   t = (cn - n.o) / n.d, u = eu.o + t (eu.d) - cu, v likewise, dot products
+//   x + y + z; valid when |n.d| >= 1e-12, 0 <= u <= 1, v >= 0, u + v <= 1,
+//   t > t_min, t > floor, and (t, tri) is lexicographically below the
+//   carried best (ties at bit-equal t go to the lowest triangle index);
+// - with `nee` the ray stops after the first cluster that gives it a hit.
+// Output row: t, u, v, back, tri bits (-1 = miss, t = t_cur), clusters
+// tested, triangles tested, 0.
+//
+// Design
+// - 128 threads per block = one presort block of rays; a block whose
+//   `blive` flag is 0 enters nothing and writes the miss rows at once.
+// - The ascending sweep stages the cluster boxes through shared memory in
+//   tiles, as the presort does; each thread reads the pack rows of the
+//   clusters it tests straight from global memory. After the presort's
+//   sort the rays of a warp mostly test the same clusters, so those reads
+//   are broadcasts served by L1/L2.
+// - Built with --fmad=false and without fast math, the kernel repeats the
+//   plain twin's float operations (yart_tpu_torch/kernels/fusedtrace.py)
+//   one by one and visits the same clusters in the same order, so the two
+//   agree bitwise.
+//
+// Bound on this card: ~30 flops per tested (ray, triangle) pair plus ~24
+// per (ray, box) slab test, against 64 B of ray and hit I/O per ray; at the
+// bench's 132k triangles the tested pairs dominate and the kernel is
+// compute-bound. Left for later: wgmma / tensor-core projections, TMA
+// staging of the packs, and a block-wide nearest-first queue.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kTile = 256;
+constexpr int kIdMask = (1 << 13) - 1;
+constexpr int kKeyDead = 0x7fffffff;
+constexpr int kSlots = 4;
+constexpr float kEpsDet = 1e-12f;
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a > b ? a : b);
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : (a < b ? a : b);
+}
+
+struct Ray {
+  float o[3], d[3], ia[3], oia[3];
+  float t0, floor_t;
+};
+
+struct Best {
+  float t, u, v;
+  int back, tri, n_clus, n_tris;
+};
+
+// Entry test of one box (lo.xyz, hi.xyz) with the presort's margins; true
+// when the ray enters it and the entry does not exceed the current best t.
+__device__ __forceinline__ bool enters(const Ray& r, const float box[6], float t_min,
+                                       float t_best) {
+  float ent = 0.f, ext = 0.f;
+  for (int a = 0; a < 3; ++a) {
+    const float x0 = box[a] * r.ia[a] - r.oia[a];
+    const float x1 = box[a + 3] * r.ia[a] - r.oia[a];
+    const float a0 = nan_min(x0, x1);
+    const float a1 = nan_max(x0, x1);
+    ent = a == 0 ? a0 : nan_max(ent, a0);
+    ext = a == 0 ? a1 : nan_min(ext, a1);
+  }
+  const float e = nan_max(ent - (fabsf(ent) * 1e-6f + 1e-7f), t_min);
+  const float xt = ext + (fabsf(ext) * 1e-6f + 1e-7f);
+  return xt >= e && e < r.t0 && xt > r.floor_t && e <= t_best;
+}
+
+__device__ __forceinline__ void test_cluster(const Ray& r, const float* __restrict__ p,
+                                             int c, int cnt, float t_min, Best& b) {
+  const int w = 3 * c;
+  const int first = __float_as_int(p[4 * w]);
+  b.n_clus += 1;
+  b.n_tris += cnt;
+  for (int col = 0; col < cnt; ++col) {
+    const float nx = p[col], ny = p[w + col], nz = p[2 * w + col];
+    const float ux = p[c + col], uy = p[w + c + col], uz = p[2 * w + c + col];
+    const float vx = p[2 * c + col], vy = p[w + 2 * c + col], vz = p[2 * w + 2 * c + col];
+    const float cn = p[3 * w + col], cu = p[3 * w + c + col], cv = p[3 * w + 2 * c + col];
+    const float no = r.o[0] * nx + r.o[1] * ny + r.o[2] * nz;
+    const float uo = r.o[0] * ux + r.o[1] * uy + r.o[2] * uz;
+    const float vo = r.o[0] * vx + r.o[1] * vy + r.o[2] * vz;
+    const float nd = r.d[0] * nx + r.d[1] * ny + r.d[2] * nz;
+    const float ud = r.d[0] * ux + r.d[1] * uy + r.d[2] * uz;
+    const float vd = r.d[0] * vx + r.d[1] * vy + r.d[2] * vz;
+    const float t = (cn - no) / nd;
+    const float u = uo + t * ud - cu;
+    const float v = vo + t * vd - cv;
+    const int tri = first + col;
+    if (fabsf(nd) >= kEpsDet && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
+        t > t_min && t > r.floor_t &&
+        (t < b.t || (t == b.t && b.tri >= 0 && tri < b.tri))) {
+      b.t = t;
+      b.u = u;
+      b.v = v;
+      b.back = nd > 0.f;
+      b.tri = tri;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ slots,
+                   const float* __restrict__ clus_box, int cpad,
+                   const float* __restrict__ pack, const int32_t* __restrict__ count,
+                   int n_clus, int c, const int32_t* __restrict__ blive, float t_min,
+                   int nee, float* __restrict__ out) {
+  __shared__ float s_box[6][kTile];
+
+  const int i = blockIdx.x * kThreads + threadIdx.x;  // n is a multiple of kThreads
+  const float* rp = rays + (size_t)i * 8;
+  Ray r;
+  r.t0 = rp[6];
+  r.floor_t = rp[7];
+  Best b = {r.t0, 0.f, 0.f, 0, -1, 0, 0};
+
+  if (blive[blockIdx.x] != 0) {  // uniform over the block
+    for (int a = 0; a < 3; ++a) {
+      r.o[a] = rp[a];
+      r.d[a] = rp[3 + a];
+      const float safe = fabsf(r.d[a]) < 1e-20f ? (r.d[a] < 0.f ? -1e-20f : 1e-20f) : r.d[a];
+      r.ia[a] = 1.0f / safe;
+      r.oia[a] = r.o[a] * r.ia[a];
+    }
+    const size_t pack_stride = (size_t)8 * 3 * c;
+    int sc[kSlots];
+    for (int k = 0; k < kSlots; ++k) {
+      const int key = slots[(size_t)i * kSlots + k];
+      sc[k] = key == kKeyDead ? -1 : (key & kIdMask);
+    }
+    bool done = false;
+
+    // Phase A: the presort's nearest clusters, nearest first.
+    for (int k = 0; k < kSlots && !done; ++k) {
+      const int cid = sc[k];
+      if (cid < 0 || cid >= n_clus) continue;
+      float box[6];
+      for (int q = 0; q < 6; ++q) box[q] = clus_box[(size_t)q * cpad + cid];
+      if (enters(r, box, t_min, b.t)) {
+        test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, b);
+        done = nee && b.tri >= 0;
+      }
+    }
+
+    // Phase B: every other cluster in ascending id.
+    for (int base = 0; base < n_clus; base += kTile) {
+      const int cnt = min(kTile, n_clus - base);
+      __syncthreads();  // the previous tile is no longer read
+      for (int j = threadIdx.x; j < cnt; j += kThreads) {
+        for (int q = 0; q < 6; ++q) s_box[q][j] = clus_box[(size_t)q * cpad + base + j];
+      }
+      __syncthreads();
+      if (done) continue;
+      for (int j = 0; j < cnt && !done; ++j) {
+        const int cid = base + j;
+        if (cid == sc[0] || cid == sc[1] || cid == sc[2] || cid == sc[3]) continue;
+        float box[6];
+        for (int q = 0; q < 6; ++q) box[q] = s_box[q][j];
+        if (enters(r, box, t_min, b.t)) {
+          test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, b);
+          done = nee && b.tri >= 0;
+        }
+      }
+    }
+  }
+
+  float* w = out + (size_t)i * 8;
+  w[0] = b.t;
+  w[1] = b.u;
+  w[2] = b.v;
+  w[3] = b.back ? 1.f : 0.f;
+  w[4] = __int_as_float(b.tri);
+  w[5] = (float)b.n_clus;
+  w[6] = (float)b.n_tris;
+  w[7] = 0.f;
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// n must be a multiple of 128 (the wrapper pads).
+extern "C" int fused_trace_launch(const float* rays, const int32_t* slots, int n,
+                                  const float* clus_box, int cpad, const float* pack,
+                                  const int32_t* count, int n_clus, int c,
+                                  const int32_t* blive, float t_min, int nee, float* out,
+                                  cudaStream_t stream) {
+  if (n > 0) {
+    fused_trace_kernel<<<n / kThreads, kThreads, 0, stream>>>(
+        rays, slots, clus_box, cpad, pack, count, n_clus, c, blive, t_min, nee, out);
+  }
+  return (int)cudaGetLastError();
+}

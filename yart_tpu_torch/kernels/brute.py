@@ -18,31 +18,19 @@ run can show which path it took.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
+
+from yart_tpu_torch.kernels.build import Counts, load
 
 EPS_DET = 1e-12  # reference epsilon (math_base.hpp)
 MAX_TRIS = 4096  # the dispatcher's cap for the brute path (render/intersect.py)
 PLAIN_BUDGET = 1 << 22  # rays x triangles per plain-twin chunk
 
-
-@dataclasses.dataclass
-class Counts:
-    launches: int = 0  # CUDA kernel launches
-    plain_cuda: int = 0  # plain-twin calls on CUDA tensors
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.plain_cuda = 0
-
-
 COUNTS = Counts()
 
 
 def _library():
-    from yart_tpu_torch.kernels.build import load
-
     lib, _ = load("brute_intersect", ["brute_intersect.cu"])
     fn = lib.brute_intersect_launch
     fn.restype = ctypes.c_int
@@ -59,8 +47,6 @@ def _library():
 
 def build() -> bool:
     """Build (if needed) and load the kernel; True if it compiled now."""
-    from yart_tpu_torch.kernels.build import load
-
     return load("brute_intersect", ["brute_intersect.cu"])[1]
 
 
@@ -94,8 +80,14 @@ def brute_plain(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     bv = torch.zeros_like(t_max)
     bb = torch.zeros(n, dtype=torch.bool, device=o.device)
     bi = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-    if n == 0 or n_tris == 0:
+    # Only lanes with t_max > t_min can hit (retired lanes carry -1).
+    live = torch.nonzero(t_max > t_min)[:, 0]
+    if live.numel() == 0 or n_tris == 0:
         return bt, bu, bv, bb, bi
+    out = bt, bu, bv, bb, bi
+    o, d = o[live], d[live]
+    bt, bu, bv, bb, bi = (a[live] for a in out)
+    n = live.numel()
 
     tri_chunk = min(n_tris, 256)
     lane_chunk = max(1, PLAIN_BUDGET // tri_chunk)
@@ -145,7 +137,9 @@ def brute_plain(tri_pack, o, d, t_max, n_tris: int, t_min: float):
             bv[sl] = torch.where(got, take(v), bv[sl])
             bb[sl] = torch.where(got, take(det) < 0.0, bb[sl])
             bi[sl] = torch.where(got, (j[:, 0] + t0).to(torch.int32), bi[sl])
-    return bt, bu, bv, bb, bi
+    for full, part in zip(out, (bt, bu, bv, bb, bi)):
+        full[live] = part
+    return out
 
 
 def brute_cuda(tri_pack, o, d, t_max, n_tris: int, t_min: float):

@@ -11,6 +11,7 @@ keeps a build to seconds.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -28,7 +29,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+@dataclasses.dataclass
+class Counts:
+    """Per kernel: its launches, and calls of its plain twin on CUDA
+    tensors (which the render paths must never make)."""
+
+    launches: int = 0
+    plain_cuda: int = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_cuda = 0
+
+
+_lock = threading.Lock()  # guards _loaded
 _loaded: dict = {}
 
 
@@ -56,26 +70,27 @@ def library_path(name: str, sources) -> str:
 
 def load(name: str, sources) -> tuple:
     """Build (if needed) and load library `name` from `sources` (file names
-    under csrc/). Returns (ctypes.CDLL, built_now)."""
+    under csrc/). Returns (ctypes.CDLL, built_now). nvcc runs outside the
+    lock, so threads loading different libraries build them at once."""
     path = library_path(name, sources)
     with _lock:
         if path in _loaded:
             return _loaded[path], False
-        built = False
-        if not os.path.exists(path):
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
-            os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in sources]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed building {name} (exit {proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, path)  # atomic: a concurrent loader sees old or new
-            built = True
-        lib = ctypes.CDLL(path)
-        _loaded[path] = lib
-        return lib, built
+    built = False
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in sources]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed building {name} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, path)  # atomic: a concurrent loader sees old or new
+        built = True
+    lib = ctypes.CDLL(path)
+    with _lock:
+        return _loaded.setdefault(path, lib), built

@@ -1,0 +1,226 @@
+"""B3: fused block-trace closest hit — Hopper kernel and plain twin.
+
+`fused_trace` is the entry point. For tensors on a CUDA device it launches
+the hand-written kernel in `csrc/fused_trace.cu` (which replaces
+`yart_tpu/kernels/pallas_fusedtrace.py` `fused_trace_pallas`, ungated and
+non-instanced) and raises if it cannot; for CPU tensors it runs
+`fused_trace_plain`, the same arithmetic in plain PyTorch. There is no
+fallback from one to the other.
+
+Contract. Each row of `rays` [Np, 8] (o3, d3, t_cur, floor; presorted)
+gets the exact closest valid hit over all clusters of `clus_pack`
+[n_clus, 8, 3C], with `_t_only`'s plane test (pallas_fusedtrace.py:118-138)
+on the pack's rows, dot products formed x + y + z as in `_proj`:
+
+    t = (cn - n.o) / n.d,   u = eu.o + t (eu.d) - cu,   v likewise
+    valid: |n.d| >= EPS_DET, 0 <= u <= 1, v >= 0, u + v <= 1,
+           t_min < t, floor < t, and (t, tri) beats the carried best
+    back = n.d > 0,  tri = the cluster's first triangle + column
+
+Output [Np, 8] f32: t, u, v, back (0/1), tri (int32 bits; -1 = miss), the
+clusters tested, the triangles tested, 0. A miss keeps t = t_cur. With
+`nee` a ray stops after the first cluster that gives it a hit: only the
+hit mask is then the contract (the JAX package's any-hit early-out).
+
+Tie rule. Among hits at bit-equal t the lowest triangle index wins. The
+JAX kernel breaks such ties by its per-block visit order; the port's rule
+does not depend on any order, like B1's (kernels/brute.py).
+
+Visit order and culling. Per ray: first the (up to) 4 nearest clusters of
+its presort slots (B2's row, cols 1-4), nearest first, then every other
+cluster in ascending id. A cluster is tested when the ray enters its box
+(B2's conservative slab test and margins: exit >= entry, entry < t_max,
+exit > floor) and its entry is <= the ray's current best t. Kernel and
+twin visit in this same order, so they test the same clusters and agree
+bitwise; the kernel is built with --fmad=false. Blocks of 128 rays whose
+`blive` flag is 0 enter nothing and are skipped whole.
+
+`COUNTS` records kernel launches and plain-twin calls on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.presort import ID_MASK, KEY_DEAD, N_SLOTS, sweep_bounds
+
+EPS_DET = 1e-12
+BLOCK = 128  # rays per `blive` flag and per kernel thread block
+
+COUNTS = Counts()
+SOURCES = ["fused_trace.cu"]
+
+
+def _library():
+    lib, _ = load("fused_trace", SOURCES)
+    fn = lib.fused_trace_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # rays, slots, n
+        ctypes.c_void_p, ctypes.c_int,  # clus_box, cpad
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # pack, count, n_clus, c
+        ctypes.c_void_p,  # blive
+        ctypes.c_float, ctypes.c_int,  # t_min, nee
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
+    return fn
+
+
+def build() -> bool:
+    """Build (if needed) and load the kernel; True if it compiled now."""
+    return load("fused_trace", SOURCES)[1]
+
+
+def _check(rays, slots, clus_box, clus_pack, clus_count, blive):
+    n = rays.shape[0]
+    if rays.dim() != 2 or rays.shape[1] != 8 or n % BLOCK:
+        raise ValueError(f"rays must be [Np, 8] with Np a multiple of {BLOCK}, got {tuple(rays.shape)}")
+    if slots.shape != (n, N_SLOTS) or slots.dtype != torch.int32:
+        raise ValueError(f"slots must be int32 [{n}, {N_SLOTS}], got {slots.dtype} {tuple(slots.shape)}")
+    if clus_pack.dim() != 3 or clus_pack.shape[1] != 8 or clus_pack.shape[2] % 3:
+        raise ValueError(f"clus_pack must be [n_clus, 8, 3C], got {tuple(clus_pack.shape)}")
+    n_clus = clus_pack.shape[0]
+    if clus_box.dim() != 2 or clus_box.shape[0] != 8 or clus_box.shape[1] < n_clus:
+        raise ValueError(f"clus_box must be [8, cpad >= {n_clus}], got {tuple(clus_box.shape)}")
+    if clus_count.shape != (n_clus,) or clus_count.dtype != torch.int32:
+        raise ValueError(f"clus_count must be int32 [{n_clus}]")
+    if blive.shape != (n // BLOCK,) or blive.dtype != torch.int32:
+        raise ValueError(f"blive must be int32 [{n // BLOCK}]")
+    for name, a in (("rays", rays), ("clus_box", clus_box), ("clus_pack", clus_pack)):
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+    for name, a in (("slots", slots), ("clus_box", clus_box), ("clus_pack", clus_pack),
+                    ("clus_count", clus_count), ("blive", blive)):
+        if a.device != rays.device:
+            raise ValueError(f"{name} is on {a.device}, rays on {rays.device}")
+
+
+def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
+                      nee: bool = False):
+    """Plain PyTorch twin of the kernel (see the module docstring). Loops
+    over clusters; each pass tests only the rays that visit that cluster
+    next, against the cluster's real triangles."""
+    _check(rays, slots, clus_box, clus_pack, clus_count, blive)
+    if rays.is_cuda:
+        COUNTS.plain_cuda += 1
+    dev = rays.device
+    n = rays.shape[0]
+    n_clus = clus_pack.shape[0]
+    c = clus_pack.shape[2] // 3
+    out = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+    out[:, 0] = rays[:, 6]
+    out[:, 4] = torch.tensor(-1, dtype=torch.int32).view(torch.float32)
+    live = torch.nonzero(blive.repeat_interleave(BLOCK) != 0)[:, 0]
+    if live.numel() == 0 or n_clus == 0:
+        return out
+    r = rays[live]
+    o, d, t0, floor = r[:, 0:3], r[:, 3:6], r[:, 6], r[:, 7]
+    bt = t0.clone()
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    bb = torch.zeros_like(bt)
+    bi = torch.full(bt.shape, -1, dtype=torch.int32, device=dev)
+    n_ct = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
+    n_tt = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
+    done = torch.zeros(bt.shape, dtype=torch.bool, device=dev)
+    s = slots[live]
+    scid = torch.where(s == KEY_DEAD, -1, s & ID_MASK)
+    first = clus_pack[:, 4, 0].contiguous().view(torch.int32).tolist()
+    count = clus_count.tolist()
+    t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+
+    def visit(cid, idx):
+        """Test cluster `cid` for rays `idx` that have not stopped."""
+        e, xt = sweep_bounds(o[idx], d[idx], clus_box[:, cid : cid + 1])
+        e = torch.maximum(e[:, 0], t_min_t)
+        xt = xt[:, 0]
+        go = (xt >= e) & (e < t0[idx]) & (xt > floor[idx]) & (e <= bt[idx])
+        idx = idx[go]
+        if idx.numel() == 0:
+            return
+        cnt = count[cid]
+        tri = clus_pack[cid]
+        cols = torch.cat([tri[:, 0:cnt], tri[:, c : c + cnt], tri[:, 2 * c : 2 * c + cnt]], dim=1)
+        oi, di = o[idx], d[idx]
+        ro = oi[:, 0:1] * cols[0][None] + oi[:, 1:2] * cols[1][None] + oi[:, 2:3] * cols[2][None]
+        rd = di[:, 0:1] * cols[0][None] + di[:, 1:2] * cols[1][None] + di[:, 2:3] * cols[2][None]
+        cn, cu, cv = cols[3, :cnt][None], cols[3, cnt : 2 * cnt][None], cols[3, 2 * cnt :][None]
+        nd, ud, vd = rd[:, :cnt], rd[:, cnt : 2 * cnt], rd[:, 2 * cnt :]
+        t = (cn - ro[:, :cnt]) / nd
+        u = ro[:, cnt : 2 * cnt] + t * ud - cu
+        v = ro[:, 2 * cnt :] + t * vd - cv
+        valid = (
+            (nd.abs() >= EPS_DET) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > t_min) & (t > floor[idx][:, None])
+        )
+        # The cluster's lexicographic (t, column) minimum, then against the
+        # carried (t, tri): the same winner as a column-by-column carry.
+        j = torch.argmin(torch.where(valid, t, float("inf")), dim=1, keepdim=True)
+        got = valid.gather(1, j)[:, 0]
+        tj = t.gather(1, j)[:, 0]
+        trij = (j[:, 0] + first[cid]).to(torch.int32)
+        cur_t, cur_i = bt[idx], bi[idx]
+        better = got & ((tj < cur_t) | ((tj == cur_t) & (cur_i >= 0) & (trij < cur_i)))
+        bt[idx] = torch.where(better, tj, cur_t)
+        bu[idx] = torch.where(better, u.gather(1, j)[:, 0], bu[idx])
+        bv[idx] = torch.where(better, v.gather(1, j)[:, 0], bv[idx])
+        bb[idx] = torch.where(better, (nd.gather(1, j)[:, 0] > 0.0).to(torch.float32), bb[idx])
+        bi[idx] = torch.where(better, trij, cur_i)
+        n_ct[idx] += 1
+        n_tt[idx] += cnt
+        if nee:
+            done[idx] = bi[idx] >= 0
+
+    for k in range(N_SLOTS):
+        for cid in torch.unique(scid[:, k]).tolist():
+            if cid >= 0:
+                visit(cid, torch.nonzero((scid[:, k] == cid) & ~done)[:, 0])
+    for cid in range(n_clus):
+        visit(cid, torch.nonzero(~(scid == cid).any(dim=1) & ~done)[:, 0])
+
+    res = torch.stack([bt, bu, bv, bb, bi.view(torch.float32), n_ct.to(torch.float32),
+                       n_tt.to(torch.float32), torch.zeros_like(bt)], dim=1)
+    out[live] = res
+    return out
+
+
+def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
+                     nee: bool = False):
+    """Launch the Hopper kernel on the current stream; raises on any input
+    it does not take or if the launch is refused."""
+    _check(rays, slots, clus_box, clus_pack, clus_count, blive)
+    if not rays.is_cuda:
+        raise ValueError("fused_trace_cuda needs CUDA tensors")
+    for name, a in (("rays", rays), ("slots", slots), ("clus_box", clus_box),
+                    ("clus_pack", clus_pack), ("clus_count", clus_count), ("blive", blive)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    n = rays.shape[0]
+    if n >= 2 ** 31 // 8:
+        raise ValueError(f"{n} rays overflow the kernel's int indexing")
+    fn = _library()
+    out = torch.empty((n, 8), dtype=torch.float32, device=rays.device)
+    with torch.cuda.device(rays.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rays.data_ptr(), slots.data_ptr(), int(n), clus_box.data_ptr(),
+                 int(clus_box.shape[1]), clus_pack.data_ptr(), clus_count.data_ptr(),
+                 int(clus_pack.shape[0]), int(clus_pack.shape[2] // 3), blive.data_ptr(),
+                 float(t_min), int(bool(nee)), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_trace launch failed: cudaError {err}")
+    COUNTS.launches += 1
+    return out
+
+
+def fused_trace(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
+                nee: bool = False):
+    """Closest hit (or, with `nee`, any hit) of presorted `rays` [Np, 8]
+    with their presort `slots` [Np, 4]; see the module docstring. CUDA
+    tensors go to the kernel, CPU tensors to the plain twin."""
+    if rays.is_cuda:
+        return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee)
+    return fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee)

@@ -178,7 +178,7 @@ class HashSampler:
     """Counter-based RNG: every draw is mix32 of (pixel, sample, dim).
     Lane state is one u32 key per lane (int64 tensor)."""
 
-    def __init__(self, spp: int, full_res=(0, 0), seed: int = 0, device="cpu"):
+    def __init__(self, spp: int, full_res=(0, 0), seed: int = 0, *, device):
         del spp, full_res, device
         self.seed = int(seed) & M32
 
@@ -198,7 +198,7 @@ class ZSobolSampler:
     """Z-ordered scrambled Sobol' sampler (sampler.hpp:72-174) with FastOwen
     scrambling. Lane state is the 64-bit Morton sample key per lane."""
 
-    def __init__(self, spp: int, full_res, seed: int = 0, device="cpu"):
+    def __init__(self, spp: int, full_res, seed: int = 0, *, device):
         spp = max(1, int(spp))
         self.log2spp = int(np.ceil(np.log2(spp)))
         res = int(max(full_res)) if np.iterable(full_res) else int(full_res)
@@ -270,9 +270,10 @@ class ZSobolSampler:
         return torch.stack([u32_to_unit_float(va), u32_to_unit_float(vb)], dim=-1)
 
 
-def make_sampler(kind: str, spp: int, full_res=(1, 1), seed: int = 0, device="cpu"):
+def make_sampler(kind: str, spp: int, full_res=(1, 1), seed: int = 0, *, device):
     """Sampler factory for the kinds this port has: "zsobol" (FastOwen,
-    the reference default), "zsobol:fastowen" and "hash"."""
+    the reference default), "zsobol:fastowen" and "hash". `device` is the
+    caller's: there is no default."""
     if kind == "hash":
         return HashSampler(spp, full_res, seed, device=device)
     if kind in ("zsobol", "zsobol:fastowen"):

@@ -1,8 +1,9 @@
 """Batched 3-vector math over ``[..., 3]`` float32 tensors.
 
 Port of `yart_tpu/ops/vecmath.py` (the subset the forward path uses):
-reflect/refract/fresnel (src/math/math.hpp:15-100) and the orthonormal
-shading frames (src/math/frame.hpp:21-59).
+reflect/refract/fresnel (src/math/math.hpp:15-100), the octahedral map of
+the environment light (math.hpp:151-179) and the orthonormal shading
+frames (src/math/frame.hpp:21-59).
 """
 
 from __future__ import annotations
@@ -47,6 +48,36 @@ def safe_sqrt(x):
 
 def max_component(v):
     return v.amax(dim=-1)
+
+
+def _sign_nz(x):
+    """sign(x) with +1 at x == 0."""
+    return torch.where(x < 0.0, -1.0, 1.0)
+
+
+def octahedral_uv(v):
+    """Direction -> octahedral-map UV in [0, 1]^2 (math.hpp:151-166)."""
+    s = v.abs().sum(dim=-1, keepdim=True)
+    v = v / torch.clamp_min(s, EPS)
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
+    lo_u = (1.0 - vz.abs()) * _sign_nz(vx)
+    lo_v = (1.0 - vx.abs()) * _sign_nz(vz)
+    u = torch.where(vy >= 0.0, vx, lo_u)
+    w = torch.where(vy >= 0.0, vz, lo_v)
+    return (torch.stack([u, w], dim=-1) + 1.0) * 0.5
+
+
+def inv_octahedral_uv(uv):
+    """Octahedral-map UV -> unit direction (math.hpp:168-179)."""
+    x = 2.0 * uv[..., 0] - 1.0
+    z = 2.0 * uv[..., 1] - 1.0
+    y = 1.0 - (x.abs() + z.abs())
+    below = y < 0.0
+    x_f = (1.0 - z.abs()) * _sign_nz(x)
+    z_f = (1.0 - x.abs()) * _sign_nz(z)
+    x = torch.where(below, x_f, x)
+    z = torch.where(below, z_f, z)
+    return normalize(torch.stack([x, y, z], dim=-1))
 
 
 def refract(wi, n, ior):

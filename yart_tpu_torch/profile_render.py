@@ -1,0 +1,103 @@
+"""Where a render's time goes on the card.
+
+    python -m yart_tpu_torch.profile_render spheres --spp 16 --size 512x512 [--out DIR]
+
+Takes the CLI's scene, camera and render flags (after the scene name, any
+flag of `python -m yart_tpu_torch.cli`), renders once without the
+profiler (the timing of record, and the warm-up: the kernels build
+there), then once under `torch.profiler` with CPU and CUDA activities, and
+prints one JSON line:
+
+- wall seconds, rays and Mrays/s of both renders;
+- kernel launches and summed kernel milliseconds of the profiled render,
+  and the device's busy share there (kernel time / profiled wall; one
+  stream, so kernels do not overlap);
+- kernel milliseconds grouped as the port's kernels B1, B2 and B3 (by
+  their CUDA function names), sorting, and the rest (PyTorch's own
+  kernels), with the 12 kernels of most device time.
+
+With --out DIR the profiler's chrome trace is written to DIR/trace.json.
+The card is required: this measures the device, never the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+GROUPS = (  # (group, substring of the CUDA kernel's name, lower case)
+    ("B1 brute_intersect", "brute_intersect_kernel"),
+    ("B2 presort_keys", "presort_keys_kernel"),
+    ("B3 fused_trace", "fused_trace_kernel"),
+    ("sort", "sort"),  # cub's radix sort kernels ("DeviceRadixSort...")
+)
+
+
+def _render(scene, meta, cam, cfg, device):
+    import torch
+
+    from yart_tpu_torch.render.renderer import Renderer
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = Renderer(scene, meta, cam, cfg, device=device).render()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return {"wall_s": wall, "rays": res.total_rays, "mrays_per_s": res.total_rays / wall / 1e6}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--out", default=None, help="directory for the chrome trace")
+    own, rest = ap.parse_known_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yart_tpu_torch import cli
+
+    args = cli.parse_args(rest)
+    if not torch.cuda.is_available() or torch.device(args.device).type != "cuda":
+        raise SystemExit("profile_render measures the card: it needs a CUDA device")
+    device = torch.device(args.device)
+    scene, meta = cli.build_scene(args, device)
+    cam, cfg = cli.render_configs(args)
+
+    plain = _render(scene, meta, cam, cfg, device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = _render(scene, meta, cam, cfg, device)
+
+    by_name = collections.defaultdict(lambda: [0, 0.0])  # name -> [launches, us]
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name][0] += 1
+            by_name[e.name][1] += e.device_time_total
+    total_us = sum(us for _, us in by_name.values())
+    groups = collections.OrderedDict((g, 0.0) for g, _ in GROUPS)
+    groups["other"] = 0.0
+    for name, (_, us) in by_name.items():
+        g = next((g for g, key in GROUPS if key in name.lower()), "other")
+        groups[g] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    if own.out:
+        os.makedirs(own.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(own.out, "trace.json"))
+    print(json.dumps({
+        "scene": args.scene, "n_tris": meta.n_tris, "size": list(cam.image_size), "spp": cfg.samples,
+        "max_depth": cfg.max_depth, "device": torch.cuda.get_device_name(device),
+        "unprofiled": plain, "profiled": profiled,
+        "kernel_launches": sum(n for n, _ in by_name.values()), "kernel_ms": total_us / 1e3,
+        "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
+        "kernel_ms_by_group": groups,
+        "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,8 +26,9 @@ class CameraParams(NamedTuple):
     image_size: tuple  # (width, height)
 
 
-def build_camera(cfg: CameraConfig, device="cpu") -> CameraParams:
-    """Host-side calcDerivedProperties (camera.hpp:25-59)."""
+def build_camera(cfg: CameraConfig, device) -> CameraParams:
+    """Host-side calcDerivedProperties (camera.hpp:25-59); the tensors go
+    to the caller's `device`."""
     w_px, h_px = cfg.image_size
     aspect = float(w_px) / float(h_px)
     sensor_w, sensor_h = cfg.sensor_size

@@ -1,7 +1,8 @@
 """Wavefront path-tracing integrators (MIS+NEE and naive).
 
 Port of `yart_tpu/render/integrator.py` (src/cpu/mis-integrator.cpp,
-naive-integrator.cpp) for untextured, non-instanced scenes. The JAX
+naive-integrator.cpp) for untextured, non-instanced scenes, lit by area
+lights and an environment light. The JAX
 package's `lax.while_loop` over the wavefront becomes a host loop over
 depth with one `any(active)` sync per bounce; every lane advances one
 bounce per iteration and dead lanes are masked.
@@ -133,9 +134,19 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     hit = intersect(scene, meta, st.o, st.d, tmax_lane, t_min=RAY_EPS)
     found = hit.mask & st.active
 
-    # ---- miss: background (mis-integrator.cpp:27-43) ----
+    # ---- miss: environment + background (mis-integrator.cpp:27-43) ----
     miss = st.active & ~hit.mask
-    L = st.L + torch.where(miss[..., None], st.atten * scene.background, 0.0)
+    L = st.L
+    if meta.has_env:
+        le, pdf_env = lights.env_le_pdf(scene, st.d, meta)
+        env_l = st.atten * le
+        if mis and depth > 0:
+            w_bsdf = torch.where(
+                st.specular, 1.0, st.last_pdf / torch.clamp_min(st.last_pdf + pdf_env, 1e-20)
+            )
+            env_l = env_l * w_bsdf[..., None]
+        L = L + torch.where(miss[..., None], env_l, 0.0)
+    L = L + torch.where(miss[..., None], st.atten * scene.background, 0.0)
 
     # ---- surface shading ----
     sh = shading_data(scene, meta, hit, st.o, st.d)
@@ -177,7 +188,7 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     scattered = B.has_flag(smp.flags, B.REFLECTED | B.TRANSMITTED) & found
 
     # ---- NEE direct lighting (mis-integrator.cpp:76-80, 111-133) ----
-    if mis and meta.n_lights > 0:
+    if mis and (meta.n_lights > 0 or meta.has_env):
         do_nee = scattered & ~B.has_flag(smp.flags, B.EMITTED | B.SPECULAR)
         uc_l = sampler.get1d(lane_state, dim0 + 4)
         u_l = sampler.get2d(lane_state, dim0 + 5)

@@ -1,12 +1,18 @@
-"""Wavefront ray-scene intersection for the brute-force path.
+"""Wavefront ray-scene intersection.
 
 Port of `yart_tpu/render/intersect.py` `Hit`, `intersect_brute` and the
-dispatcher `intersect` (:937) for the scenes this slice supports: ungated,
-non-instanced scenes of at most 4096 triangles. There every ray — camera,
-continuation and NEE shadow — goes to B1 (`kernels/brute.py`): the
-Hopper kernel for CUDA tensors, its plain twin for CPU tensors. Shadow
-rays of ungated scenes are closest-hit queries too, exactly as in the JAX
-package's brute paths.
+dispatcher `intersect` (:937-1025) for ungated, non-instanced scenes:
+
+- at most 4096 triangles: every ray goes to B1 (`kernels/brute.py`);
+- more triangles, at most 8192 clusters: every ray goes to the block trace
+  (`render/blocktrace.py`, kernels B2 and B3).
+
+CUDA tensors run the Hopper kernels, CPU tensors their plain twins, on
+every device alike. Shadow rays of ungated scenes are closest-hit queries
+for B1 and any-hit queries for the block trace, exactly as in the JAX
+package. Gated (alpha-tested, NEE-transparent) and instanced scenes, and
+scenes past the cluster cap, raise NotImplementedError with their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.kernels import brute as _brute
+from yart_tpu_torch.render import blocktrace
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 
@@ -35,31 +42,35 @@ def _hit(t, u, v, back, tri) -> Hit:
 
 
 def check_supported(meta: SceneMeta, nee: bool = False) -> None:
-    """Raise for scenes the ported intersection path cannot take."""
+    """Raise for scenes the ported intersection paths cannot take."""
     if meta.n_instances:
         raise NotImplementedError(
-            "instanced scenes need the block-trace kernels B2/B3, not ported "
-            "yet (ROADMAP.md A.6)"
+            "instanced scenes need the instanced block-trace mode of B3, not "
+            "ported yet (ROADMAP.md A.6, the atrium slice)"
         )
     if meta.any_alpha or (nee and meta.any_transparent):
         raise NotImplementedError(
-            "alpha-tested or NEE-transparent scenes need the gated traversal, "
-            "not ported yet (ROADMAP.md A.6)"
+            "alpha-tested or NEE-transparent scenes need the gated block-trace "
+            "re-cast loop, not ported yet (ROADMAP.md A.6, the atrium slice)"
         )
-    if meta.n_tris > _brute.MAX_TRIS:
+    if meta.n_tris > _brute.MAX_TRIS and meta.n_clusters > blocktrace.MAX_CLUSTERS:
         raise NotImplementedError(
-            f"{meta.n_tris} triangles: scenes over {_brute.MAX_TRIS} need the "
-            "big-scene traversal (B2/B3), not ported yet (ROADMAP.md A.6)"
+            f"{meta.n_clusters} clusters: scenes past {blocktrace.MAX_CLUSTERS} "
+            "need the bin-trace traversal (B4), not ported yet (ROADMAP.md A.9)"
         )
 
 
 def intersect_brute(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float = 1e-3) -> Hit:
-    """Every ray against every triangle with the plain twin, on any device
-    (the reference for the kernel)."""
+    """Every ray against every triangle with B1's plain twin, on any device
+    (the reference for both traversals)."""
     return _hit(*_brute.brute_plain(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))
 
 
 def intersect(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float = 1e-3, nee: bool = False) -> Hit:
-    """Dispatch (render/intersect.py:937): B1 for every supported scene."""
+    """Dispatch (render/intersect.py:937): B1 up to 4096 triangles, the
+    block trace (B2 + B3) above."""
     check_supported(meta, nee)
-    return _hit(*_brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))
+    if meta.n_tris <= _brute.MAX_TRIS:
+        return _hit(*_brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))
+    t, u, v, back, tri, _, _ = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, t_min, nee)
+    return _hit(t, u, v, back, tri)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from yart_tpu_torch.config import CameraConfig, RenderConfig
+from yart_tpu_torch.device import resolve
 from yart_tpu_torch.ops.qmc import make_sampler
 from yart_tpu_torch.ops.tonemap import tonemap
 from yart_tpu_torch.render.camera import build_camera
@@ -95,18 +96,17 @@ def wave_plan(total: int, first: int, max_wave: int):
 
 
 class Renderer:
-    """Progressive renderer on one device (`device`: "cpu", "cuda", ...)."""
+    """Progressive renderer on one device (`device`: "cuda" by default,
+    "cuda:1", "cpu", ...); a CUDA device without a card raises."""
 
     def __init__(self, scene: CompiledScene, meta: SceneMeta, cam_cfg: CameraConfig,
-                 cfg: RenderConfig = RenderConfig(), device="cpu", devices: int = 1):
+                 cfg: RenderConfig = RenderConfig(), device="cuda", devices: int = 1):
         if devices not in (None, 1):
             raise NotImplementedError(
                 "multi-device rendering is not ported yet (ROADMAP.md A.10, "
                 "torch.distributed lane sharding)"
             )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+        self.device = resolve(device)
         self.scene = scene.to(self.device)
         self.meta = meta
         self.cfg = cfg

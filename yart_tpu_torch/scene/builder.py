@@ -1,25 +1,33 @@
 """Host-side scene builder -> the port's CompiledScene.
 
-Port of the subset of `yart_tpu/scene/builder.py` the brute-force path
-needs: materials, world-space meshes, background, and `compile()` with the
-area-light table (builder.py:401-451), the packed `tri_pack` / `shade_pack`
-rows (:481-492) and the material table (:1028). Pure numpy on the host,
-then tensors: the machine with the GPU has no JAX, so the port builds its
-own scenes.
+Port of the subset of `yart_tpu/scene/builder.py` the ported render path
+needs: materials, world-space meshes (with authored or area-weighted
+normals), background, the environment light (`set_env`,
+`set_env_uniform`, `_compile_env`, builder.py:280-371) and `compile()`:
+the numpy SAH BVH and its leaf-order triangle permutation (:389-399), the
+area-light table (:401-451), scene center and radius (:453-457), the packed
+`tri_pack` / `shade_pack` rows (:481-492), the block-trace cluster tables
+`clus_pack`, `clus_first` and the lane-padded `clus_box` (:501-538) and the
+material table (:1028). Pure numpy on the host, then tensors: the machine
+with the GPU has no JAX, so the port builds its own scenes.
 
-Not ported (ROADMAP.md A.6 / A.10): BVH and cluster tables, environment
-light, textures, instancing. Unlike the JAX builder, which permutes
-triangles into BVH leaf order, triangles here stay in insertion order.
+Not ported (ROADMAP.md A.3 / A.6 / A.10): textures, alpha masks,
+instancing, the native C++ BVH build and the BVH8 / coarse wide packs of
+the stack and bin-trace traversals.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from yart_tpu_torch.device import resolve
+from yart_tpu_torch.ops.distribution import build_alias
+from yart_tpu_torch.scene.bvh import build_bvh
+from yart_tpu_torch.scene.clusters import coarse_order, cut_clusters, woop_rows
 from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta
 
 _PI = float(np.pi)
@@ -85,36 +93,101 @@ class SceneBuilder:
         self._tri_mat: List[np.ndarray] = []
         self._vtx_offset = 0
         self._background = (0.0, 0.0, 0.0)
+        self._env_image: Optional[np.ndarray] = None
+        self._env_scale = 1.0
+        self._env_rotation = np.eye(3, dtype=np.float32)
+        self._env_bounds = (0.0, 0.0, 1.0, 1.0)
+        self._env_sampleable = True
 
     def add_material(self, **kwargs) -> int:
         self._materials.append(MaterialDesc(**kwargs))
         return len(self._materials) - 1
 
-    def add_mesh(self, positions: np.ndarray, indices: np.ndarray, material) -> None:
-        """Add a world-space triangle mesh with area-weighted vertex normals,
-        zero uvs and the default +x tangent; `material` is one index or a
-        per-face [T] array."""
+    def add_mesh(self, positions: np.ndarray, indices: np.ndarray, material,
+                 normals: Optional[np.ndarray] = None) -> None:
+        """Add a world-space triangle mesh with zero uvs and the default +x
+        tangent; `material` is one index or a per-face [T] array; without
+        `normals` [V, 3] the vertex normals are area-weighted face normals."""
         positions = np.asarray(positions, np.float64).reshape(-1, 3)
         indices = np.asarray(indices, np.int64).reshape(-1, 3)
         nv = positions.shape[0]
+        if normals is None:
+            normals = _face_normals_to_vertices(positions, indices)
+        normals = np.asarray(normals, np.float64).reshape(nv, 3)
         tangents = np.zeros((nv, 4), np.float32)
         tangents[:, 0] = 1.0
         tangents[:, 3] = 1.0
 
         t = indices.shape[0]
         self._positions.append(positions.astype(np.float32))
-        self._normals.append(_face_normals_to_vertices(positions, indices).astype(np.float32))
+        self._normals.append(normals.astype(np.float32))
         self._tangents.append(tangents)
         self._uvs.append(np.zeros((nv, 2), np.float32))
         self._tris.append((indices + self._vtx_offset).astype(np.int32))
         self._tri_mat.append(np.broadcast_to(np.asarray(material, np.int32), (t,)).copy())
         self._vtx_offset += nv
 
+    def set_env(self, image: np.ndarray, scale: float = 1.0, rotation=None, bounds=None) -> None:
+        """Octahedral HDR environment image [H, W, 3] (src/main.cpp:81-84).
+        `rotation`: optional [3, 3] world -> map matrix (light.cpp:208-214).
+        `bounds`: optional portal crop (u0, v0, u1, v1) in map UV space
+        (light.cpp:147-155): radiance and sampling are restricted to the
+        rect, with the pdf kept in the octahedral measure."""
+        self._env_image = np.asarray(image, np.float32)
+        self._env_scale = float(scale)
+        self._env_sampleable = True
+        if rotation is not None:
+            self._env_rotation = np.asarray(rotation, np.float32).reshape(3, 3)
+        if bounds is not None:
+            self._env_bounds = tuple(float(b) for b in bounds)
+
+    def set_env_uniform(self, color) -> None:
+        """UniformInfiniteLight (light.cpp:83-135): constant radiance on a
+        miss only. Its pdf is 0 and NEE never samples it, though it keeps
+        the light sampler's reserved infinite-light probability."""
+        self._env_image = np.broadcast_to(np.asarray(color, np.float32), (1, 1, 3)).copy()
+        self._env_scale = 1.0
+        self._env_sampleable = False
+        self._env_bounds = (0.0, 0.0, 1.0, 1.0)
+
     def set_background(self, color) -> None:
         self._background = tuple(color)
 
-    def compile(self, device="cpu"):
-        """-> (CompiledScene on `device`, SceneMeta)."""
+    def _compile_env(self) -> dict:
+        """Environment light tables (light.cpp:137-193): an alias table over
+        the (W-1) x (H-1) bilinear base cells, so the sampling cell and the
+        radiance fetch share one index; cells weighted by mean RGB (the
+        octahedral map covers the sphere uniformly, so no sin(theta))."""
+        if self._env_image is None:
+            prob, alias, pdf_cells = build_alias(np.ones(1, np.float32))
+            env_img = np.zeros((1, 1, 3), np.float32)
+            wc = hc = 1
+        else:
+            env_img = self._env_image * self._env_scale
+            h, w = env_img.shape[:2]
+            wc, hc = max(w - 1, 1), max(h - 1, 1)
+            texw = env_img.mean(axis=-1)
+            x1 = np.minimum(np.arange(wc) + 1, w - 1)
+            y1 = np.minimum(np.arange(hc) + 1, h - 1)
+            weight = 0.25 * (texw[:hc, :wc] + texw[:hc, x1] + texw[y1, :wc] + texw[y1][:, x1])
+            u0, v0, u1, v1 = self._env_bounds
+            if (u0, v0, u1, v1) != (0.0, 0.0, 1.0, 1.0):
+                # Portal: zero weight outside the rect (cell-center test).
+                uc = (np.arange(wc) + 0.5) / wc
+                vc = (np.arange(hc) + 0.5) / hc
+                inside = ((uc >= u0) & (uc < u1))[None, :] & ((vc >= v0) & (vc < v1))[:, None]
+                weight = np.where(inside, weight, 0.0)
+            prob, alias, pdf_cells = build_alias(weight)
+        env_alias = np.stack([prob, alias.view(np.float32), pdf_cells, pdf_cells[alias]], axis=1)
+        return dict(env_img=env_img, env_alias=env_alias.astype(np.float32), pdf_cells=pdf_cells,
+                    wc=wc, hc=hc)
+
+    def compile(self, device="cuda", cluster_size: int = 128):
+        """-> (CompiledScene on `device`, the card by default; SceneMeta).
+        Triangles are permuted into the leaf order of a binned-SAH BVH,
+        which is cut into clusters of at most `cluster_size` triangles for
+        the block trace."""
+        device = resolve(device)
         if not self._tris:
             raise ValueError("scene has no geometry")
         positions = np.concatenate(self._positions)
@@ -124,6 +197,12 @@ class SceneBuilder:
         tri_v = np.concatenate(self._tris)
         tri_mat = np.concatenate(self._tri_mat)
         v0, v1, v2 = (positions[tri_v[:, k]] for k in range(3))
+
+        # Triangles in BVH leaf order: every cluster is a contiguous range.
+        hb = build_bvh(v0, v1, v2)
+        tri_v = tri_v[hb.tri_order]
+        tri_mat = tri_mat[hb.tri_order]
+        v0, v1, v2 = v0[hb.tri_order], v1[hb.tri_order], v2[hb.tri_order]
 
         # Area lights: every triangle of an emissive material
         # (gltf.cpp:299-314), power = |Le| * A * pi * (2 if two-sided)
@@ -150,6 +229,12 @@ class SceneBuilder:
         l_verts = np.stack([positions[ltv[:, k]] for k in range(3)], axis=1).astype(np.float32)
         l_norms = np.stack([normals[ltv[:, k]] for k in range(3)], axis=1).astype(np.float32)
 
+        # Bounding sphere of the scene box: the env light's sample distance.
+        lo, hi = positions.min(axis=0), positions.max(axis=0)
+        center = (lo + hi) * 0.5
+        radius = float(np.linalg.norm(hi - lo) * 0.5)
+        env = self._compile_env()
+
         bits = lambda a: np.ascontiguousarray(a, np.int32).view(np.float32)
         tri_pack = np.zeros((tri_v.shape[0], 12), np.float32)
         tri_pack[:, 0:3] = v0
@@ -164,7 +249,25 @@ class SceneBuilder:
         shade_pack[:, 27] = bits(tri_mat)
         shade_pack[:, 28] = bits(tri_light)
 
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # Block-trace tables: clusters in coarse-tree order, their packs,
+        # and their boxes SoA, lane-padded. Pad boxes sit at +3e38: the slab
+        # test min/max-normalises inverted bounds, so a lo > hi sentinel
+        # would become a real box around the origin, while a far degenerate
+        # box is never entered.
+        cut = coarse_order(cut_clusters(hb, cluster_size))
+        clus_pack = woop_rows(v0, v1, v2, cut, cluster_size)
+        n_clus = int(cut.first.shape[0])
+        n_clus_pad = max(128, -(-n_clus // 512) * 512 if n_clus > 128 else 128)
+        clus_box = np.full((8, n_clus_pad), 3.0e38, np.float32)
+        clus_box[6:8] = 0.0
+        clus_box[0:3, :n_clus] = cut.lo.T
+        clus_box[3:6, :n_clus] = cut.hi.T
+
+        t = lambda a, dtype=None: torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        env_img = torch.from_numpy(np.ascontiguousarray(env["env_img"], np.float32))
+        from yart_tpu_torch.render.lights import env_rows_from_image
+
+        env_rows = env_rows_from_image(env_img, torch.from_numpy(env["pdf_cells"]))
         scene = CompiledScene(
             tri_pack=t(tri_pack),
             shade_pack=t(shade_pack),
@@ -177,13 +280,27 @@ class SceneBuilder:
             light_cdf=t(l_cdf),
             light_verts=t(l_verts),
             light_norms=t(l_norms),
-            background=t(np.asarray(self._background, np.float32)),
+            env_image=env_img.to(device),
+            env_bounds=t(self._env_bounds, np.float32),
+            env_alias=t(env["env_alias"]),
+            env_rows=env_rows.to(device),
+            env_rotation=t(self._env_rotation, np.float32),
+            scene_center=t(center, np.float32),
+            scene_radius=t(radius, np.float32),
+            background=t(self._background, np.float32),
+            clus_pack=t(clus_pack),
+            clus_first=t(cut.first),
+            clus_box=t(clus_box),
         )
         meta = SceneMeta(
             n_tris=int(tri_v.shape[0]),
             n_materials=len(mats),
             n_lights=int(light_tri.size),
-            has_env=False,
+            has_env=self._env_image is not None,
+            env_sampleable=self._env_sampleable,
+            env_portal=self._env_bounds != (0.0, 0.0, 1.0, 1.0),
+            env_wc=env["wc"],
+            env_hc=env["hc"],
             any_alpha=any(m.has_alpha for m in mats),
             any_transparent=any(m.thin and m.transmission > 0.0 for m in mats),
             any_metallic=any(m.metallic > 0.0 or m.tex_mr >= 0 for m in mats),
@@ -195,6 +312,9 @@ class SceneBuilder:
                     m.tex_clearcoat, m.tex_emission) >= 0
                 for m in mats
             ),
+            n_clusters=n_clus,
+            cluster_size=int(cluster_size),
+            n_clus_pad=n_clus_pad,
         )
         return scene, meta
 

@@ -1,0 +1,143 @@
+"""Host-side binned-SAH BVH build over world-space triangles.
+
+Port of `yart_tpu/scene/bvh.py` `build_bvh`, `build_bvh_boxes` and
+`_sah_split` (the reference's binned SAH, src/core/bvh.hpp:41-348): numpy
+only, and the same arithmetic, so the tree, the triangle permutation and
+everything cut from it (scene/clusters.py) equal the JAX package's numpy
+builder exactly. The JAX builder prefers its native C++ build when that
+library is present; the port has none and always runs this one.
+
+The port's device traversal never walks this tree: the builder uses it for
+the leaf-order triangle permutation and the cluster cut only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+
+class HostBVH(NamedTuple):
+    node_min: np.ndarray  # [N, 3] f32
+    node_max: np.ndarray  # [N, 3] f32
+    left: np.ndarray  # [N] i32 (inner: left child; leaf: first tri)
+    count: np.ndarray  # [N] i32 (0 = inner)
+    tri_order: np.ndarray  # [T] i32 permutation: tri_order[new] = old
+    depth: int  # max tree depth
+
+
+def build_bvh(v0, v1, v2, max_leaf: int = 4, n_bins: int = 20) -> HostBVH:
+    """Build from triangle vertex positions [T, 3] each."""
+    tri_lo = np.minimum(np.minimum(v0, v1), v2).astype(np.float32)
+    tri_hi = np.maximum(np.maximum(v0, v1), v2).astype(np.float32)
+    cent = ((v0 + v1 + v2) / 3.0).astype(np.float32)
+    return build_bvh_boxes(tri_lo, tri_hi, cent, max_leaf, n_bins)
+
+
+def build_bvh_boxes(tri_lo, tri_hi, cent=None, max_leaf: int = 4, n_bins: int = 20) -> HostBVH:
+    """Build over arbitrary primitive AABBs [T, 3] (triangles, and the
+    clusters of scene/clusters.py)."""
+    t = tri_lo.shape[0]
+    if t == 0:
+        raise ValueError("empty scene")
+    if cent is None:
+        cent = ((tri_lo + tri_hi) * 0.5).astype(np.float32)
+
+    order = np.arange(t, dtype=np.int32)
+    cap = max(1, 2 * t - 1)
+    node_min = np.empty((cap, 3), np.float32)
+    node_max = np.empty((cap, 3), np.float32)
+    left = np.zeros(cap, np.int32)
+    count = np.zeros(cap, np.int32)
+    n_nodes = 1
+    stack = [(0, 0, t, 1)]  # (node, first, span, depth)
+    max_depth = 1
+
+    while stack:
+        node, first, span, depth = stack.pop()
+        max_depth = max(max_depth, depth)
+        # A copy: the partition below writes back into the same range.
+        idx = order[first : first + span].copy()
+        lo = tri_lo[idx]
+        hi = tri_hi[idx]
+        node_min[node] = lo.min(axis=0)
+        node_max[node] = hi.max(axis=0)
+
+        if span <= max_leaf:
+            left[node] = first
+            count[node] = span
+            continue
+        split = _sah_split(cent[idx], lo, hi, n_bins, span)
+        if split is None:
+            # Degenerate (all centroids equal): median split (bvh.hpp:159-161).
+            axis = int(np.argmax(node_max[node] - node_min[node]))
+            key = np.argsort(cent[idx][:, axis], kind="stable")
+            order[first : first + span] = idx[key]
+            mid = span // 2
+        else:
+            axis, thresh = split
+            mask = cent[idx][:, axis] < thresh
+            mid = int(mask.sum())
+            if mid == 0 or mid == span:
+                key = np.argsort(cent[idx][:, axis], kind="stable")
+                order[first : first + span] = idx[key]
+                mid = span // 2
+            else:
+                order[first : first + mid] = idx[mask]
+                order[first + mid : first + span] = idx[~mask]
+
+        l_child = n_nodes
+        n_nodes += 2
+        left[node] = l_child
+        count[node] = 0
+        stack.append((l_child + 1, first + mid, span - mid, depth + 1))
+        stack.append((l_child, first, mid, depth + 1))
+
+    return HostBVH(node_min[:n_nodes], node_max[:n_nodes], left[:n_nodes], count[:n_nodes],
+                   order, max_depth)
+
+
+def _sah_split(cent, lo, hi, n_bins, span):
+    """Binned SAH over all 3 axes (bvh.hpp:273-347). Returns (axis, thresh)
+    or None when unsplittable or a leaf is cheaper than any split."""
+    c_lo = cent.min(axis=0)
+    c_hi = cent.max(axis=0)
+    ext = c_hi - c_lo
+    best = (np.inf, -1, 0.0)
+
+    def area(a_lo, a_hi):
+        d = np.maximum(a_hi - a_lo, 0.0)
+        return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+    for axis in range(3):
+        if ext[axis] <= 0.0:
+            continue
+        scale = n_bins / ext[axis]
+        b = np.minimum(n_bins - 1, ((cent[:, axis] - c_lo[axis]) * scale).astype(np.int32))
+        cnt = np.bincount(b, minlength=n_bins)
+        blo = np.full((n_bins, 3), np.inf, np.float32)
+        bhi = np.full((n_bins, 3), -np.inf, np.float32)
+        np.minimum.at(blo, b, lo)
+        np.maximum.at(bhi, b, hi)
+        llo = np.minimum.accumulate(blo, axis=0)
+        lhi = np.maximum.accumulate(bhi, axis=0)
+        rlo = np.minimum.accumulate(blo[::-1], axis=0)[::-1]
+        rhi = np.maximum.accumulate(bhi[::-1], axis=0)[::-1]
+        lcnt = np.cumsum(cnt)
+        rcnt = span - lcnt
+        # Split after bin i: left = bins [0..i], right = bins [i+1..].
+        cost = area(llo[:-1], lhi[:-1]) * lcnt[:-1] + area(rlo[1:], rhi[1:]) * rcnt[:-1]
+        cost = np.where((lcnt[:-1] == 0) | (rcnt[:-1] == 0), np.inf, cost)
+        i = int(np.argmin(cost))
+        if cost[i] < best[0]:
+            best = (cost[i], axis, c_lo[axis] + (i + 1) / scale)
+
+    if best[1] < 0:
+        return None
+    # Leaf-vs-split test (bvh.hpp:320-329).
+    d = hi.max(axis=0) - lo.min(axis=0)
+    parent_area = d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+    if parent_area > 0.0 and best[0] / parent_area >= span:
+        return None
+    return best[1], best[2]

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from yart_tpu_torch.device import resolve
 from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta
 
 
@@ -22,30 +23,21 @@ def _t(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def from_numpy(leaves, meta_fields, device="cpu"):
+def from_numpy(leaves, meta_fields, device="cuda"):
     """(numpy CompiledScene, SceneMeta fields) -> the port's (scene, meta).
 
     `leaves` has the JAX `CompiledScene` attributes as numpy arrays;
     `meta_fields` is a mapping of the JAX `SceneMeta` fields (for example
-    `dataclasses.asdict(meta)`).
+    `dataclasses.asdict(meta)`). The tensors go to `device`, the card by
+    default.
     """
+    device = resolve(device)
     mats = leaves.materials
-    scene = CompiledScene(
-        tri_pack=_t(leaves.tri_pack, device),
-        shade_pack=_t(leaves.shade_pack, device),
-        tri_mat=_t(leaves.tri_mat, device),
-        tri_light=_t(leaves.tri_light, device),
-        materials=MaterialTable(
-            *(_t(getattr(mats, f), device) for f in MaterialTable._fields)
-        ),
-        light_emission=_t(leaves.light_emission, device),
-        light_area=_t(leaves.light_area, device),
-        light_power=_t(leaves.light_power, device),
-        light_cdf=_t(leaves.light_cdf, device),
-        light_verts=_t(leaves.light_verts, device),
-        light_norms=_t(leaves.light_norms, device),
-        background=_t(leaves.background, device),
-    )
+    scene = CompiledScene(**{
+        f.name: MaterialTable(*(_t(getattr(mats, g), device) for g in MaterialTable._fields))
+        if f.name == "materials" else _t(getattr(leaves, f.name), device)
+        for f in dataclasses.fields(CompiledScene)
+    })
     names = {f.name for f in dataclasses.fields(SceneMeta)}
     meta = SceneMeta(**{k: v for k, v in dict(meta_fields).items() if k in names})
     return scene, meta

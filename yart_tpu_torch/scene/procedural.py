@@ -1,6 +1,7 @@
 """Procedural scenes; port of `yart_tpu/scene/procedural.py` `cornell_box`,
-`box_mesh` and `_quad` (the reference's main.cpp Cornell setups,
-src/main.cpp:20-77). Other fixtures wait for later slices (ROADMAP.md A.10).
+`box_mesh`, `_quad`, `uv_sphere`, `furnace` and `material_test_spheres`
+(the reference's main.cpp setups, src/main.cpp:20-77). The textured and
+showcase fixtures wait for later slices (ROADMAP.md A.3, A.10).
 """
 
 from __future__ import annotations
@@ -92,3 +93,72 @@ def box_mesh(base_center, half_extents, rot_y: float = 0.0):
     rot = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
     verts = verts @ rot.T + np.asarray([cx, cy, cz], np.float32)
     return verts, np.asarray(idx, np.int32)
+
+
+def uv_sphere(center, radius, n_theta: int = 24, n_phi: int = 48):
+    """UV-sphere mesh with smooth normals. Returns (verts, normals, idx)."""
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)[:-1]
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.cos(tt)
+    z = np.sin(tt) * np.sin(pp)
+    normals = np.stack([x, y, z], -1).reshape(-1, 3)
+    verts = normals * radius + np.asarray(center, np.float32)
+
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            j1 = (j + 1) % n_phi
+            a = i * n_phi + j
+            b2 = i * n_phi + j1
+            c = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + j1
+            if i > 0:
+                idx.append([a, b2, c])
+            if i < n_theta - 1:
+                idx.append([b2, d, c])
+    return verts.astype(np.float32), normals.astype(np.float32), np.asarray(idx, np.int32)
+
+
+def furnace(albedo=(1.0, 1.0, 1.0), env_value: float = 0.5, roughness: float = 1.0,
+            metallic: float = 0.0, transmission: float = 0.0, ior: float = 1.5,
+            clearcoat: float = 0.0, cc_roughness: float = 0.0, thin: bool = False,
+            anisotropic: float = 0.0, aniso_rotation: float = 0.0) -> SceneBuilder:
+    """Furnace test: a sphere of 3968 triangles inside a uniform 8x8
+    environment; a white BSDF must vanish against the background."""
+    b = SceneBuilder()
+    m = b.add_material(
+        base_color=(*albedo, 1.0), roughness=roughness, metallic=metallic,
+        transmission=transmission, ior=ior, clearcoat=clearcoat,
+        cc_roughness=cc_roughness, thin=thin, anisotropic=anisotropic,
+        aniso_rotation=aniso_rotation,
+    )
+    verts, normals, idx = uv_sphere((0.0, 0.0, 0.0), 1.0, 32, 64)
+    b.add_mesh(verts, idx, m, normals=normals)
+    b.set_env(np.full((8, 8, 3), env_value, np.float32))
+    return b
+
+
+def material_test_spheres(env_value: float = 0.8) -> SceneBuilder:
+    """The CLI's `spheres` scene: three rows of five spheres (metal, glossy,
+    glass) sweeping roughness over a floor quad under a constant 8x8
+    environment; 15 x 960 + 2 = 14,402 triangles."""
+    b = SceneBuilder()
+    floor_mat = b.add_material(base_color=(0.5, 0.5, 0.5, 1.0), roughness=0.9)
+    fv, fi = _quad([-12, 0, -12], [12, 0, -12], [12, 0, 12], [-12, 0, 12])
+    b.add_mesh(fv, fi, floor_mat)
+    for row, kind in enumerate(("metal", "glossy", "glass")):
+        for i in range(5):
+            r = i / 4.0
+            if kind == "metal":
+                m = b.add_material(base_color=(0.95, 0.78, 0.42, 1.0), metallic=1.0, roughness=r)
+            elif kind == "glossy":
+                m = b.add_material(base_color=(0.2, 0.3, 0.8, 1.0), roughness=r)
+            else:
+                m = b.add_material(base_color=(1.0, 1.0, 1.0, 1.0), transmission=1.0,
+                                   roughness=r, ior=1.5, thin=False)
+            verts, normals, idx = uv_sphere((-2.4 + 1.2 * i, 0.5, -1.2 * row), 0.5, 16, 32)
+            b.add_mesh(verts, idx, m, normals=normals)
+    b.set_env(np.full((8, 8, 3), env_value, np.float32))
+    return b

@@ -1,11 +1,14 @@
-"""Compiled scene tables for the brute-force render path.
+"""Compiled scene tables of the ported render path.
 
-Port of `yart_tpu/scene/types.py`, holding only the fields the ported
-path reads. Triangles are a flat world-space soup; `tri_pack` and
-`shade_pack` keep the JAX package's packed row layouts (builder.py:481-492),
-including the int32 ids bit-cast into float32 columns (`tri_pack[:, 9:11]`,
-`shade_pack[:, 27:29]`). Those columns are carried bit-exactly but never
-read as floats: the render path takes `tri_mat` / `tri_light` directly.
+Port of `yart_tpu/scene/types.py`, holding the fields the ported path
+reads (and `env_image` and `scene_center`, which the env rows and the
+sample distance derive from), under the JAX package's names. Triangles are a flat
+world-space soup in BVH leaf order; `tri_pack` and `shade_pack` keep the
+JAX package's packed row layouts (builder.py:481-492), including the int32
+ids bit-cast into float32 columns (`tri_pack[:, 9:11]`,
+`shade_pack[:, 27:29]`, `clus_pack[:, 4, 0]`, `env_alias[:, 1]`). Those
+columns are carried bit-exactly; the render path reads the ids through
+int32 views or the int tables.
 """
 
 from __future__ import annotations
@@ -61,7 +64,22 @@ class CompiledScene:
     light_cdf: torch.Tensor  # [L + 1] cumulative power, unnormalized
     light_verts: torch.Tensor  # [L, 3, 3]
     light_norms: torch.Tensor  # [L, 3, 3]
+    # Environment light (octahedral map; light.cpp:137-242). 1x1 zeros when
+    # the scene has none. Sampling is an alias table over the (W-1)x(H-1)
+    # bilinear base cells; env_rows packs each cell's 2x2 texel quad and
+    # its sampling pdf, so radiance and pdf come from one row.
+    env_image: torch.Tensor  # [H, W, 3] linear radiance (scale applied)
+    env_bounds: torch.Tensor  # [4] portal crop (u0, v0, u1, v1); full = 0,0,1,1
+    env_alias: torch.Tensor  # [K, 4] (prob, alias bits, pdf, pdf of alias)
+    env_rows: torch.Tensor  # [K, 16] 2x2 rgb quad (12) + pdf + pad(3)
+    env_rotation: torch.Tensor  # [3, 3] world -> map rotation
+    scene_center: torch.Tensor  # [3]
+    scene_radius: torch.Tensor  # [] bounding-sphere radius of the scene box
     background: torch.Tensor  # [3]
+    # Block-trace tables (scene/clusters.py, render/blocktrace.py):
+    clus_pack: torch.Tensor  # [n_clus, 8, 3C] plane/barycentric rows
+    clus_first: torch.Tensor  # [n_clus] int32 first triangle of each cluster
+    clus_box: torch.Tensor  # [8, n_clus_pad] lo.xyz, hi.xyz, pad; pad boxes at +3e38
 
     def to(self, device) -> "CompiledScene":
         return CompiledScene(
@@ -81,6 +99,12 @@ class SceneMeta:
     n_materials: int
     n_lights: int
     has_env: bool = False
+    # UniformInfiniteLight (light.cpp:83-135) when False: radiance on a miss
+    # only, pdf 0, never sampled by NEE.
+    env_sampleable: bool = True
+    env_portal: bool = False  # portal crop active (light.cpp:147-155)
+    env_wc: int = 1  # env sampling grid: (W-1) x (H-1) bilinear base cells
+    env_hc: int = 1
     any_alpha: bool = False
     any_textures: bool = False
     any_transparent: bool = False
@@ -88,4 +112,7 @@ class SceneMeta:
     any_transmissive: bool = True
     any_clearcoat: bool = True
     any_anisotropy: bool = True
+    n_clusters: int = 1
+    cluster_size: int = 128  # C: triangle capacity of a cluster
+    n_clus_pad: int = 128  # clus_box lane padding
     n_instances: int = 0
