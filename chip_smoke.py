@@ -23,19 +23,38 @@ exits non-zero and prints no final "ok" line:
                (closest hit), then shadow rays from their hits as any-hit
                queries (nee) with a finite t_max. This case gives the
                kernels line its times and bounds.
-  4. render  — the main path: Renderer on cuda, cornell-mat 512x512, max
-               depth 30, ZSobol, GMoN, AgX, 64 spp in the CLI's waves;
-               B1's launch count must be > 0 and the plain twin must not
-               have run on CUDA.
+  3d. kernel — B3 in its alpha-mask (`amask`) mode against its twin,
+               bitwise, on the port-built atrium-ivy (127,972 triangles,
+               alpha-tested ivy, built and timed here on the host): cast 0
+               is 2^20 camera rays from the CLI's camera, cast 1 re-casts
+               the lanes whose first hit the alpha gate passed through,
+               with floor = that hit, reusing cast 0's order and slots as
+               the gated loop does. B2 on these rays against its twin too.
+               This case gives the kernels line its B2 and B3 times.
+  3e. gated  — the gated re-cast loop (intersect_blocktrace_gated), kernel
+               path against twin path bitwise, on 2^16 atrium-ivy camera
+               rays and on shadow rays from their hits (nee), with the
+               active count of every cast.
+  4. render  — the earlier main paths: Renderer on cuda, cornell-mat
+               512x512, 64 spp, max depth 30, ZSobol, GMoN, AgX, in the
+               CLI's waves; B1's launch count must be > 0 and the plain twin
+               must not have run on CUDA.
   4b. render — the same for `spheres` (14,402 triangles, env-lit, the
                CLI's camera): every ray goes through B2 and B3.
+  4c. render — this slice's main path: atrium-ivy 512x512, depth 30, +3 EV,
+               64 spp: B2 and B3 in `amask` mode must launch, no twin may
+               run on CUDA; casts per gated call are reported.
   5. reference — the golden_v1 cornell_mat_64 and spheres_dof
                configurations: the kernel path's image must equal the
                plain-twin path's bitwise, and its per-channel mean must
-               lie within 2% of the golden's.
-The kernels line lists B1, B2 and B3 with their launches on the main
-paths, times and bounds; then the card as nvidia-smi reports it; the last
-line is {"ok": true, "device": {...}}.
+               lie within 2% of the golden's; golden_v1 `textured` from the
+               port-built textured_box_scene (gated brute, no kernel) within
+               2%; a small atrium-ivy render, kernel path == twin path
+               bitwise.
+The kernels line lists B1, B2 and B3 with their launches on the main paths
+(B1: cornell-mat; B2, B3: atrium-ivy, with B3's launches per mode), times
+and bounds; then the card as nvidia-smi reports it; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -61,6 +80,9 @@ PEAK_BYTES = 3.35e12
 FLOPS_MT = 40  # B1: one Moller-Trumbore ray-triangle test
 FLOPS_SLAB = 24  # B2: one conservative ray-box slab test with margins
 FLOPS_PLANE = 30  # B3: one plane + barycentric ray-triangle test
+# B3 amask: the alpha-mask bit test (2 multiplies, 4 clamps, index, shift),
+# counted on the candidates that run it (B3's output column 7).
+FLOPS_AMASK = 6
 
 
 def emit(obj) -> None:
@@ -180,9 +202,10 @@ def make_rays(n: int, coherent: bool):
     return o, d
 
 
-def camera_rays(cam_cfg, dev):
+def camera_rays(cam_cfg, dev, seeds: bool = False):
     """One ZSobol-jittered camera ray per pixel of the square image of
-    `cam_cfg`, as a render's first bounce makes them."""
+    `cam_cfg`, as a render's first bounce makes them; with `seeds` also
+    each lane's alpha-test seed of bounce 0."""
     import torch
 
     from yart_tpu_torch.ops.qmc import make_sampler
@@ -195,6 +218,8 @@ def camera_rays(cam_cfg, dev):
     sampler = make_sampler("zsobol", 1, (side, side), device=dev)
     state = sampler.init_lanes(px, py, torch.zeros_like(px))
     o, d = generate_rays(cam, px, py, sampler.get2d(state, 0), sampler.get2d(state, 2))
+    if seeds:
+        return o.contiguous(), d.contiguous(), sampler.lane_seed(state)
     return o.contiguous(), d.contiguous()
 
 
@@ -253,6 +278,114 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
     return rec
 
 
+def compare_amask(name, scene, meta, o, d, seeds):
+    """B3's `amask` mode against its twin, bitwise, at the gated loop's
+    shapes: cast 0 over all rays, then cast 1 over the lanes whose first
+    hit the alpha gate passed through, with floor = that hit and cast 0's
+    order, `blive` flags and slots reused. B2 on the same rays against its
+    twin. Raises on any bit difference; returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
+
+    t_min = 1e-3
+    n = o.shape[0]
+    t_max = torch.full((n,), 1e30, device=o.device)
+    zeros = torch.zeros(n, device=o.device)
+    rays = blocktrace.ray_matrix(o, d, t_max)
+    box, n_clus = scene.clus_box, meta.n_clusters
+    pk = presort.presort_cuda(rays, box, n_clus, t_min)
+    pk_p = presort.presort_plain(rays, box, n_clus, t_min)
+    torch.cuda.synchronize()
+    b2_rows = int((pk != pk_p).any(dim=1).sum())
+    if b2_rows:
+        raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows")
+    order, blive0, slots = blocktrace.fused_order(scene, meta, o, d, t_max, zeros, t_min)
+    counts = blocktrace.cluster_counts(scene)
+    rec = {"case": name, "n_rays": n, "n_tris": int(meta.n_tris), "n_clusters": int(n_clus),
+           "bitwise_equal": True, "b2_rows_differ": 0}
+    casts = []
+
+    def cast(tag, rays_s, blive):
+        args = (rays_s.contiguous(), slots, box, scene.clus_pack, counts, blive, t_min, False, True)
+        out = fusedtrace.fused_trace_cuda(*args)
+        out_p = fusedtrace.fused_trace_plain(*args)
+        torch.cuda.synchronize()
+        hit = out[:, 4].contiguous().view(torch.int32) >= 0
+        err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
+        if not bits_equal(out, out_p):
+            diff = [i for i in range(8) if not bits_equal(out[:, i].contiguous(), out_p[:, i].contiguous())]
+            raise AssertionError(f"{name} {tag}: B3 amask kernel and twin differ in columns {diff} "
+                                 f"(max abs t/u/v over hits {err})")
+        live = int((rays_s[:, 6] > 0).sum())
+        casts.append({"cast": tag, "live_rays": live, "live_blocks": int(blive.sum()),
+                      "hit_frac_of_live": float(hit.sum()) / max(live, 1), "max_abs_err": err,
+                      "tris_tested": float(out[:, 6].double().sum()),
+                      "mask_tests": float(out[:, 7].double().sum())})
+        return args, out
+
+    args0, out0 = cast("cast0", rays[order], blive0)
+    res = torch.empty_like(out0)
+    res[order] = out0
+    res = res[:n]
+    tri = res[:, 4].contiguous().view(torch.int32)
+    hit = tri >= 0
+    ok, _, _ = blocktrace.hit_gates(scene, meta, res[:, 1], res[:, 2], tri, d, False, seeds)
+    passthru = hit & ~ok
+    rays1 = blocktrace.ray_matrix(o, d, torch.where(passthru, t_max, -1.0),
+                                  torch.where(passthru, res[:, 0], 0.0))[order]
+    blive1 = ((rays1[:, 6] > 0.0).view(-1, blocktrace.BLOCK).any(dim=1) & (blive0 != 0)).to(torch.int32)
+    args1, out1 = cast("cast1", rays1, blive1)
+    floor_ok = out1[:, 4].contiguous().view(torch.int32) >= 0
+    if not bool((out1[floor_ok, 0] > rays1[floor_ok, 7]).all()):
+        raise AssertionError(f"{name}: a cast-1 hit lies at or below its floor")
+    rec.update(casts=casts, hit_frac=float(hit.float().mean()),
+               passthrough_share_of_hits=float(passthru.sum()) / max(int(hit.sum()), 1),
+               max_abs_err=max(c["max_abs_err"] for c in casts))
+    rec["b2_ms"] = cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11)
+    rec["b2_plain_ms"] = cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)
+    rec["b2_bound_ms"], rec["b2_bound_by"] = bound(FLOPS_SLAB * n * n_clus, nbytes(rays, box, pk))
+    rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0), reps=11)
+    rec["b3_closest_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0[:8], False), reps=11)
+    rec["b3_cast1_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args1), reps=11)
+    rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args0), reps=1,
+                                 warmup_s=0.0, warmup_calls=1)
+    rec["b3_bound_ms"], rec["b3_bound_by"] = bound(
+        FLOPS_PLANE * casts[0]["tris_tested"] + FLOPS_AMASK * casts[0]["mask_tests"],
+        nbytes(*args0[:6], out0))
+    return rec
+
+
+def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool):
+    """intersect_blocktrace_gated, kernel path against twin path, bitwise
+    on every Hit field and on the per-cast active counts."""
+    import torch
+
+    from yart_tpu_torch.render import blocktrace
+
+    trace_k, trace_p = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hk = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
+                                               trace=trace_k)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with intersection_forced_to_plain():
+        hp = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
+                                                   trace=trace_p)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = [f for f in hk._fields if not bits_equal(getattr(hk, f), getattr(hp, f))]
+    if diff or trace_k != trace_p:
+        raise AssertionError(f"{name}: gated loop kernel path and twin path differ in {diff}; "
+                             f"casts {trace_k} vs {trace_p}")
+    return {"case": name, "nee": nee, "n_rays": int(o.shape[0]), "bitwise_equal": True,
+            "casts": len(trace_k), "active_per_cast": trace_k, "hit_frac": float(hk.mask.float().mean()),
+            "kernel_path_ms": ms, "twin_path_s": plain_s}
+
+
 @contextlib.contextmanager
 def intersection_forced_to_plain():
     """Test-only switch for phase 5: route the render path's B1, B2 and B3
@@ -272,9 +405,11 @@ def intersection_forced_to_plain():
 
 def reset_counts():
     from yart_tpu_torch.kernels import brute, fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
 
     for m in (brute, presort, fusedtrace):
         m.COUNTS.reset()
+    blocktrace.GATED.reset()
 
 
 def render_main_path(name, scene, meta, cam_cfg, spp, dev):
@@ -286,6 +421,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.io.image import write_png
     from yart_tpu_torch.kernels import brute, fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
     from yart_tpu_torch.render.renderer import Renderer
 
     # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
@@ -308,6 +444,9 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     wall = time.time() - t0
     launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
                 "fused_trace": fusedtrace.COUNTS.launches}
+    modes = dict(fusedtrace.COUNTS.modes)
+    gated = {"calls": blocktrace.GATED.calls, "casts": blocktrace.GATED.casts,
+             "casts_per_call": blocktrace.GATED.casts / max(blocktrace.GATED.calls, 1)}
     plain_cuda = brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
     peak = torch.cuda.max_memory_allocated(dev)
     if plain_cuda != 0:
@@ -321,39 +460,49 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     rec = {"phase": "render", "scene": name, "n_tris": int(meta.n_tris), "size": list(cam_cfg.image_size),
            "spp": res.samples_taken, "max_depth": 30, "wall_s": round(wall, 3), "rays": res.total_rays,
            "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
-           "launches": launches, "plain_calls_on_cuda": plain_cuda, "waves": waves,
+           "launches": launches, "fused_trace_modes": modes, "gated": gated,
+           "plain_calls_on_cuda": plain_cuda, "waves": waves,
            "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)}
-    return rec, launches
+    return rec, dict(launches, fused_trace_modes=modes)
 
 
-def reference_check(name, scene, meta, gcam, gcfg, golden_key, dev):
-    """Kernel-path image == plain-path image bitwise; channel means within
-    GOLDEN_MEAN_RTOL of the golden's."""
+def reference_check(name, scene, meta, gcam, gcfg, golden_key, dev, twin: bool = True):
+    """Kernel-path image == plain-path image bitwise (with `twin`); channel
+    means within GOLDEN_MEAN_RTOL of the golden's (with a `golden_key`)."""
     import numpy as np
 
     from yart_tpu_torch.render.renderer import Renderer
 
+    t0 = time.time()
     img_k = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
-    with intersection_forced_to_plain():
-        img_p = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
-    if not np.array_equal(img_k.view(np.int32), img_p.view(np.int32)):
-        raise AssertionError(
-            f"{name}: kernel-path and plain-path images differ (max abs {np.abs(img_k - img_p).max()})"
-        )
+    if not np.isfinite(img_k).all():
+        raise AssertionError(f"{name}: non-finite pixels")
+    rec = {"phase": "reference", "scene": name, "size": list(gcam.image_size), "spp": gcfg.samples,
+           "max_depth": gcfg.max_depth, "kernel_path_s": round(time.time() - t0, 3)}
+    if twin:
+        t0 = time.time()
+        with intersection_forced_to_plain():
+            img_p = Renderer(scene, meta, gcam, gcfg, device=dev).render().hdr
+        if not np.array_equal(img_k.view(np.int32), img_p.view(np.int32)):
+            raise AssertionError(
+                f"{name}: kernel-path and plain-path images differ (max abs {np.abs(img_k - img_p).max()})"
+            )
+        rec.update(kernel_eq_plain_bitwise=True, twin_path_s=round(time.time() - t0, 3))
+    if golden_key is None:
+        return dict(rec, mean=[float(x) for x in img_k.mean(axis=(0, 1))])
     with np.load(GOLDEN) as z:
         golden = z[golden_key]
     gm, km = golden.mean(axis=(0, 1)), img_k.mean(axis=(0, 1))
     rel = np.abs(km - gm) / gm
     if not (rel <= GOLDEN_MEAN_RTOL).all():
         raise AssertionError(f"{name}: channel means {km} vs golden {gm}: rel {rel} > {GOLDEN_MEAN_RTOL}")
-    return {"phase": "reference", "config": f"golden_v1 {golden_key}", "kernel_eq_plain_bitwise": True,
-            "mean": [float(x) for x in km], "golden_mean": [float(x) for x in gm],
-            "rel_err": [float(x) for x in rel], "rtol": GOLDEN_MEAN_RTOL}
+    return dict(rec, config=f"golden_v1 {golden_key}", mean=[float(x) for x in km],
+                golden_mean=[float(x) for x in gm], rel_err=[float(x) for x in rel], rtol=GOLDEN_MEAN_RTOL)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 renders")
+    ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 renders (phase 4)")
     args = ap.parse_args()
 
     import numpy as np
@@ -368,7 +517,8 @@ def main() -> int:
     from yart_tpu_torch.config import CameraConfig, RenderConfig
     from yart_tpu_torch.kernels import brute, fusedtrace, presort
     from yart_tpu_torch.render import blocktrace
-    from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
+    from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres, textured_box_scene
+    from yart_tpu_torch.scene.showcase import atrium
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -461,6 +611,40 @@ def main() -> int:
     emit({"phase": "kernel", **rec_n})
     bt_recs = [recs["incoherent"], recs["coherent"], rec_r, rec_s, rec_n]
 
+    # ---- 3d. B3 amask mode (and B2) at atrium-ivy's gated shapes ---------
+    t0 = time.time()
+    ivy_builder = atrium(ivy=True)
+    author_s = time.time() - t0
+    t0 = time.time()
+    ivy, ivy_meta = ivy_builder.compile(dev)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t0
+    emit({"phase": "scene", "scene": "atrium-ivy", "n_tris": ivy_meta.n_tris,
+          "n_clusters": ivy_meta.n_clusters, "any_alpha": ivy_meta.any_alpha,
+          "any_transparent": ivy_meta.any_transparent, "textures_and_meshes_s": round(author_s, 3),
+          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3)})
+    ivy_pos, ivy_target = CAMERAS["atrium-ivy"]
+    ivy_fwd = tuple(t - p for p, t in zip(ivy_pos, ivy_target))
+    io, idr, iseed = camera_rays(CameraConfig(image_size=(side, side), focal_length=35.0, position=ivy_pos,
+                                              forward=ivy_fwd), dev, seeds=True)
+    rec_i = compare_amask("atrium_ivy_camera", ivy, ivy_meta, io, idr, iseed)
+    emit({"phase": "kernel", **rec_i})
+
+    # ---- 3e. the gated re-cast loop: kernel path vs twin path ------------
+    go, gd, gseed = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=ivy_pos,
+                                             forward=ivy_fwd), dev, seeds=True)
+    g_tmax = torch.full((go.shape[0],), 1e30, device=dev)
+    rec_g = compare_gated("atrium_ivy_camera_2^16", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
+    emit({"phase": "gated", **rec_g})
+    gh = blocktrace.intersect_blocktrace_gated(ivy, ivy_meta, go, gd, g_tmax, alpha_seed=gseed)
+    sun = torch.tensor([0.45, 0.72, 0.3], device=dev)
+    sh_d = (sun / sun.norm()).expand_as(gd).contiguous()
+    sh_o = (go + torch.where(gh.mask, gh.t, 0.0)[:, None] * gd).contiguous()
+    sh_t = torch.where(gh.mask, 100.0, -1.0)
+    rec_gs = compare_gated("atrium_ivy_shadow_2^16", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
+                           nee=True)
+    emit({"phase": "gated", **rec_gs})
+
     # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
     cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
                                position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
@@ -477,6 +661,17 @@ def main() -> int:
     if launches_spheres["brute_intersect"] != 0:
         raise AssertionError("a spheres ray went to B1 instead of the block trace")
 
+    # ---- 4c. this slice's main path: atrium-ivy (gated loop, B3 amask) ---
+    ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos, forward=ivy_fwd,
+                           exposure=3.0)
+    rec, launches_ivy = render_main_path("atrium-ivy", ivy, ivy_meta, ivy_cam, args.spp, dev)
+    rec["scene_build_s"] = round(author_s + compile_s, 3)
+    emit(rec)
+    if launches_ivy["presort_keys"] <= 0 or launches_ivy["fused_trace_modes"].get("amask", 0) <= 0:
+        raise AssertionError(f"the atrium-ivy render did not launch B2 and B3 in amask mode: {launches_ivy}")
+    if launches_ivy["brute_intersect"] != 0:
+        raise AssertionError("an atrium-ivy ray went to B1 instead of the block trace")
+
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
     gcfg = RenderConfig(samples=16, max_depth=6, tonemap="none", estimator="gmon",
@@ -487,6 +682,15 @@ def main() -> int:
     scfg = RenderConfig(samples=16, max_depth=6, tonemap="none", estimator="mean",
                         first_wave_samples=16, max_wave_samples=16)
     emit(reference_check("spheres", spheres, spheres_meta, scam, scfg, "spheres_dof", dev))
+    tb, tb_meta = textured_box_scene().compile(dev)
+    tcam = CameraConfig(image_size=(48, 48), focal_length=26.0, position=(0, 1.6, 3.2), forward=(0, -0.9, -3.0))
+    tcfg = RenderConfig(samples=16, max_depth=5, tonemap="none", estimator="mean",
+                        first_wave_samples=16, max_wave_samples=16)
+    emit(reference_check("textured_box", tb, tb_meta, tcam, tcfg, "textured", dev, twin=False))
+    icam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0)
+    icfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean",
+                        first_wave_samples=2, max_wave_samples=2)
+    emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, icfg, None, dev))
 
     print(json.dumps({"kernels": [
         {"name": "brute_intersect", "route": "cuda",
@@ -499,17 +703,22 @@ def main() -> int:
         {"name": "presort_keys", "route": "cuda",
          "source": "yart_tpu_torch/csrc/presort_keys.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:999",
-         "launches": launches_spheres["presort_keys"],
+         "launches": launches_ivy["presort_keys"],
+         "launches_by_path": {"spheres": launches_spheres["presort_keys"],
+                              "atrium-ivy": launches_ivy["presort_keys"]},
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs),
-         "ms": rec_s["b2_ms"], "plain_ms": rec_s["b2_plain_ms"],
-         "bound_ms": rec_s["b2_bound_ms"], "bound_by": rec_s["b2_bound_by"], "library_ms": None},
+         "ms": rec_i["b2_ms"], "plain_ms": rec_i["b2_plain_ms"],
+         "bound_ms": rec_i["b2_bound_ms"], "bound_by": rec_i["b2_bound_by"], "library_ms": None},
         {"name": "fused_trace", "route": "cuda",
          "source": "yart_tpu_torch/csrc/fused_trace.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:1128",
-         "launches": launches_spheres["fused_trace"],
-         "max_abs_err": max(r["b3_max_abs_err"] for r in bt_recs),
-         "ms": rec_s["b3_ms"], "plain_ms": rec_s["b3_plain_ms"],
-         "bound_ms": rec_s["b3_bound_ms"], "bound_by": rec_s["b3_bound_by"], "library_ms": None},
+         "launches": launches_ivy["fused_trace"],
+         "modes": launches_ivy["fused_trace_modes"],
+         "launches_by_path": {"spheres": launches_spheres["fused_trace_modes"],
+                              "atrium-ivy": launches_ivy["fused_trace_modes"]},
+         "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs] + [rec_i["max_abs_err"]]),
+         "ms": rec_i["b3_ms"], "plain_ms": rec_i["b3_plain_ms"],
+         "bound_ms": rec_i["b3_bound_ms"], "bound_by": rec_i["b3_bound_by"], "library_ms": None},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

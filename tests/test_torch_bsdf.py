@@ -129,10 +129,12 @@ def test_volume_attenuation(case):
 
 
 def test_textured_materials_refused():
+    """Textured materials are resolved at the hit uv
+    (tests/test_torch_textures.py); without a uv they are refused."""
     _, tm = from_numpy(
         jax.tree_util.tree_map(np.asarray, cornell_box().compile()[0]),
         dict(n_tris=12, n_materials=4, n_lights=2, any_textures=True),
         device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="uv"):
         TB.resolve_material(None, tm, torch.zeros(1, dtype=torch.int32))

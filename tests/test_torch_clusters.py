@@ -27,7 +27,7 @@ from yart_tpu_torch.scene import bvh as TB
 from yart_tpu_torch.scene import clusters as TCl
 from yart_tpu_torch.scene import procedural as TP
 from yart_tpu_torch.scene.builder import SceneBuilder as TBuilder
-from yart_tpu_torch.scene.types import CompiledScene
+from yart_tpu_torch.scene.types import CompiledScene, TextureStack
 
 torch.set_num_threads(2)
 
@@ -74,10 +74,13 @@ def _check_tables(ts, tm, js, jm):
     for f in dataclasses.fields(CompiledScene):
         if f.name == "materials":
             continue
-        a = np.atleast_1d(getattr(ts, f.name).numpy())
-        b = np.atleast_1d(np.asarray(getattr(js, f.name)))
-        assert a.shape == b.shape, f.name
-        _eq(a.view(np.uint8), b.view(np.uint8), f.name)
+        a, b = getattr(ts, f.name), getattr(js, f.name)
+        pairs = ([(f"{f.name}.{g}", getattr(a, g), getattr(b, g)) for g in TextureStack._fields]
+                 if isinstance(a, TextureStack) else [(f.name, a, b)])
+        for name, x, y in pairs:
+            x, y = np.atleast_1d(x.numpy()), np.atleast_1d(np.asarray(y))
+            assert x.shape == y.shape, name
+            _eq(x.view(np.uint8), y.view(np.uint8), name)
     for f in ("n_tris", "n_lights", "has_env", "env_sampleable", "env_portal", "env_wc",
               "env_hc", "n_clusters", "cluster_size", "n_clus_pad"):
         assert getattr(tm, f) == getattr(jm, f), f

@@ -1,5 +1,7 @@
 """B1, B2 and B3 on the card: each Hopper kernel against its plain
-PyTorch twin, and renders that go through them.
+PyTorch twin (B3 in its closest-hit, any-hit and alpha-mask modes), the
+gated re-cast loop's kernel path against its twin path, and renders that
+go through them.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -171,3 +173,96 @@ def test_spheres_render_on_card_goes_through_blocktrace():
     assert brute.COUNTS.launches == 0
     assert presort.COUNTS.plain_cuda == fusedtrace.COUNTS.plain_cuda == 0
     assert np.isfinite(img).all() and img.mean() > 0.05
+
+
+@pytest.fixture(scope="module")
+def ivy_soup():
+    """A port-built ivy: 300 alpha-tested leaf quads (the atrium's leaf
+    texture) over a floor in clusters of 64, and rays through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    from yart_tpu_torch.scene.showcase import leaf_texture
+
+    rng = np.random.default_rng(21)
+    q = 300
+    b = SceneBuilder()
+    m_ivy = b.add_material(roughness=0.9, tex_base=b.add_texture("rgba", leaf_texture()), has_alpha=True)
+    m_floor = b.add_material(roughness=0.8)
+    c = np.stack([rng.uniform(-2, 2, q), rng.uniform(0.3, 2.0, q), rng.uniform(-2, 2, q)], 1)
+    a = rng.uniform(0, np.pi, q)
+    s = rng.uniform(0.25, 0.5, q)[:, None]
+    du = np.stack([np.cos(a), np.zeros(q), np.sin(a)], 1) * s
+    dv = np.stack([np.zeros(q), np.ones(q), np.zeros(q)], 1) * s
+    p = np.stack([c - du - dv, c + du - dv, c + du + dv, c - du + dv], 1).reshape(-1, 3)
+    idx = (np.asarray([[0, 1, 2], [0, 2, 3]])[None] + 4 * np.arange(q)[:, None, None]).reshape(-1, 3)
+    b.add_mesh(p, idx, m_ivy, uvs=np.tile(np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]]), (q, 1)))
+    b.add_mesh(np.asarray([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]]), [[0, 2, 1], [0, 3, 2]], m_floor)
+    scene, meta = b.compile(device="cuda", cluster_size=64)
+    n = 65536
+    o = torch.from_numpy(np.asarray([0.0, 1.2, 5.0], np.float32) + rng.normal(size=(n, 3)).astype(np.float32) * 0.1)
+    target = np.stack([rng.uniform(-2, 2, n), rng.uniform(0, 2, n), rng.uniform(-2, 2, n)], 1)
+    d = torch.from_numpy(target.astype(np.float32)) - o
+    seed = torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64))
+    return scene, meta, o.cuda(), (d / d.norm(dim=1, keepdim=True)).cuda(), seed.cuda()
+
+
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_fused_trace_amask_kernel_equals_plain(ivy_soup, n_rays):
+    scene, meta, o, d, _ = ivy_soup
+    o, d = o[:n_rays].contiguous(), d[:n_rays].contiguous()
+    t_max = torch.full((n_rays,), 100.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    floor = torch.zeros(n_rays, device=o.device)
+    floor[n_rays // 2 :] = 2.0
+    before = fusedtrace.COUNTS.modes.get("amask", 0)
+    k = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, floor=floor, amask=True)
+    assert fusedtrace.COUNTS.modes["amask"] == before + 1
+    saved = fusedtrace.fused_trace, presort.presort_keys
+    fusedtrace.fused_trace, presort.presort_keys = fusedtrace.fused_trace_plain, presort.presort_plain
+    try:
+        p = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, floor=floor, amask=True)
+    finally:
+        fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    raw = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, floor=floor)
+    hit = k[4] >= 0
+    assert (raw[4] != k[4]).any() and not hit[: n_rays // 8].any()
+    assert (k[0][hit & (floor > 0)] > 2.0).all()
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_gated_loop_kernel_path_equals_plain_path(ivy_soup, nee):
+    scene, meta, o, d, seed = ivy_soup
+    t_max = 6.0 if nee else 100.0
+    trace_k, trace_p = [], []
+    k = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed, trace=trace_k)
+    saved = fusedtrace.fused_trace, presort.presort_keys
+    fusedtrace.fused_trace, presort.presort_keys = fusedtrace.fused_trace_plain, presort.presort_plain
+    try:
+        p = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed,
+                                                  trace=trace_p)
+    finally:
+        fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert trace_k == trace_p and len(trace_k) >= 3
+
+
+def test_textured_render_on_card():
+    """The textured box (alpha cutout, thin glass) through the gated brute,
+    which has no kernel: no twin runs, the image is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    from yart_tpu_torch.scene.procedural import textured_box_scene
+
+    scene, meta = textured_box_scene().compile()
+    cam = CameraConfig(image_size=(16, 16), focal_length=26.0, position=(0, 1.6, 3.2), forward=(0, -0.9, -3.0))
+    cfg = RenderConfig(samples=4, max_depth=5, tonemap="none", first_wave_samples=4)
+    for c in (brute.COUNTS, presort.COUNTS, fusedtrace.COUNTS):
+        c.reset()
+    img = Renderer(scene, meta, cam, cfg).render().hdr
+    assert brute.COUNTS.plain_cuda == presort.COUNTS.plain_cuda == fusedtrace.COUNTS.plain_cuda == 0
+    assert np.isfinite(img).all() and img.mean() > 0.01

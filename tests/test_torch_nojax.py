@@ -1,8 +1,9 @@
 """yart_tpu_torch imports no JAX: the machine with the GPU has none.
 
 A fresh interpreter imports every module of the port, builds and renders
-tiny cornell-mat and spheres scenes through the renderer and the CLI
-(spheres through the block trace), and then checks that
+tiny cornell-mat, spheres and textured-box scenes through the renderer and
+the CLI (spheres through the block trace, the textured box through the
+gated brute), parses the flagship scenes, and then checks that
 no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
@@ -33,6 +34,16 @@ assert meta.n_tris > 4096 and meta.has_env
 res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 2.2, 5.5), forward=(0, -1.8, -6.1)),
                RenderConfig(samples=2, max_depth=3), device="cpu").render()
 assert res.samples_taken == 2 and res.hdr.mean() > 0
+# The textured box (every texture class, alpha cutout, thin glass) through
+# the gated brute; the flagship scenes parse.
+from yart_tpu_torch.scene.procedural import textured_box_scene
+scene, meta = textured_box_scene().compile(device="cpu")
+assert meta.any_alpha and meta.any_textures and meta.any_transparent
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 1.6, 3.2), forward=(0, -0.9, -3.0)),
+               RenderConfig(samples=2, max_depth=3), device="cpu").render()
+assert res.samples_taken == 2 and res.hdr.mean() > 0
+for name in ("atrium", "atrium-ivy", "roadster", "luxball"):
+    parse_args([name, "--device", "cpu"])
 import tempfile, os
 from yart_tpu_torch.cli import main
 with tempfile.TemporaryDirectory() as tmp:

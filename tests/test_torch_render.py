@@ -261,7 +261,7 @@ def test_renderer_refusals(cornell_mat):
         TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, shade_kernel="pallas"), device="cpu").render()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"), device="cpu")
-    for fields in (dict(n_instances=2), dict(any_alpha=True)):  # the atrium slice
+    for fields in (dict(n_instances=2), dict(n_instances=2, any_alpha=True)):  # the instanced slice
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TR.Renderer(ts, dataclasses.replace(tm, **fields), cam, cfg, device="cpu").render()
     # An env-lit scene renders: the env light is ported.
@@ -286,7 +286,7 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["atrium"],
+        ["atrium-inst"],
         ["scene.glb"],
         ["cornell", "--env-hdr", "sky.hdr"],
         ["cornell", "--devices", "2"],

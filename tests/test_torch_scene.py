@@ -18,7 +18,7 @@ import torch
 from yart_tpu.scene.procedural import cornell_box as j_cornell
 from yart_tpu_torch.scene.convert import from_numpy
 from yart_tpu_torch.scene.procedural import cornell_box as t_cornell
-from yart_tpu_torch.scene.types import CompiledScene, MaterialTable
+from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, TextureStack
 
 torch.set_num_threads(2)
 
@@ -41,6 +41,10 @@ def test_from_numpy_bit_exact(jax_scene):
         if f.name == "materials":
             for g in MaterialTable._fields:
                 np.testing.assert_array_equal(_bits(getattr(ts.materials, g)), _bits(getattr(leaves.materials, g)))
+        elif f.name.startswith("tex_"):
+            for g in TextureStack._fields:
+                np.testing.assert_array_equal(_bits(getattr(getattr(ts, f.name), g)),
+                                              _bits(getattr(getattr(leaves, f.name), g)), err_msg=f.name)
         else:
             np.testing.assert_array_equal(_bits(getattr(ts, f.name)), _bits(getattr(leaves, f.name)), err_msg=f.name)
     # The bit-cast id columns read back as the int tables.

@@ -4,9 +4,11 @@ Usage:
     python -m yart_tpu_torch.cli cornell-mat -o out.png --spp 64 --size 512x512 --device cuda
 
 Mirrors `yart_tpu/cli.py` for what the port supports: the `cornell` and
-`cornell-mat` scenes (area lights, kernel B1), `furnace` (env light, B1)
-and `spheres` (env light, 14,402 triangles through the block trace B2 +
-B3), the MIS and naive integrators, the zsobol and hash samplers, every
+`cornell-mat` scenes (area lights, kernel B1), `furnace` (env light, B1),
+`spheres` (env light, 14,402 triangles through the block trace B2 + B3),
+the textured flagship scenes `atrium`, `roadster` and `luxball` (sky HDRI,
+block trace) and `atrium-ivy` (alpha-tested ivy: the gated re-cast loop
+with B3's alpha-mask cull), the MIS and naive integrators, the zsobol and hash samplers, every
 estimator, AgX with its looks, the thin-lens camera and checkpoint/resume. Every other scene or flag of the JAX CLI is refused
 with an error naming the ROADMAP.md item that will bring it; none is
 ignored.
@@ -17,7 +19,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-SCENES = ("cornell", "cornell-mat", "spheres", "furnace")
+SCENES = ("cornell", "cornell-mat", "spheres", "furnace", "atrium", "atrium-ivy", "roadster", "luxball")
+# Scenes of the JAX CLI still refused: name -> ROADMAP item.
+_REFUSED_SCENES = {"atrium-inst": "A.6, the instanced atrium-inst slice (B3's instanced mode)"}
 
 # JAX-CLI flags this slice lacks: dest -> (value meaning "unused", ROADMAP item)
 _REFUSED = {
@@ -50,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--tonemap", choices=["agx", "none"], default="agx")
     p.add_argument("--look", choices=["none", "golden", "punchy"], default="none")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--exposure", type=float, default=0.0, help="EV stops")
+    p.add_argument("--exposure", type=float, default=None,
+                   help="EV stops (default: the scene's, +3 atrium, +1 roadster and luxball)")
     p.add_argument("--focal", type=float, default=35.0, help="focal length mm")
     p.add_argument("--fnumber", type=float, default=0.0, help="aperture f-number, 0 = no DoF")
     p.add_argument("--aperture-sides", type=int, default=0)
@@ -78,12 +83,13 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
+    if args.scene in _REFUSED_SCENES:
+        p.error(f"scene {args.scene!r} is not ported yet (ROADMAP.md {_REFUSED_SCENES[args.scene]})")
     if args.scene not in SCENES:
         p.error(
             f"scene {args.scene!r} is not ported yet: this slice renders "
             f"{' | '.join(SCENES)}; glTF files and the other procedural scenes "
-            "need textures, instancing and alpha gates "
-            "(ROADMAP.md A.3, A.6, A.10)"
+            "need the glTF loader (ROADMAP.md A.10)"
         )
     for dest, (unused, item) in _REFUSED.items():
         if getattr(args, dest) != unused:
@@ -97,25 +103,37 @@ def parse_args(argv=None):
 
 
 def build_scene(args, device):
-    from yart_tpu_torch.scene import procedural
+    from yart_tpu_torch.scene import procedural, showcase
 
     if args.scene == "spheres":
         b = procedural.material_test_spheres()
     elif args.scene == "furnace":
         b = procedural.furnace()
+    elif args.scene in ("atrium", "atrium-ivy"):
+        b = showcase.atrium(ivy=args.scene == "atrium-ivy")
+    elif args.scene == "roadster":
+        b = showcase.roadster()
+    elif args.scene == "luxball":
+        b = showcase.luxball()
     else:
         b = procedural.cornell_box(extra_materials=args.scene == "cornell-mat")
     b.set_background([float(x) for x in args.background.split(",")])
     return b.compile(device)
 
 
-# The JAX CLI's cameras (yart_tpu/cli.py:163-167): (position, target).
+# The JAX CLI's cameras and exposures (yart_tpu/cli.py:162-187):
+# (position, target), and EV stops for interior scenes under the sky.
 CAMERAS = {
     "cornell": ((0, 1.0, 3.4), (0, 1.0, 0)),
     "cornell-mat": ((0, 1.0, 3.4), (0, 1.0, 0)),
     "spheres": ((0, 2.2, 5.5), (0, 0.4, -0.6)),
     "furnace": ((0, 0, 3.5), (0, 0, 0)),
+    "atrium": ((-10.0, 1.8, 0.0), (8.0, 2.6, 0.0)),
+    "atrium-ivy": ((-10.0, 1.8, 0.0), (8.0, 2.6, 0.0)),
+    "roadster": ((4.4, 1.7, 5.0), (0.0, 0.5, 0.0)),
+    "luxball": ((0.12, 0.28, 0.35), (0.0, 0.06, 0.0)),
 }
+EXPOSURE = {"atrium": 3.0, "atrium-ivy": 3.0, "roadster": 1.0, "luxball": 1.0}
 
 
 def default_camera(args):
@@ -135,7 +153,8 @@ def render_configs(args):
     pos, fwd = default_camera(args)
     cam = CameraConfig(
         image_size=(w, h), focal_length=args.focal, f_number=args.fnumber,
-        position=pos, forward=fwd, exposure=args.exposure,
+        position=pos, forward=fwd,
+        exposure=EXPOSURE.get(args.scene, 0.0) if args.exposure is None else args.exposure,
         aperture_sides=args.aperture_sides,
     )
     cfg = RenderConfig(

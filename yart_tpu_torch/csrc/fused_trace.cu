@@ -1,8 +1,9 @@
 // Fused block-trace closest hit for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel yart_tpu/kernels/pallas_fusedtrace.py
-// `fused_trace_pallas` (its pallas_call at :1128) for ungated,
-// non-instanced scenes. It computes what that kernel computes, not how:
+// `fused_trace_pallas` (its pallas_call at :1128) for non-instanced
+// scenes, in its closest-hit, any-hit (`nee`) and alpha-mask (`amask`)
+// modes. It computes what that kernel computes, not how:
 // the TPU kernel runs a block-wide nearest-entry loop over the cluster
 // packs with a winners epilogue; here one thread owns one ray and walks
 // the clusters itself.
@@ -17,9 +18,13 @@
 //   x + y + z; valid when |n.d| >= 1e-12, 0 <= u <= 1, v >= 0, u + v <= 1,
 //   t > t_min, t > floor, and (t, tri) is lexicographically below the
 //   carried best (ties at bit-equal t go to the lowest triangle index);
+// - with `amask` a candidate is valid only if bit (iu, iv) of its
+//   triangle's 8x8 alpha mask (pack row 5) is set, iu = int(clip(8u, 0, 7)),
+//   iv likewise: the cull of certainly-transparent texels that the gated
+//   re-cast loop relies on (yart_tpu_torch/scene/alphamask.py);
 // - with `nee` the ray stops after the first cluster that gives it a hit.
 // Output row: t, u, v, back, tri bits (-1 = miss, t = t_cur), clusters
-// tested, triangles tested, 0.
+// tested, triangles tested, alpha-mask tests run (0 without `amask`).
 //
 // Design
 // - 128 threads per block = one presort block of rays; a block whose
@@ -67,7 +72,7 @@ struct Ray {
 
 struct Best {
   float t, u, v;
-  int back, tri, n_clus, n_tris;
+  int back, tri, n_clus, n_tris, n_mask;
 };
 
 // Entry test of one box (lo.xyz, hi.xyz) with the presort's margins; true
@@ -88,8 +93,23 @@ __device__ __forceinline__ bool enters(const Ray& r, const float box[6], float t
   return xt >= e && e < r.t0 && xt > r.floor_t && e <= t_best;
 }
 
+// The alpha-mask cull (`_amask_valid`, pallas_cluster.py:38-58): bit
+// (iu, iv) of the triangle's 8x8 barycentric mask, with the words in pack
+// row 5 (lanes [0:C] = bits 0..31, [C:2C] = bits 32..63). A 0 bit means the
+// alpha texture is identically zero over that cell, so the gate would never
+// accept the candidate. Called only after the geometric and best-t tests
+// passed, so u and v are finite; the clamps still mirror the twin's.
+__device__ __forceinline__ bool amask_bit(const float* __restrict__ p, int w, int c, int col,
+                                          float u, float v) {
+  const int iu = (int)fminf(fmaxf(u * 8.f, 0.f), 7.f);
+  const int iv = (int)fminf(fmaxf(v * 8.f, 0.f), 7.f);
+  const int bit = min(max(iu * 8 + iv, 0), 63);
+  const unsigned word = (unsigned)__float_as_int(p[5 * w + (bit < 32 ? col : c + col)]);
+  return ((word >> (bit & 31)) & 1u) != 0u;
+}
+
 __device__ __forceinline__ void test_cluster(const Ray& r, const float* __restrict__ p,
-                                             int c, int cnt, float t_min, Best& b) {
+                                             int c, int cnt, float t_min, int amask, Best& b) {
   const int w = 3 * c;
   const int first = __float_as_int(p[4 * w]);
   b.n_clus += 1;
@@ -112,6 +132,10 @@ __device__ __forceinline__ void test_cluster(const Ray& r, const float* __restri
     if (fabsf(nd) >= kEpsDet && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
         t > t_min && t > r.floor_t &&
         (t < b.t || (t == b.t && b.tri >= 0 && tri < b.tri))) {
+      if (amask) {
+        b.n_mask += 1;
+        if (!amask_bit(p, w, c, col, u, v)) continue;
+      }
       b.t = t;
       b.u = u;
       b.v = v;
@@ -126,7 +150,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
                    const float* __restrict__ clus_box, int cpad,
                    const float* __restrict__ pack, const int32_t* __restrict__ count,
                    int n_clus, int c, const int32_t* __restrict__ blive, float t_min,
-                   int nee, float* __restrict__ out) {
+                   int nee, int amask, float* __restrict__ out) {
   __shared__ float s_box[6][kTile];
 
   const int i = blockIdx.x * kThreads + threadIdx.x;  // n is a multiple of kThreads
@@ -134,7 +158,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
   Ray r;
   r.t0 = rp[6];
   r.floor_t = rp[7];
-  Best b = {r.t0, 0.f, 0.f, 0, -1, 0, 0};
+  Best b = {r.t0, 0.f, 0.f, 0, -1, 0, 0, 0};
 
   if (blive[blockIdx.x] != 0) {  // uniform over the block
     for (int a = 0; a < 3; ++a) {
@@ -159,7 +183,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
       float box[6];
       for (int q = 0; q < 6; ++q) box[q] = clus_box[(size_t)q * cpad + cid];
       if (enters(r, box, t_min, b.t)) {
-        test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, b);
+        test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, amask, b);
         done = nee && b.tri >= 0;
       }
     }
@@ -179,7 +203,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
         float box[6];
         for (int q = 0; q < 6; ++q) box[q] = s_box[q][j];
         if (enters(r, box, t_min, b.t)) {
-          test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, b);
+          test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, amask, b);
           done = nee && b.tri >= 0;
         }
       }
@@ -194,7 +218,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
   w[4] = __int_as_float(b.tri);
   w[5] = (float)b.n_clus;
   w[6] = (float)b.n_tris;
-  w[7] = 0.f;
+  w[7] = (float)b.n_mask;
 }
 
 }  // namespace
@@ -204,11 +228,11 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
 extern "C" int fused_trace_launch(const float* rays, const int32_t* slots, int n,
                                   const float* clus_box, int cpad, const float* pack,
                                   const int32_t* count, int n_clus, int c,
-                                  const int32_t* blive, float t_min, int nee, float* out,
-                                  cudaStream_t stream) {
+                                  const int32_t* blive, float t_min, int nee, int amask,
+                                  float* out, cudaStream_t stream) {
   if (n > 0) {
     fused_trace_kernel<<<n / kThreads, kThreads, 0, stream>>>(
-        rays, slots, clus_box, cpad, pack, count, n_clus, c, blive, t_min, nee, out);
+        rays, slots, clus_box, cpad, pack, count, n_clus, c, blive, t_min, nee, amask, out);
   }
   return (int)cudaGetLastError();
 }

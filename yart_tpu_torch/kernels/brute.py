@@ -68,6 +68,27 @@ def _check(tri_pack, o, d, t_max, n_tris):
             raise ValueError(f"{name} is on {a.device}, o on {o.device}")
 
 
+def mt_test(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z):
+    """`_mt_test`'s Moller-Trumbore arithmetic, one elementwise op at a time
+    in the kernel's order, on broadcastable per-axis operands (rays [L, 1],
+    triangle corner p0 and edges e1, e2 [1, T]). Returns (det, u, v, t)."""
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    inv_det = torch.reciprocal(torch.where(det.abs() < EPS_DET, 1.0, det))
+    bx = ox - p0x
+    by = oy - p0y
+    bz = oz - p0z
+    u = (bx * pvx + by * pvy + bz * pvz) * inv_det
+    qvx = by * e1z - bz * e1y
+    qvy = bz * e1x - bx * e1z
+    qvz = bx * e1y - by * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    return det, u, v, tt
+
+
 def brute_plain(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     """Plain PyTorch twin of the kernel. Returns (t, u, v, back, tri); a miss
     keeps t = t_max, u = v = 0, back = False, tri = -1."""
@@ -104,21 +125,8 @@ def brute_plain(tri_pack, o, d, t_max, n_tris: int, t_min: float):
             p0x, p0y, p0z = (p0[None, t0:t1, k] for k in range(3))
             e1x, e1y, e1z = (e1[None, t0:t1, k] for k in range(3))
             e2x, e2y, e2z = (e2[None, t0:t1, k] for k in range(3))
-
-            pvx = dy * e2z - dz * e2y
-            pvy = dz * e2x - dx * e2z
-            pvz = dx * e2y - dy * e2x
-            det = e1x * pvx + e1y * pvy + e1z * pvz
-            inv_det = torch.reciprocal(torch.where(det.abs() < EPS_DET, 1.0, det))
-            bx = ox - p0x
-            by = oy - p0y
-            bz = oz - p0z
-            u = (bx * pvx + by * pvy + bz * pvz) * inv_det
-            qvx = by * e1z - bz * e1y
-            qvy = bz * e1x - bx * e1z
-            qvz = bx * e1y - by * e1x
-            v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-            tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+            det, u, v, tt = mt_test(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z,
+                                    e1x, e1y, e1z, e2x, e2y, e2z)
 
             cur = bt[l0:l1, None]
             valid = (

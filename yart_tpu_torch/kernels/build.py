@@ -31,15 +31,18 @@ NVCC_FLAGS = (
 
 @dataclasses.dataclass
 class Counts:
-    """Per kernel: its launches, and calls of its plain twin on CUDA
-    tensors (which the render paths must never make)."""
+    """Per kernel: its launches (also by mode, where a kernel has modes),
+    and calls of its plain twin on CUDA tensors (which the render paths
+    must never make)."""
 
     launches: int = 0
     plain_cuda: int = 0
+    modes: dict = dataclasses.field(default_factory=dict)  # launches per kernel mode
 
     def reset(self) -> None:
         self.launches = 0
         self.plain_cuda = 0
+        self.modes = {}
 
 
 _lock = threading.Lock()  # guards _loaded

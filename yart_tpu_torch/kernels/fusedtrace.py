@@ -2,8 +2,8 @@
 
 `fused_trace` is the entry point. For tensors on a CUDA device it launches
 the hand-written kernel in `csrc/fused_trace.cu` (which replaces
-`yart_tpu/kernels/pallas_fusedtrace.py` `fused_trace_pallas`, ungated and
-non-instanced) and raises if it cannot; for CPU tensors it runs
+`yart_tpu/kernels/pallas_fusedtrace.py` `fused_trace_pallas` for
+non-instanced scenes) and raises if it cannot; for CPU tensors it runs
 `fused_trace_plain`, the same arithmetic in plain PyTorch. There is no
 fallback from one to the other.
 
@@ -17,8 +17,21 @@ on the pack's rows, dot products formed x + y + z as in `_proj`:
            t_min < t, floor < t, and (t, tri) beats the carried best
     back = n.d > 0,  tri = the cluster's first triangle + column
 
+With `amask` (the alpha-mask mode, `_amask_valid` at
+pallas_cluster.py:38-58) a candidate is valid only if bit
+clip(iu * 8 + iv, 0, 63) of its triangle's 8x8 barycentric alpha mask is
+set, iu = int(clip(8u, 0, 7)) and iv likewise; the mask words ride in pack
+row 5 (lanes [0:C] = bits 0..31, [C:2C] = bits 32..63, int32 bits). A NaN
+u or v (t = 0/0 on a padding column) converts to an integer that depends
+on the device, which is why the bit index is clamped again in the integer
+domain; such lanes already fail the geometric tests, so kernel and twin
+agree on every valid candidate.
+
 Output [Np, 8] f32: t, u, v, back (0/1), tri (int32 bits; -1 = miss), the
-clusters tested, the triangles tested, 0. A miss keeps t = t_cur. With
+clusters tested, the triangles tested, and the alpha-mask tests run (0
+without `amask`). A miss keeps t = t_cur. The kernel tests a candidate's
+mask only once it has passed the geometric tests and beats the best so far
+(`&&` order), so the last column counts exactly those candidates. With
 `nee` a ray stops after the first cluster that gives it a hit: only the
 hit mask is then the contract (the JAX package's any-hit early-out).
 
@@ -35,7 +48,8 @@ twin visit in this same order, so they test the same clusters and agree
 bitwise; the kernel is built with --fmad=false. Blocks of 128 rays whose
 `blive` flag is 0 enter nothing and are skipped whole.
 
-`COUNTS` records kernel launches and plain-twin calls on CUDA tensors.
+`COUNTS` records kernel launches (in total and per mode: closest, nee,
+amask) and plain-twin calls on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -63,7 +77,7 @@ def _library():
         ctypes.c_void_p, ctypes.c_int,  # clus_box, cpad
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # pack, count, n_clus, c
         ctypes.c_void_p,  # blive
-        ctypes.c_float, ctypes.c_int,  # t_min, nee
+        ctypes.c_float, ctypes.c_int, ctypes.c_int,  # t_min, nee, amask
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # stream
     ]
@@ -99,8 +113,23 @@ def _check(rays, slots, clus_box, clus_pack, clus_count, blive):
             raise ValueError(f"{name} is on {a.device}, rays on {rays.device}")
 
 
+def mode_name(nee: bool, amask: bool) -> str:
+    return "+".join(m for m, on in (("nee", nee), ("amask", amask)) if on) or "closest"
+
+
+def amask_valid(u, v, words0, words1):
+    """The alpha-mask bit of each candidate: u, v [R, K] float32, the
+    triangles' mask words [1, K] int32."""
+    iu = torch.clamp(u * 8.0, 0.0, 7.0).to(torch.int32)
+    iv = torch.clamp(v * 8.0, 0.0, 7.0).to(torch.int32)
+    bit = torch.clamp(iu * 8 + iv, 0, 63)
+    sel = bit < 32
+    word = torch.where(sel, words0, words1)
+    return ((word >> torch.where(sel, bit, bit - 32)) & 1) != 0
+
+
 def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                      nee: bool = False):
+                      nee: bool = False, amask: bool = False):
     """Plain PyTorch twin of the kernel (see the module docstring). Loops
     over clusters; each pass tests only the rays that visit that cluster
     next, against the cluster's real triangles."""
@@ -126,6 +155,7 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
     bi = torch.full(bt.shape, -1, dtype=torch.int32, device=dev)
     n_ct = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
     n_tt = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
+    n_mt = torch.zeros(bt.shape, dtype=torch.int32, device=dev)
     done = torch.zeros(bt.shape, dtype=torch.bool, device=dev)
     s = slots[live]
     scid = torch.where(s == KEY_DEAD, -1, s & ID_MASK)
@@ -157,13 +187,26 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
             (nd.abs() >= EPS_DET) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
             & (t > t_min) & (t > floor[idx][:, None])
         )
+        cur_t, cur_i = bt[idx], bi[idx]
+        if amask:
+            ok = amask_valid(u, v, tri[5:6, 0:cnt].contiguous().view(torch.int32),
+                             tri[5:6, c : c + cnt].contiguous().view(torch.int32))
+            # The kernel's mask tests: candidates that beat the carried (t, tri)
+            # and every accepted column before them (those have lower tri, so
+            # only a strictly smaller t beats them).
+            tris = torch.arange(cnt, dtype=torch.int32, device=dev)[None] + first[cid]
+            beats = (t < cur_t[:, None]) | ((t == cur_t[:, None]) & (cur_i[:, None] >= 0)
+                                            & (tris < cur_i[:, None]))
+            acc = torch.cummin(torch.where(valid & ok, t, float("inf")), dim=1).values
+            before = torch.cat([torch.full_like(acc[:, :1], float("inf")), acc[:, :-1]], dim=1)
+            n_mt[idx] += (valid & beats & (t < before)).sum(dim=1, dtype=torch.int32)
+            valid = valid & ok
         # The cluster's lexicographic (t, column) minimum, then against the
         # carried (t, tri): the same winner as a column-by-column carry.
         j = torch.argmin(torch.where(valid, t, float("inf")), dim=1, keepdim=True)
         got = valid.gather(1, j)[:, 0]
         tj = t.gather(1, j)[:, 0]
         trij = (j[:, 0] + first[cid]).to(torch.int32)
-        cur_t, cur_i = bt[idx], bi[idx]
         better = got & ((tj < cur_t) | ((tj == cur_t) & (cur_i >= 0) & (trij < cur_i)))
         bt[idx] = torch.where(better, tj, cur_t)
         bu[idx] = torch.where(better, u.gather(1, j)[:, 0], bu[idx])
@@ -179,17 +222,26 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
         for cid in torch.unique(scid[:, k]).tolist():
             if cid >= 0:
                 visit(cid, torch.nonzero((scid[:, k] == cid) & ~done)[:, 0])
-    for cid in range(n_clus):
-        visit(cid, torch.nonzero(~(scid == cid).any(dim=1) & ~done)[:, 0])
+    # Phase B in ascending id. A batched entry test per tile of clusters
+    # (the visit's own test without the best-t bound) skips the clusters no
+    # ray can enter, whose visits would test nothing.
+    tile = max(1, min(n_clus, (1 << 24) // r.shape[0]))
+    for c0 in range(0, n_clus, tile):
+        e, xt = sweep_bounds(o, d, clus_box[:, c0 : min(n_clus, c0 + tile)])
+        e = torch.maximum(e, t_min_t)
+        could = (xt >= e) & (e < t0[:, None]) & (xt > floor[:, None])
+        for j in torch.nonzero(could.any(dim=0))[:, 0].tolist():
+            cid = c0 + j
+            visit(cid, torch.nonzero(could[:, j] & ~(scid == cid).any(dim=1) & ~done)[:, 0])
 
     res = torch.stack([bt, bu, bv, bb, bi.view(torch.float32), n_ct.to(torch.float32),
-                       n_tt.to(torch.float32), torch.zeros_like(bt)], dim=1)
+                       n_tt.to(torch.float32), n_mt.to(torch.float32)], dim=1)
     out[live] = res
     return out
 
 
 def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                     nee: bool = False):
+                     nee: bool = False, amask: bool = False):
     """Launch the Hopper kernel on the current stream; raises on any input
     it does not take or if the launch is refused."""
     _check(rays, slots, clus_box, clus_pack, clus_count, blive)
@@ -209,18 +261,21 @@ def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min:
         err = fn(rays.data_ptr(), slots.data_ptr(), int(n), clus_box.data_ptr(),
                  int(clus_box.shape[1]), clus_pack.data_ptr(), clus_count.data_ptr(),
                  int(clus_pack.shape[0]), int(clus_pack.shape[2] // 3), blive.data_ptr(),
-                 float(t_min), int(bool(nee)), out.data_ptr(), stream)
+                 float(t_min), int(bool(nee)), int(bool(amask)), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_trace launch failed: cudaError {err}")
     COUNTS.launches += 1
+    mode = mode_name(nee, amask)
+    COUNTS.modes[mode] = COUNTS.modes.get(mode, 0) + 1
     return out
 
 
 def fused_trace(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                nee: bool = False):
-    """Closest hit (or, with `nee`, any hit) of presorted `rays` [Np, 8]
-    with their presort `slots` [Np, 4]; see the module docstring. CUDA
-    tensors go to the kernel, CPU tensors to the plain twin."""
+                nee: bool = False, amask: bool = False):
+    """Closest hit (or, with `nee`, any hit; with `amask`, culled by the
+    alpha masks) of presorted `rays` [Np, 8] with their presort `slots`
+    [Np, 4]; see the module docstring. CUDA tensors go to the kernel, CPU
+    tensors to the plain twin."""
     if rays.is_cuda:
-        return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee)
-    return fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee)
+        return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask)
+    return fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask)

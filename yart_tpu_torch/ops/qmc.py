@@ -89,6 +89,13 @@ def u32_to_unit_float(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_max(f, ONE_MINUS_EPS)
 
 
+def alpha_draw(seed: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """The stochastic alpha test's uniform draw for (lane seed, triangle):
+    u32_to_unit_float(mix32(seed ^ tri * 0x9E3779B9)) in u32 arithmetic,
+    the JAX package's per-(lane, tri) hash stream (render/intersect.py)."""
+    return u32_to_unit_float(mix32(seed ^ (((tri.to(torch.int64) & M32) * 0x9E3779B9) & M32)))
+
+
 def mix_bits64(v: torch.Tensor) -> torch.Tensor:
     """pbrt's mixBits 64-bit finalizer (src/core/rng.hpp:93-100)."""
     v = v ^ _shr(v, 31)
@@ -193,6 +200,10 @@ class HashSampler:
     def get2d(self, state, dim: int):
         return torch.stack([self.get1d(state, dim), self.get1d(state, dim + 1)], dim=-1)
 
+    def lane_seed(self, state):
+        """Per-lane u32 key for auxiliary draws (the alpha tests)."""
+        return mix32(state ^ 0xA511E9B3)
+
 
 class ZSobolSampler:
     """Z-ordered scrambled Sobol' sampler (sampler.hpp:72-174) with FastOwen
@@ -268,6 +279,12 @@ class ZSobolSampler:
         va = scramble_fast_owen(va, self._seed_2d_a[dim])
         vb = scramble_fast_owen(vb, self._seed_2d_b[dim])
         return torch.stack([u32_to_unit_float(va), u32_to_unit_float(vb)], dim=-1)
+
+    def lane_seed(self, state):
+        """Per-lane u32 key for auxiliary draws (the alpha tests): the
+        Morton key's two 32-bit halves hash to a stream outside the QMC
+        dimensions."""
+        return mix32((state & M32) ^ mix32(_shr(state, 32) ^ 0xA511E9B3))
 
 
 def make_sampler(kind: str, spp: int, full_res=(1, 1), seed: int = 0, *, device):

@@ -142,11 +142,17 @@ def frame_from_normal(n):
     return x, y, n
 
 
-def frame_from_normal_tangent(n, t):
+def frame_from_normal_tangent(n, t, handedness=1.0):
     """Basis from normal + tangent with the degenerate-tangent fallback
-    (Frame(n, t), frame.hpp:34-50), handedness +1."""
+    (Frame(n, t, handedness), frame.hpp:34-50): |t.n| > 0.9 falls back to
+    the normal-only frame, else y = normalize(n x t) * handedness (a scalar
+    or a [...] tensor), x = y x n."""
     fx, fy, _ = frame_from_normal(n)
     y = normalize(cross(n, t))
+    if isinstance(handedness, torch.Tensor):
+        y = y * handedness[..., None]
+    else:
+        y = y * handedness
     x = cross(y, n)
     degen = (absdot(t, n) > 0.9)[..., None]
     return torch.where(degen, fx, x), torch.where(degen, fy, y), n

@@ -1,8 +1,10 @@
 """Block-trace: presorted block traversal for big scenes.
 
-Port of `yart_tpu/render/blocktrace.py` `intersect_blocktrace`, fused path
-only (:217-349), for ungated, non-instanced scenes:
+Port of `yart_tpu/render/blocktrace.py`'s fused path for non-instanced
+scenes: `intersect_blocktrace` (:217-349), `_fused_order` (:179-214),
+`_hit_gates` and `intersect_blocktrace_gated` (:422-658).
 
+One cast (`intersect_blocktrace`):
 1. the rays become one [N, 8] matrix (o, d, t_max, floor), padded to whole
    128-ray blocks with rows at t_max = -1;
 2. the presort (kernel B2, kernels/presort.py) gives every ray its sort
@@ -13,21 +15,72 @@ only (:217-349), for ungated, non-instanced scenes:
    ray's result does not depend on the order;
 4. one row gather in, the fused trace (kernel B3, kernels/fusedtrace.py),
    and one row scatter back to lane order.
+With `order_info` (from `fused_order`) steps 2-3 are skipped: the cast
+reuses an earlier presort's order, `blive` flags and slot columns.
 
-CUDA tensors run the kernels, CPU tensors their plain twins. The gated
-re-cast loop (`intersect_blocktrace_gated`) needs textures and waits for
-the atrium slice (ROADMAP.md A.6).
+The gated re-cast loop (`intersect_blocktrace_gated`) serves scenes whose
+hits must pass per-hit gates: the stochastic alpha test and, for shadow
+rays, transparent surfaces. Each cast finds the closest hit past a
+per-lane floor; lanes whose hit is rejected (alpha) or passed through
+(transparent; its attenuation multiplies in) raise their floor to that
+hit and cast again, at most 32 times, with one host sync per cast.
+
+Why one presort serves every cast. The presort and the two-key sort run
+once per call (and once more after tail compaction). Every later cast
+reuses the order and B2's 4 slot columns, and takes per block
+`blive = blive0 & any(t_max > 0)`. That is exact: B3 visits a ray's slot
+clusters first and then every other cluster in ascending id, testing each
+cluster once, with the order-free tie rule (closest t, then the lowest
+triangle index). Slots that went stale as the floor rose therefore change
+only the visit order, never a result; a slot cluster that lies wholly
+below the floor fails B3's entry test (exit > floor). A block whose rays
+entered no cluster at the first cast enters none later either: floors only
+rise and retired lanes carry t_max = -1, and both only shrink a ray's
+entry set.
+
+When the scene has alpha, every cast runs B3 in its `amask` mode: a
+candidate whose alpha-mask cell is certainly transparent is culled inside
+the kernel. The gate would reject such a hit for every draw (the accept
+test is strict, u_a < alpha, and alpha is 0), so the cull leaves the
+result unchanged and only saves casts.
+
+Tail compaction: once the active count fits `cap = ceil(n // 6 / 128) *
+128` lanes, the survivors move (stable sort, active first) into a
+`cap`-lane set with its own presort, finish there, and scatter back.
+
+CUDA tensors run the kernels, CPU tensors their plain twins.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from yart_tpu_torch.kernels import fusedtrace as _ft
 from yart_tpu_torch.kernels import presort as _ps
+from yart_tpu_torch.ops.qmc import alpha_draw
+from yart_tpu_torch.render.texture import sample_stack
 
 BLOCK = _ft.BLOCK
 MAX_CLUSTERS = _ps.MAX_CLUSTERS
+CAP_DIV = 6  # tail-compaction buffer = n // CAP_DIV lanes (TRACE_CAPDIV)
+MAX_CASTS = 32
+
+
+@dataclasses.dataclass
+class GatedCounts:
+    """Gated calls and the casts they took (host counters, no sync)."""
+
+    calls: int = 0
+    casts: int = 0
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.casts = 0
+
+
+GATED = GatedCounts()
 
 
 def cluster_counts(scene) -> torch.Tensor:
@@ -69,22 +122,165 @@ def schedule(pk: torch.Tensor):
     return order, blive
 
 
-def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
-                         floor=None):
-    """Closest hit (or, with `nee`, any hit) of rays o, d [N, 3] with t_max
-    [N] (or a scalar) through B2 + B3. `floor` [N] optionally restricts hits
-    to t > floor. Returns the raw per-ray columns
-    (t, u, v, back, tri, clusters tested, triangles tested) in lane order."""
-    n = o.shape[0]
+def fused_order(scene, meta, o, d, t_max, floor, t_min: float):
+    """One presort (B2) and two-key sort: (order, blive0, slots) over the
+    block-padded lanes, where `slots` are B2's 4 slot columns in sorted
+    order. Every cast of a gated call reuses them (see the module
+    docstring)."""
     rays = ray_matrix(o, d, t_max, floor)
     pk = _ps.presort_keys(rays, scene.clus_box, meta.n_clusters, t_min)
     order, blive = schedule(pk)
+    return order, blive, pk[order, 1 : 1 + _ps.N_SLOTS].contiguous()
+
+
+def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
+                         floor=None, order_info=None, amask: bool = False):
+    """Closest hit (or, with `nee`, any hit) of rays o, d [N, 3] with t_max
+    [N] (or a scalar) through B2 + B3. `floor` [N] optionally restricts hits
+    to t > floor; `order_info` reuses an earlier `fused_order`; `amask`
+    runs B3's alpha-mask cull. Returns the raw per-ray columns
+    (t, u, v, back, tri, clusters tested, triangles tested) in lane order."""
+    n = o.shape[0]
+    rays = ray_matrix(o, d, t_max, floor)
+    if order_info is None:
+        pk = _ps.presort_keys(rays, scene.clus_box, meta.n_clusters, t_min)
+        order, blive = schedule(pk)
+        slots = pk[order, 1 : 1 + _ps.N_SLOTS].contiguous()
+        rays_s = rays[order]
+    else:
+        order, blive0, slots = order_info
+        rays_s = rays[order]
+        blive = ((rays_s[:, 6] > 0.0).view(-1, BLOCK).any(dim=1) & (blive0 != 0)).to(torch.int32)
     out_s = _ft.fused_trace(
-        rays[order], pk[order, 1 : 1 + _ps.N_SLOTS].contiguous(), scene.clus_box,
-        scene.clus_pack, cluster_counts(scene), blive, t_min, nee,
+        rays_s, slots, scene.clus_box, scene.clus_pack, cluster_counts(scene), blive, t_min, nee,
+        amask,
     )
     out = torch.empty_like(out_s)
     out[order] = out_s
     out = out[:n]
     return (out[:, 0], out[:, 1], out[:, 2], out[:, 3] > 0.5,
             out[:, 4].contiguous().view(torch.int32), out[:, 5], out[:, 6])
+
+
+def hit_gates(scene, meta, u, v, tri, d, nee: bool, alpha_seed):
+    """Per-hit gates (`_hit_gates`, blocktrace.py:422-498) of hits of any
+    leading shape: u, v and tri broadcast together, d [..., 3] and
+    alpha_seed broadcast with them. Returns (alpha_ok, transparent, factor
+    [..., 3]). The alpha test accepts when alpha >= 1 or u_a < alpha,
+    strictly, with u_a the (lane seed, tri) hash draw; shadow rays pass
+    through thin transmissive surfaces, which attenuate by |n.d| x base
+    colour (x tex^2 where textured). The gated brute
+    (render/intersect.py) calls it on [rays, triangles] candidates."""
+    shape = torch.broadcast_shapes(u.shape, v.shape, tri.shape)
+    dev = tri.device
+    tri_c = torch.clamp(tri, 0, meta.n_tris - 1).long()
+    m = scene.materials
+    mats = scene.tri_mat[tri_c].long()
+    srow = scene.shade_pack[tri_c]
+    w_b, uu, vv = (1.0 - u - v)[..., None], u[..., None], v[..., None]
+    uv = w_b * srow[..., 9:11] + uu * srow[..., 11:13] + vv * srow[..., 13:15]
+
+    def texel(idx):  # the rgba texel of every hit
+        flat = sample_stack(scene.tex_rgba, torch.broadcast_to(idx, shape).reshape(-1), uv.reshape(-1, 2))
+        return flat.reshape(shape + (4,))
+
+    alpha_ok = torch.ones(shape, dtype=torch.bool, device=dev)
+    if meta.any_alpha:
+        tb = m.tex_base[mats]
+        has_a = m.has_alpha[mats] & (tb >= 0)
+        alpha = torch.where(has_a, texel(tb)[..., 3], 1.0)
+        alpha_ok = (alpha >= 1.0) | (alpha_draw(alpha_seed, tri) < alpha)
+
+    transparent = torch.zeros(shape, dtype=torch.bool, device=dev)
+    factor = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
+    if nee and meta.any_transparent:
+        transparent = torch.broadcast_to(m.thin[mats] & (m.transmission[mats] > 0.0), shape)
+        n_interp = w_b * srow[..., 0:3] + uu * srow[..., 3:6] + vv * srow[..., 6:9]
+        base = m.base_color[mats, :3]
+        if meta.any_textures:
+            tb2 = m.tex_base[mats]
+            b_tex = texel(tb2)[..., :3]
+            base = torch.where((tb2 >= 0)[..., None], base * b_tex * b_tex, base)
+        cosd = (n_interp * d).sum(dim=-1, keepdim=True).abs()
+        factor = cosd * base
+    return alpha_ok, transparent, factor
+
+
+def _run_casts(scene, meta, o, d, t_max, seed, state, order_info, t_min, nee, amask, stop_at,
+               trace):
+    """The re-cast loop over one lane set. `state` is (best: dict of hit
+    fields, act, floor, cast). Stops when no lane is active, at MAX_CASTS,
+    or (with `stop_at`) once the active count fits `stop_at` lanes. One
+    host sync per cast: the active count."""
+    best, act, floor, cast = state
+    while cast < MAX_CASTS:
+        n_act = int(act.sum())
+        if n_act == 0 or (stop_at is not None and n_act <= stop_at):
+            break
+        if trace is not None:
+            trace.append(n_act)
+        tm = torch.where(act, t_max, -1.0)
+        t, u, v, back, tri, _, _ = intersect_blocktrace(
+            scene, meta, o, d, tm, t_min, nee=False, floor=floor, order_info=order_info, amask=amask)
+        hit = (tri >= 0) & act
+        alpha_ok, transparent, factor = hit_gates(scene, meta, u, v, tri, d, nee, seed)
+        passthru = hit & (transparent | ~alpha_ok)
+        accept = hit & ~transparent & alpha_ok
+        best["attenuation"] = torch.where((hit & transparent)[:, None], best["attenuation"] * factor,
+                                          best["attenuation"])
+        for k, val in (("t", t), ("tri", tri), ("u", u), ("v", v), ("back_side", back)):
+            best[k] = torch.where(accept, val, best[k])
+        best["mask"] = best["mask"] | accept
+        act = act & passthru
+        floor = torch.where(passthru, t, floor)
+        cast += 1
+        GATED.casts += 1
+    return best, act, floor, cast
+
+
+def intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
+                               alpha_seed=None, trace=None):
+    """Block trace with per-hit gates through the re-cast loop (see the
+    module docstring). `alpha_seed` [N] holds u32 keys in int64 (zeros
+    when None). `trace`, a list, receives the active count of every cast.
+    Returns a render/intersect.py `Hit`."""
+    from yart_tpu_torch.render.intersect import Hit
+
+    n = o.shape[0]
+    dev = o.device
+    t_max_v = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,))
+    seed = (torch.zeros(n, dtype=torch.int64, device=dev) if alpha_seed is None
+            else torch.broadcast_to(alpha_seed, (n,)))
+    amask = bool(meta.any_alpha)
+    GATED.calls += 1
+
+    best = dict(
+        t=t_max_v.clone(), tri=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        u=torch.zeros(n, dtype=torch.float32, device=dev),
+        v=torch.zeros(n, dtype=torch.float32, device=dev),
+        back_side=torch.zeros(n, dtype=torch.bool, device=dev),
+        attenuation=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        mask=torch.zeros(n, dtype=torch.bool, device=dev),
+    )
+    zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+    order_info = fused_order(scene, meta, o, d, t_max_v, zeros, t_min)
+    cap = -(-(n // CAP_DIV) // BLOCK) * BLOCK
+    compact = BLOCK <= cap < n
+    state = (best, torch.ones(n, dtype=torch.bool, device=dev), zeros, 0)
+    best, act, floor, cast = _run_casts(scene, meta, o, d, t_max_v, seed, state, order_info, t_min,
+                                        nee, amask, cap if compact else None, trace)
+    if compact and cast < MAX_CASTS and bool(act.any()):
+        # Tail compaction: the survivors finish in `cap` lanes (stable
+        # sort: active lanes first, in lane order), with their own presort.
+        idx = torch.argsort((~act).to(torch.uint8), stable=True)[:cap]
+        o_c, d_c, tmax_c, act_c, floor_c = o[idx], d[idx], t_max_v[idx], act[idx], floor[idx]
+        order_c = fused_order(scene, meta, o_c, d_c, torch.where(act_c, tmax_c, -1.0),
+                              torch.where(act_c, floor_c, 0.0), t_min)
+        sub = {k: val[idx] for k, val in best.items()}
+        sub, _, _, _ = _run_casts(scene, meta, o_c, d_c, tmax_c, seed[idx],
+                                  (sub, act_c, floor_c, cast), order_c, t_min, nee, amask, None,
+                                  trace)
+        for k, val in sub.items():
+            best[k] = best[k].index_put((idx,), val)
+    return Hit(best["t"], best["tri"], best["u"], best["v"], best["back_side"],
+               best["attenuation"], best["mask"])

@@ -7,8 +7,8 @@ masked arithmetic; sampling selects one lobe by uc2 against the
 The three reproduced reference quirks are kept: the backside LUT
 extrapolation (ops/lut.py), the signed-cos thin transmission in
 `_f_dielectric`, and the unrotated `bsdf_pdf`. Directions are in the local
-shading frame (z = shading normal). Untextured materials only: textured
-scenes are the next slice (ROADMAP.md A.3).
+shading frame (z = shading normal). `resolve_material` modulates the
+material rows by the scene's textures at the hit uv.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from yart_tpu_torch.ops import ggx, lut, warps
 from yart_tpu_torch.ops.vecmath import absdot, dot, fresnel_dielectric, fresnel_schlick, refract
+from yart_tpu_torch.render.texture import sample_stack
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 PI = math.pi
@@ -81,28 +82,53 @@ def roughen(r):
     return torch.maximum(r, torch.clamp(r * 2.0, 0.1, 0.3))
 
 
-def resolve_material(scene: CompiledScene, meta: SceneMeta, mat_idx) -> LaneMaterial:
-    """Material row fetch (parametric.cpp:88-110), untextured branch."""
-    if meta.any_textures:
-        raise NotImplementedError(
-            "textured materials are not ported yet (ROADMAP.md A.3, the "
-            "env-lighting + textures slice)"
-        )
+def resolve_material(scene: CompiledScene, meta: SceneMeta, mat_idx, uv=None) -> LaneMaterial:
+    """Material row fetch and texture modulation (parametric.cpp:88-110;
+    yart_tpu/render/bsdf.py:133-157). Textured scenes need the hit `uv`
+    [N, 2]: base colour x tex^2 (gamma-2 decode), roughness and metallic x
+    the 2ch map's channels 0 and 1, transmission and clearcoat (and its
+    roughness) x mono maps, emission x tex^2."""
+    if meta.any_textures and uv is None:
+        raise ValueError("textured materials need the hit uv")
     m = scene.materials
     idx = mat_idx.long()
+    base = m.base_color[idx, :3]
+    metallic = m.metallic[idx]
+    rough = m.roughness[idx]
+    trans = m.transmission[idx]
+    cc = m.clearcoat[idx]
+    ccr = m.cc_roughness[idx]
+    emission = m.emission[idx]
+    if meta.any_textures:
+        tb = m.tex_base[idx]
+        bt = sample_stack(scene.tex_rgba, tb, uv)[..., :3]
+        base = torch.where((tb >= 0)[..., None], base * (bt * bt), base)
+        tmr = m.tex_mr[idx]
+        mr = sample_stack(scene.tex_2ch, tmr, uv)
+        rough = torch.where(tmr >= 0, rough * mr[..., 0], rough)
+        metallic = torch.where(tmr >= 0, metallic * mr[..., 1], metallic)
+        tt = m.tex_transmission[idx]
+        trans = torch.where(tt >= 0, trans * sample_stack(scene.tex_mono, tt, uv)[..., 0], trans)
+        tc = m.tex_clearcoat[idx]
+        cct = sample_stack(scene.tex_mono, tc, uv)[..., 0]
+        cc = torch.where(tc >= 0, cc * cct, cc)
+        ccr = torch.where(tc >= 0, ccr * cct, ccr)
+        te = m.tex_emission[idx]
+        em = sample_stack(scene.tex_rgb, te, uv)
+        emission = torch.where((te >= 0)[..., None], emission * (em * em), emission)
     return LaneMaterial(
-        base=m.base_color[idx, :3],
-        metallic=m.metallic[idx],
-        roughness=m.roughness[idx],
+        base=base,
+        metallic=metallic,
+        roughness=rough,
         roughness_base=m.roughness[idx],
-        transmission=m.transmission[idx],
+        transmission=trans,
         ior=m.ior[idx],
         anisotropic=m.anisotropic[idx],
         aniso_rotation=m.aniso_rotation[idx],
-        clearcoat=m.clearcoat[idx],
-        cc_roughness=m.cc_roughness[idx],
+        clearcoat=cc,
+        cc_roughness=ccr,
         cc_roughness_base=m.cc_roughness[idx],
-        emission=m.emission[idx],
+        emission=emission,
         thin=m.thin[idx],
         volume_color=m.volume_color[idx],
         volume_density=m.volume_density[idx],

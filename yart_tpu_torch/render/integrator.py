@@ -1,8 +1,8 @@
 """Wavefront path-tracing integrators (MIS+NEE and naive).
 
 Port of `yart_tpu/render/integrator.py` (src/cpu/mis-integrator.cpp,
-naive-integrator.cpp) for untextured, non-instanced scenes, lit by area
-lights and an environment light. The JAX
+naive-integrator.cpp) for non-instanced scenes, textured or not, lit by
+area lights and an environment light. The JAX
 package's `lax.while_loop` over the wavefront becomes a host loop over
 depth with one `any(active)` sync per bounce; every lane advances one
 bounce per iteration and dead lanes are masked.
@@ -10,7 +10,10 @@ bounce per iteration and dead lanes are masked.
 Sampler dimensions are assigned statically per bounce (dims 0-1 film,
 2-3 lens, then per bounce k at base 4 + 8k: BSDF u (2), uc, uc2, NEE light
 select, NEE u (2), roulette), so every lane keeps an aligned counter-based
-stream and results do not depend on which lanes run together.
+stream and results do not depend on which lanes run together. Scenes with
+per-hit gates (alpha, transparent shadows) key their alpha tests with a
+per-bounce seed from the sampler's lane seed, which travels with the lane
+state through compaction too.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from yart_tpu_torch.config import RenderConfig
 from yart_tpu_torch.ops import lut
+from yart_tpu_torch.ops.qmc import M32
 from yart_tpu_torch.ops.vecmath import (
     absdot,
     frame_from_normal_tangent,
@@ -35,6 +39,7 @@ from yart_tpu_torch.render import bsdf as B
 from yart_tpu_torch.render import lights
 from yart_tpu_torch.render.camera import CameraParams, generate_rays
 from yart_tpu_torch.render.intersect import intersect
+from yart_tpu_torch.render.texture import sample_stack
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 INF = 1e30
@@ -47,25 +52,38 @@ class Shading(NamedTuple):
     p: torch.Tensor  # [N, 3]
     n: torch.Tensor  # [N, 3] shading normal
     tg: torch.Tensor  # [N, 3] integrator tangent
+    uv: torch.Tensor  # [N, 2] interpolated texture coordinates
     mat: torch.Tensor  # [N] int32
     light: torch.Tensor  # [N] int32, -1 = not emissive
     back: torch.Tensor  # [N] bool
 
 
 def shading_data(scene: CompiledScene, meta: SceneMeta, hit, o, d) -> Shading:
-    """Interpolated shading normal, material and light id of each hit
-    (non-instanced, untextured). Miss lanes are pinned to the ray origin."""
+    """Interpolated shading normal, uv, material and light id of each hit
+    (non-instanced), normal-mapped through the interpolated tangent frame
+    where the material has a normal map (bsdf.cpp:44-58). Miss lanes are
+    pinned to the ray origin."""
     tri = torch.clamp(hit.tri, 0, meta.n_tris - 1).long()
     row = scene.shade_pack[tri]  # one packed row per lane
     w = (1.0 - hit.u - hit.v)[..., None]
     u = hit.u[..., None]
     v = hit.v[..., None]
     n = normalize(w * row[..., 0:3] + u * row[..., 3:6] + v * row[..., 6:9])
+    uv = w * row[..., 9:11] + u * row[..., 11:13] + v * row[..., 13:15]
+    mat = scene.tri_mat[tri]
+    if meta.any_textures:
+        t4 = w * row[..., 15:19] + u * row[..., 19:23] + v * row[..., 23:27]
+        tn_idx = scene.materials.tex_normal[mat.long()]
+        tex_n = sample_stack(scene.tex_rgb, tn_idx, uv) * 2.0 - 1.0
+        fx, fy, fz = frame_from_normal_tangent(n, t4[..., :3], t4[..., 3])
+        mapped = normalize(local_to_world(tex_n, fx, fy, fz))
+        n = torch.where((tn_idx >= 0)[..., None], mapped, n)
     return Shading(
         p=o + d * torch.where(hit.mask, hit.t, 0.0)[..., None],
         n=n,
         tg=shading_tangent(n),
-        mat=scene.tri_mat[tri],
+        uv=uv,
+        mat=mat,
         light=scene.tri_light[tri],
         back=hit.back_side,
     )
@@ -113,11 +131,6 @@ def _check_supported(meta: SceneMeta, cfg: RenderConfig, differentiable: bool) -
             f"shade_kernel={cfg.shade_kernel!r}: the fused shade path (B5/B6) is "
             "not ported yet (ROADMAP.md A.11)"
         )
-    if meta.any_textures:
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP.md A.3, the "
-            "env-lighting + textures slice)"
-        )
 
 
 def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters, mis: bool) -> _State:
@@ -129,9 +142,15 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     cnt.rays += n_act
     cnt.live[depth] += n_act
 
+    # Fresh alpha-test stream per bounce (integrator.py:481); only gated
+    # scenes draw from it.
+    bounce_seed = None
+    if meta.any_alpha or meta.any_transparent:
+        bounce_seed = sampler.lane_seed(lane_state) ^ ((depth * 0x85EBCA6B) & M32)
+
     # Retired lanes trace with t_max = -1: instant misses.
     tmax_lane = torch.where(st.active, INF, -1.0)
-    hit = intersect(scene, meta, st.o, st.d, tmax_lane, t_min=RAY_EPS)
+    hit = intersect(scene, meta, st.o, st.d, tmax_lane, t_min=RAY_EPS, alpha_seed=bounce_seed)
     found = hit.mask & st.active
 
     # ---- miss: environment + background (mis-integrator.cpp:27-43) ----
@@ -150,7 +169,7 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
 
     # ---- surface shading ----
     sh = shading_data(scene, meta, hit, st.o, st.d)
-    mat = B.resolve_material(scene, meta, sh.mat)
+    mat = B.resolve_material(scene, meta, sh.mat, sh.uv)
     u = sampler.get2d(lane_state, dim0)
     uc = sampler.get1d(lane_state, dim0 + 2)
     uc2 = sampler.get1d(lane_state, dim0 + 3)
@@ -203,12 +222,14 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
         nee_need = do_nee & ls.valid & ((f_l * f_l).sum(dim=-1) > 0.0)
         shadow_d = to_l / dist_l[..., None]
         shadow_tmax = torch.where(nee_need, dist_l - 1e-3, -1.0)
-        occ = intersect(scene, meta, sh.p, shadow_d, shadow_tmax, t_min=RAY_EPS, nee=True)
+        occ = intersect(scene, meta, sh.p, shadow_d, shadow_tmax, t_min=RAY_EPS, nee=True,
+                        alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667)
         cnt.rays += nee_need.sum().to(torch.float64)
 
         pdf_light = ls.select_p * ls.pdf / torch.clamp_min(absdot(ls.n, ls.wi), 1e-9)
         pdf_light = torch.where(ls.is_env, pdf_light, pdf_light * dist2_l)
-        contrib = ls.Li * f_l * (absdot(ls.wi, sh.n) / torch.clamp_min(pdf_b + pdf_light, 1e-20))[..., None]
+        contrib = (ls.Li * f_l * occ.attenuation
+                   * (absdot(ls.wi, sh.n) / torch.clamp_min(pdf_b + pdf_light, 1e-20))[..., None])
         ok = nee_need & ~occ.mask
         L = L + torch.where(ok[..., None], st.atten * contrib, 0.0)
 

@@ -1,19 +1,22 @@
 """Host-side scene builder -> the port's CompiledScene.
 
 Port of the subset of `yart_tpu/scene/builder.py` the ported render path
-needs: materials, world-space meshes (with authored or area-weighted
-normals), background, the environment light (`set_env`,
-`set_env_uniform`, `_compile_env`, builder.py:280-371) and `compile()`:
-the numpy SAH BVH and its leaf-order triangle permutation (:389-399), the
-area-light table (:401-451), scene center and radius (:453-457), the packed
-`tri_pack` / `shade_pack` rows (:481-492), the block-trace cluster tables
-`clus_pack`, `clus_first` and the lane-padded `clus_box` (:501-538) and the
-material table (:1028). Pure numpy on the host, then tensors: the machine
-with the GPU has no JAX, so the port builds its own scenes.
+needs: materials, textures (`add_texture`, the shelf-packed atlases of
+`_stack_from_list`, builder.py:85-121), world-space meshes with authored or
+area-weighted normals, uvs and tangents (:169-223), background, the
+environment light (`set_env`, `set_env_uniform`, `_compile_env`,
+:280-371) and `compile()`: the numpy SAH BVH and its leaf-order triangle
+permutation (:389-399), the area-light table (:401-451), scene center and
+radius (:453-457), the packed `tri_pack` / `shade_pack` rows (:481-492),
+the block-trace cluster tables `clus_pack` (with the alpha-mask words of
+row 5 when a material has alpha, :510-526), `clus_first` and the
+lane-padded `clus_box` (:527-538) and the material table (:1028). Pure
+numpy on the host, then tensors: the machine with the GPU has no JAX, so
+the port builds its own scenes.
 
-Not ported (ROADMAP.md A.3 / A.6 / A.10): textures, alpha masks,
-instancing, the native C++ BVH build and the BVH8 / coarse wide packs of
-the stack and bin-trace traversals.
+Not ported: instancing (ROADMAP.md A.6, the instanced slice), mesh
+transforms, the native C++ BVH build and the BVH8 / coarse wide packs of
+the stack and bin-trace traversals (A.10).
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ import torch
 
 from yart_tpu_torch.device import resolve
 from yart_tpu_torch.ops.distribution import build_alias
+from yart_tpu_torch.render.texture import qrows_from_data
+from yart_tpu_torch.scene.alphamask import bake_tri_masks, write_mask_rows
 from yart_tpu_torch.scene.bvh import build_bvh
 from yart_tpu_torch.scene.clusters import coarse_order, cut_clusters, woop_rows
-from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta
+from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta, TextureStack
 
 _PI = float(np.pi)
 
@@ -82,6 +87,42 @@ def _face_normals_to_vertices(positions: np.ndarray, indices: np.ndarray) -> np.
     return out / np.maximum(n, 1e-20)
 
 
+def _stack_from_list(textures: List[np.ndarray], channels: int) -> TextureStack:
+    """Shelf-pack [H, W, C] arrays into one atlas (builder.py:85-121):
+    tallest first, left to right, on shelves of a power-of-two width of at
+    least 64. Repeat wrap happens in the sampler; its bilinear fetch clamps
+    inside each rect, so no border duplication is needed. CPU tensors."""
+    if not textures:
+        return TextureStack(
+            torch.zeros((1, 1, channels), dtype=torch.float32),
+            torch.zeros((0, 4), dtype=torch.int32),
+            torch.zeros((1, 4 * channels), dtype=torch.float32),
+        )
+    max_w = max(t.shape[1] for t in textures)
+    atlas_w = 1
+    while atlas_w < max_w:
+        atlas_w *= 2
+    atlas_w = max(atlas_w, 64)
+    order = sorted(range(len(textures)), key=lambda i: -textures[i].shape[0])
+    table = np.zeros((len(textures), 4), np.int32)
+    x = y = shelf_h = 0
+    for i in order:
+        th, tw = textures[i].shape[:2]
+        if x + tw > atlas_w:
+            y += shelf_h
+            x = 0
+            shelf_h = 0
+        table[i] = (x, y, tw, th)
+        x += tw
+        shelf_h = max(shelf_h, th)
+    data = np.zeros((y + shelf_h, atlas_w, channels), np.float32)
+    for i, tex in enumerate(textures):
+        x0, y0, tw, th = table[i]
+        data[y0 : y0 + th, x0 : x0 + tw] = tex.reshape(th, tw, channels)
+    data_t = torch.from_numpy(data)
+    return TextureStack(data_t, torch.from_numpy(table), qrows_from_data(data_t))
+
+
 class SceneBuilder:
     def __init__(self) -> None:
         self._materials: List[MaterialDesc] = []
@@ -98,31 +139,55 @@ class SceneBuilder:
         self._env_rotation = np.eye(3, dtype=np.float32)
         self._env_bounds = (0.0, 0.0, 1.0, 1.0)
         self._env_sampleable = True
+        # Texture lists by channel class, storage-encoded [H, W, C] arrays.
+        self.textures_rgba: List[np.ndarray] = []
+        self.textures_rgb: List[np.ndarray] = []
+        self.textures_2ch: List[np.ndarray] = []
+        self.textures_mono: List[np.ndarray] = []
 
     def add_material(self, **kwargs) -> int:
         self._materials.append(MaterialDesc(**kwargs))
         return len(self._materials) - 1
 
+    def add_texture(self, kind: str, data: np.ndarray) -> int:
+        """Add a storage-encoded texture (gamma-2 for sRGB colour) of `kind`
+        rgba, rgb, 2ch or mono; returns its index within that kind."""
+        stack = {
+            "rgba": self.textures_rgba,
+            "rgb": self.textures_rgb,
+            "2ch": self.textures_2ch,
+            "mono": self.textures_mono,
+        }[kind]
+        stack.append(np.asarray(data, np.float32))
+        return len(stack) - 1
+
     def add_mesh(self, positions: np.ndarray, indices: np.ndarray, material,
-                 normals: Optional[np.ndarray] = None) -> None:
-        """Add a world-space triangle mesh with zero uvs and the default +x
-        tangent; `material` is one index or a per-face [T] array; without
-        `normals` [V, 3] the vertex normals are area-weighted face normals."""
+                 normals: Optional[np.ndarray] = None, uvs: Optional[np.ndarray] = None,
+                 tangents: Optional[np.ndarray] = None) -> None:
+        """Add a world-space triangle mesh; `material` is one index or a
+        per-face [T] array. Without `normals` [V, 3] the vertex normals are
+        area-weighted face normals; `uvs` [V, 2] default to zero and
+        `tangents` [V, 4] (xyz, handedness) to +x with handedness 1."""
         positions = np.asarray(positions, np.float64).reshape(-1, 3)
         indices = np.asarray(indices, np.int64).reshape(-1, 3)
         nv = positions.shape[0]
         if normals is None:
             normals = _face_normals_to_vertices(positions, indices)
         normals = np.asarray(normals, np.float64).reshape(nv, 3)
-        tangents = np.zeros((nv, 4), np.float32)
-        tangents[:, 0] = 1.0
-        tangents[:, 3] = 1.0
+        if uvs is None:
+            uvs = np.zeros((nv, 2), np.float64)
+        uvs = np.asarray(uvs, np.float64).reshape(nv, 2)
+        if tangents is None:
+            tangents = np.zeros((nv, 4), np.float64)
+            tangents[:, 0] = 1.0
+            tangents[:, 3] = 1.0
+        tangents = np.asarray(tangents, np.float64).reshape(nv, 4)
 
         t = indices.shape[0]
         self._positions.append(positions.astype(np.float32))
         self._normals.append(normals.astype(np.float32))
-        self._tangents.append(tangents)
-        self._uvs.append(np.zeros((nv, 2), np.float32))
+        self._tangents.append(tangents.astype(np.float32))
+        self._uvs.append(uvs.astype(np.float32))
         self._tris.append((indices + self._vtx_offset).astype(np.int32))
         self._tri_mat.append(np.broadcast_to(np.asarray(material, np.int32), (t,)).copy())
         self._vtx_offset += nv
@@ -256,6 +321,14 @@ class SceneBuilder:
         # box is never entered.
         cut = coarse_order(cut_clusters(hb, cluster_size))
         clus_pack = woop_rows(v0, v1, v2, cut, cluster_size)
+        if any(m.has_alpha for m in mats):
+            # Conservative alpha bitmasks in pack row 5, for B3's `amask`
+            # cull of certainly-transparent candidates (scene/alphamask.py).
+            masks = bake_tri_masks(
+                uvs[tri_v], tri_mat, np.asarray([m.has_alpha for m in mats], bool),
+                np.asarray([m.tex_base for m in mats], np.int64), self.textures_rgba,
+            )
+            write_mask_rows(clus_pack, masks, cut.first, cut.count, cluster_size)
         n_clus = int(cut.first.shape[0])
         n_clus_pad = max(128, -(-n_clus // 512) * 512 if n_clus > 128 else 128)
         clus_box = np.full((8, n_clus_pad), 3.0e38, np.float32)
@@ -288,6 +361,10 @@ class SceneBuilder:
             scene_center=t(center, np.float32),
             scene_radius=t(radius, np.float32),
             background=t(self._background, np.float32),
+            tex_rgba=_stack_from_list(self.textures_rgba, 4).to(device),
+            tex_rgb=_stack_from_list(self.textures_rgb, 3).to(device),
+            tex_2ch=_stack_from_list(self.textures_2ch, 2).to(device),
+            tex_mono=_stack_from_list(self.textures_mono, 1).to(device),
             clus_pack=t(clus_pack),
             clus_first=t(cut.first),
             clus_box=t(clus_box),

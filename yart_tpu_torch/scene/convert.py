@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from yart_tpu_torch.device import resolve
-from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta
+from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta, TextureStack
 
 
 def _t(a, device) -> torch.Tensor:
@@ -32,12 +32,16 @@ def from_numpy(leaves, meta_fields, device="cuda"):
     default.
     """
     device = resolve(device)
-    mats = leaves.materials
-    scene = CompiledScene(**{
-        f.name: MaterialTable(*(_t(getattr(mats, g), device) for g in MaterialTable._fields))
-        if f.name == "materials" else _t(getattr(leaves, f.name), device)
-        for f in dataclasses.fields(CompiledScene)
-    })
+
+    def leaf(name):
+        v = getattr(leaves, name)
+        if name == "materials":
+            return MaterialTable(*(_t(getattr(v, g), device) for g in MaterialTable._fields))
+        if name.startswith("tex_"):
+            return TextureStack(*(_t(getattr(v, g), device) for g in TextureStack._fields))
+        return _t(v, device)
+
+    scene = CompiledScene(**{f.name: leaf(f.name) for f in dataclasses.fields(CompiledScene)})
     names = {f.name for f in dataclasses.fields(SceneMeta)}
     meta = SceneMeta(**{k: v for k, v in dict(meta_fields).items() if k in names})
     return scene, meta

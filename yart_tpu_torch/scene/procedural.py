@@ -1,7 +1,8 @@
 """Procedural scenes; port of `yart_tpu/scene/procedural.py` `cornell_box`,
-`box_mesh`, `_quad`, `uv_sphere`, `furnace` and `material_test_spheres`
-(the reference's main.cpp setups, src/main.cpp:20-77). The textured and
-showcase fixtures wait for later slices (ROADMAP.md A.3, A.10).
+`box_mesh`, `_quad`, `uv_sphere`, `furnace`, `material_test_spheres` (the
+reference's main.cpp setups, src/main.cpp:20-77) and the textured fixture
+`textured_box_scene` (:239-304). The flagship scenes are in
+scene/showcase.py.
 """
 
 from __future__ import annotations
@@ -161,4 +162,72 @@ def material_test_spheres(env_value: float = 0.8) -> SceneBuilder:
             verts, normals, idx = uv_sphere((-2.4 + 1.2 * i, 0.5, -1.2 * row), 0.5, 16, 32)
             b.add_mesh(verts, idx, m, normals=normals)
     b.set_env(np.full((8, 8, 3), env_value, np.float32))
+    return b
+
+
+def textured_box_scene():
+    """Textured-PBR fixture: checkerboard albedo, roughness gradient,
+    normal-mapped floor, an alpha-cutout panel and a thin-glass panel in
+    front of an area light — exercises every texture channel kind plus
+    alpha-tested and NEE-transparent shadows (golden_v1 `textured`)."""
+    b = SceneBuilder()
+
+    # Checker base color (sRGB-stored: gamma-2 encode of linear values).
+    n = 64
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    checker = ((xx // 8 + yy // 8) % 2).astype(np.float32)
+    base = np.zeros((n, n, 4), np.float32)
+    base[..., 0] = np.sqrt(0.2 + 0.6 * checker)  # gamma-2 storage
+    base[..., 1] = np.sqrt(0.4)
+    base[..., 2] = np.sqrt(0.8 - 0.6 * checker)
+    base[..., 3] = 1.0
+    tex_base = b.add_texture("rgba", base)
+
+    # Metallic-roughness 2ch: roughness gradient in x, metallic 0.
+    mr = np.zeros((n, n, 2), np.float32)
+    mr[..., 0] = np.linspace(0.1, 1.0, n)[None, :]
+    mr[..., 1] = 0.0
+    tex_mr = b.add_texture("2ch", mr)
+
+    # Normal map: gentle bumps.
+    ph = np.sin(xx / 4.0) * 0.2
+    nrm = np.zeros((n, n, 3), np.float32)
+    nrm[..., 0] = 0.5 + ph * 0.5
+    nrm[..., 1] = 0.5
+    nrm[..., 2] = 1.0
+    tex_normal = b.add_texture("rgb", nrm)
+
+    floor = b.add_material(
+        base_color=(1.0, 1.0, 1.0, 1.0),
+        roughness=1.0,
+        tex_base=tex_base,
+        tex_mr=tex_mr,
+        tex_normal=tex_normal,
+    )
+
+    # Alpha cutout: stripes of alpha 0.
+    cut = np.ones((n, n, 4), np.float32) * 0.8
+    cut[..., 3] = ((yy // 8) % 2).astype(np.float32)
+    tex_cut = b.add_texture("rgba", cut)
+    cutout = b.add_material(
+        base_color=(1.0, 1.0, 1.0, 1.0),
+        roughness=1.0,
+        tex_base=tex_cut,
+        has_alpha=True,
+    )
+
+    glass = b.add_material(
+        base_color=(1.0, 0.3, 0.3, 1.0), transmission=1.0, roughness=0.1,
+        thin=True,
+    )
+    light = b.add_material(emission=(1, 1, 1), emission_strength=20.0)
+
+    fv, fi = _quad([-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2])
+    b.add_mesh(fv, fi, floor, uvs=np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+    cv, ci = _quad([-1, 0.2, 0.5], [0, 0.2, 0.5], [0, 1.2, 0.5], [-1, 1.2, 0.5])
+    b.add_mesh(cv, ci, cutout, uvs=np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+    gv, gi = _quad([0.2, 0.2, 0.5], [1.2, 0.2, 0.5], [1.2, 1.2, 0.5], [0.2, 1.2, 0.5])
+    b.add_mesh(gv, gi, glass)
+    lv, li = _quad([-0.5, 2.5, 0.6], [0.5, 2.5, 0.6], [0.5, 2.5, -0.4], [-0.5, 2.5, -0.4])
+    b.add_mesh(lv, li, light)
     return b

@@ -49,6 +49,21 @@ class MaterialTable(NamedTuple):
         return MaterialTable(*(t.to(device) for t in self))
 
 
+class TextureStack(NamedTuple):
+    """All textures of one channel count, shelf-packed into one atlas
+    (scene/builder.py `_stack_from_list`). Bilinear fetches scale by
+    (size - 1) and clamp the base texel to size - 2, so a lookup never
+    leaves its own rect. Data keeps the storage encoding: gamma-2 for sRGB
+    colour, linear otherwise; the caller decodes."""
+
+    data: torch.Tensor  # [H, W, C] float32 atlas
+    table: torch.Tensor  # [K, 4] int32 (x0, y0, w, h) rects
+    qrows: torch.Tensor  # [H*W, 4C] 2x2 quad rows (render/texture.py)
+
+    def to(self, device) -> "TextureStack":
+        return TextureStack(*(t.to(device) for t in self))
+
+
 @dataclasses.dataclass(frozen=True)
 class CompiledScene:
     """The scene as tensors; `.to(device)` moves all of them."""
@@ -76,8 +91,14 @@ class CompiledScene:
     scene_center: torch.Tensor  # [3]
     scene_radius: torch.Tensor  # [] bounding-sphere radius of the scene box
     background: torch.Tensor  # [3]
+    # Texture atlases by channel class (a 1x1 zero atlas with no rects when
+    # the class is empty).
+    tex_rgba: TextureStack  # base colour (gamma-2) + alpha
+    tex_rgb: TextureStack  # normal maps, emission (gamma-2)
+    tex_2ch: TextureStack  # metallic-roughness
+    tex_mono: TextureStack  # transmission, clearcoat
     # Block-trace tables (scene/clusters.py, render/blocktrace.py):
-    clus_pack: torch.Tensor  # [n_clus, 8, 3C] plane/barycentric rows
+    clus_pack: torch.Tensor  # [n_clus, 8, 3C] plane/barycentric rows; row 5: alpha-mask words
     clus_first: torch.Tensor  # [n_clus] int32 first triangle of each cluster
     clus_box: torch.Tensor  # [8, n_clus_pad] lo.xyz, hi.xyz, pad; pad boxes at +3e38
 
