@@ -41,20 +41,40 @@ exits non-zero and prints no final "ok" line:
                must not have run on CUDA.
   4b. render — the same for `spheres` (14,402 triangles, env-lit, the
                CLI's camera): every ray goes through B2 and B3.
-  4c. render — this slice's main path: atrium-ivy 512x512, depth 30, +3 EV,
-               64 spp: B2 and B3 in `amask` mode must launch, no twin may
-               run on CUDA; casts per gated call are reported.
+  3f. kernel — B3 in its instanced mode against its twin, bitwise, on the
+               port-built atrium-inst (124,972 virtual triangles, 95
+               instances of 41 prototypes; every ray goes through the
+               instanced mode): 2^20 camera rays from the CLI's camera
+               (closest hit), then their sun shadow rays (nee); B2 over the
+               instance-cluster boxes against its twin on both. Counts of
+               tested (ray, cluster) and (ray, triangle) pairs and the
+               bound; this case gives the kernels line its B2 and B3 times.
+  3g. gated  — B3 instanced + `amask` against its twin, bitwise, on the
+               port's small gated instanced scene (`instanced_leaves`:
+               alpha-tested leaf quads under rotated, non-uniformly scaled
+               transforms, a glass pane instance, a baked floor), cast 0 and
+               a floored cast 1; the gated loop there, kernel path against
+               twin path, for camera and shadow rays.
+  4c. render — atrium-ivy 512x512, depth 30, +3 EV, 64 spp: B2 and B3 in
+               `amask` mode must launch, no twin may run on CUDA; casts per
+               gated call are reported.
+  4d. render — this slice's main path: atrium-inst 512x512, depth 30, +3
+               EV, 64 spp: B2 and B3 in the instanced modes (closest, nee)
+               must launch and B3 in no other mode, no twin may run on CUDA;
+               the host's scene build seconds are reported.
   5. reference — the golden_v1 cornell_mat_64 and spheres_dof
                configurations: the kernel path's image must equal the
                plain-twin path's bitwise, and its per-channel mean must
                lie within 2% of the golden's; golden_v1 `textured` from the
                port-built textured_box_scene (gated brute, no kernel) within
-               2%; a small atrium-ivy render, kernel path == twin path
-               bitwise.
+               2%; small atrium-ivy and atrium-inst renders, kernel path ==
+               twin path bitwise; atrium-inst against the baked atrium at
+               64x64, 16 spp (channel means within 0.5%, >= 98% of pixels
+               within rtol/atol 2e-2: tests/test_instancing.py's bar).
 The kernels line lists B1, B2 and B3 with their launches on the main paths
-(B1: cornell-mat; B2, B3: atrium-ivy, with B3's launches per mode), times
-and bounds; then the card as nvidia-smi reports it; the last line is
-{"ok": true, "device": {...}}.
+(B1: cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and
+the earlier paths' beside them), times and bounds; then the card as
+nvidia-smi reports it; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -78,11 +98,17 @@ GOLDEN_MEAN_RTOL = 0.02  # statistical: the port's own scene has another triangl
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_MT = 40  # B1: one Moller-Trumbore ray-triangle test
-FLOPS_SLAB = 24  # B2: one conservative ray-box slab test with margins
+FLOPS_SLAB = 24  # B2 and B3's sweep: one conservative ray-box slab test with margins
 FLOPS_PLANE = 30  # B3: one plane + barycentric ray-triangle test
 # B3 amask: the alpha-mask bit test (2 multiplies, 4 clamps, index, shift),
 # counted on the candidates that run it (B3's output column 7).
 FLOPS_AMASK = 6
+# B3 instanced: the ray's transform into the prototype's object space per
+# tested (ray, instance cluster): 9 multiplies + 9 adds for o, 9 + 6 for d.
+FLOPS_XFORM = 33
+INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
+INSTANCED_PIXEL_TOL = 2e-2
+INSTANCED_PIXEL_SHARE = 0.98
 
 
 def emit(obj) -> None:
@@ -223,6 +249,33 @@ def camera_rays(cam_cfg, dev, seeds: bool = False):
     return o.contiguous(), d.contiguous()
 
 
+def b3_work(args, out):
+    """(slab tests, flops, bytes) of one B3 call with `fused_trace`'s
+    arguments `args` and output `out`, counted from this call's data in
+    every mode alike: the plane tests it ran (column 6) and mask tests
+    (column 7), one ray transform per tested instance cluster (column 5) in
+    the instanced mode, and its own sweep of the cluster boxes. In the
+    sweep every live ray of a live block tests all n_clus boxes, except
+    that with `nee` a ray stops at its first hit and then counts only the
+    clusters it tested (a lower bound on its box tests)."""
+    import torch
+
+    from yart_tpu_torch.render import blocktrace
+
+    rays, n_clus, blive, nee, inst = args[0], args[4].shape[0], args[5], args[7], args[9]
+    live = (rays[:, 6] > 0) & (blive.repeat_interleave(blocktrace.BLOCK) != 0)
+    hit = out[:, 4].contiguous().view(torch.int32) >= 0
+    tested = out[:, 5].double()
+    slab = float((live & ~hit).sum() if nee else live.sum()) * n_clus
+    if nee:
+        slab += float(tested[live & hit].sum())
+    flops = (FLOPS_PLANE * float(out[:, 6].double().sum()) + FLOPS_AMASK * float(out[:, 7].double().sum())
+             + FLOPS_SLAB * slab)
+    if inst is not None:
+        flops += FLOPS_XFORM * float(tested.sum())
+    return slab, flops, nbytes(*args[:6], *(inst or ()), out)
+
+
 def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = False):
     """B2 and B3 kernels vs their plain twins on the same card tensors, as
     the block trace calls them (ray matrix, presort, schedule, one gather);
@@ -234,7 +287,8 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
 
     t_min = 1e-3
     rays = blocktrace.ray_matrix(o, d, t_max)
-    box, n_clus = scene.clus_box, meta.n_clusters
+    box, n_clus = scene.clus_box, blocktrace.n_clus(meta)
+    inst = blocktrace.inst_tables(scene, meta)
     pk = presort.presort_cuda(rays, box, n_clus, t_min)
     pk_p = presort.presort_plain(rays, box, n_clus, t_min)
     torch.cuda.synchronize()
@@ -244,7 +298,7 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
         raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows (max abs {b2_err})")
     order, blive = blocktrace.schedule(pk)
     args = (rays[order].contiguous(), pk[order, 1 : 1 + presort.N_SLOTS].contiguous(), box,
-            scene.clus_pack, blocktrace.cluster_counts(scene), blive, t_min, nee)
+            scene.clus_pack, blocktrace.cluster_counts(scene, meta), blive, t_min, nee, False, inst)
     out = fusedtrace.fused_trace_cuda(*args)
     out_p = fusedtrace.fused_trace_plain(*args)
     torch.cuda.synchronize()
@@ -255,7 +309,8 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
         raise AssertionError(f"{name}: B3 kernel and plain twin differ in columns {diff} "
                              f"(max abs t/u/v over hits {b3_err})")
     live = int((rays[:, 6] > 0).sum())
-    rec = {"case": name, "nee": nee, "n_rays": int(o.shape[0]), "n_tris": int(meta.n_tris),
+    rec = {"case": name, "mode": fusedtrace.mode_name(nee, False, inst is not None),
+           "n_rays": int(o.shape[0]), "n_tris": int(meta.n_tris),
            "n_clusters": int(n_clus), "live_rays": live, "hit_frac": float(hit.float().mean()),
            "bitwise_equal": True, "b2_rows_differ": b2_rows, "b2_max_abs_err": b2_err,
            "b3_max_abs_err": b3_err, "live_blocks": int(blive.sum()),
@@ -270,15 +325,15 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
         rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args), reps=11)
         rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args), reps=1,
                                      warmup_s=0.0, warmup_calls=1)
-        rec["b3_bound_ms"], rec["b3_bound_by"] = bound(
-            FLOPS_PLANE * rec["tris_tested"], nbytes(*args[:6], out))
+        rec["slab_tests"], flops, nb = b3_work(args, out)
+        rec["b3_bound_ms"], rec["b3_bound_by"] = bound(flops, nb)
         rec["pipeline_ms"] = cuda_ms(
             lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee), reps=11)
         rec["mrays_per_s"] = o.shape[0] / rec["pipeline_ms"] / 1e3
     return rec
 
 
-def compare_amask(name, scene, meta, o, d, seeds):
+def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
     """B3's `amask` mode against its twin, bitwise, at the gated loop's
     shapes: cast 0 over all rays, then cast 1 over the lanes whose first
     hit the alpha gate passed through, with floor = that hit and cast 0's
@@ -294,7 +349,8 @@ def compare_amask(name, scene, meta, o, d, seeds):
     t_max = torch.full((n,), 1e30, device=o.device)
     zeros = torch.zeros(n, device=o.device)
     rays = blocktrace.ray_matrix(o, d, t_max)
-    box, n_clus = scene.clus_box, meta.n_clusters
+    box, n_clus = scene.clus_box, blocktrace.n_clus(meta)
+    inst = blocktrace.inst_tables(scene, meta)
     pk = presort.presort_cuda(rays, box, n_clus, t_min)
     pk_p = presort.presort_plain(rays, box, n_clus, t_min)
     torch.cuda.synchronize()
@@ -302,13 +358,13 @@ def compare_amask(name, scene, meta, o, d, seeds):
     if b2_rows:
         raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows")
     order, blive0, slots = blocktrace.fused_order(scene, meta, o, d, t_max, zeros, t_min)
-    counts = blocktrace.cluster_counts(scene)
-    rec = {"case": name, "n_rays": n, "n_tris": int(meta.n_tris), "n_clusters": int(n_clus),
-           "bitwise_equal": True, "b2_rows_differ": 0}
+    counts = blocktrace.cluster_counts(scene, meta)
+    rec = {"case": name, "mode": fusedtrace.mode_name(False, True, inst is not None), "n_rays": n,
+           "n_tris": int(meta.n_tris), "n_clusters": int(n_clus), "bitwise_equal": True, "b2_rows_differ": 0}
     casts = []
 
     def cast(tag, rays_s, blive):
-        args = (rays_s.contiguous(), slots, box, scene.clus_pack, counts, blive, t_min, False, True)
+        args = (rays_s.contiguous(), slots, box, scene.clus_pack, counts, blive, t_min, False, True, inst)
         out = fusedtrace.fused_trace_cuda(*args)
         out_p = fusedtrace.fused_trace_plain(*args)
         torch.cuda.synchronize()
@@ -321,6 +377,7 @@ def compare_amask(name, scene, meta, o, d, seeds):
         live = int((rays_s[:, 6] > 0).sum())
         casts.append({"cast": tag, "live_rays": live, "live_blocks": int(blive.sum()),
                       "hit_frac_of_live": float(hit.sum()) / max(live, 1), "max_abs_err": err,
+                      "clusters_tested": float(out[:, 5].double().sum()),
                       "tris_tested": float(out[:, 6].double().sum()),
                       "mask_tests": float(out[:, 7].double().sum())})
         return args, out
@@ -343,17 +400,18 @@ def compare_amask(name, scene, meta, o, d, seeds):
     rec.update(casts=casts, hit_frac=float(hit.float().mean()),
                passthrough_share_of_hits=float(passthru.sum()) / max(int(hit.sum()), 1),
                max_abs_err=max(c["max_abs_err"] for c in casts))
+    if not timed:
+        return rec
     rec["b2_ms"] = cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11)
     rec["b2_plain_ms"] = cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)
     rec["b2_bound_ms"], rec["b2_bound_by"] = bound(FLOPS_SLAB * n * n_clus, nbytes(rays, box, pk))
     rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0), reps=11)
-    rec["b3_closest_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0[:8], False), reps=11)
+    rec["b3_closest_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0[:8], False, inst), reps=11)
     rec["b3_cast1_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args1), reps=11)
     rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args0), reps=1,
                                  warmup_s=0.0, warmup_calls=1)
-    rec["b3_bound_ms"], rec["b3_bound_by"] = bound(
-        FLOPS_PLANE * casts[0]["tris_tested"] + FLOPS_AMASK * casts[0]["mask_tests"],
-        nbytes(*args0[:6], out0))
+    rec["slab_tests"], flops, nb = b3_work(args0, out0)
+    rec["b3_bound_ms"], rec["b3_bound_by"] = bound(flops, nb)
     return rec
 
 
@@ -500,6 +558,40 @@ def reference_check(name, scene, meta, gcam, gcfg, golden_key, dev, twin: bool =
                 golden_mean=[float(x) for x in gm], rel_err=[float(x) for x in rel], rtol=GOLDEN_MEAN_RTOL)
 
 
+def instanced_vs_baked(inst, inst_meta, pos, fwd, dev):
+    """The instanced atrium against the baked atrium() (built here on the
+    host), both through the kernels, at 64x64, 16 spp: identical sample
+    streams, so only the rounding of transform-at-trace against baked
+    vertices differs (tests/test_instancing.py:120-136's bar)."""
+    import numpy as np
+
+    from yart_tpu_torch.config import CameraConfig, RenderConfig
+    from yart_tpu_torch.render.renderer import Renderer
+    from yart_tpu_torch.scene.showcase import atrium
+
+    t0 = time.time()
+    baked, baked_meta = atrium().compile(dev)
+    build_s = time.time() - t0
+    cam = CameraConfig(image_size=(64, 64), focal_length=35.0, position=pos, forward=fwd, exposure=3.0)
+    cfg = RenderConfig(samples=16, max_depth=4, tonemap="none", estimator="mean",
+                       first_wave_samples=16, max_wave_samples=16)
+    img_i = Renderer(inst, inst_meta, cam, cfg, device=dev).render().hdr
+    img_b = Renderer(baked, baked_meta, cam, cfg, device=dev).render().hdr
+    if not (np.isfinite(img_i).all() and np.isfinite(img_b).all()):
+        raise AssertionError("atrium-inst vs baked: non-finite pixels")
+    close = float(np.isclose(img_i, img_b, rtol=INSTANCED_PIXEL_TOL, atol=INSTANCED_PIXEL_TOL).mean())
+    mi, mb = img_i.mean(axis=(0, 1)), img_b.mean(axis=(0, 1))
+    rel = np.abs(mi - mb) / np.abs(mb)
+    if close < INSTANCED_PIXEL_SHARE or not (rel <= INSTANCED_MEAN_RTOL).all():
+        raise AssertionError(f"atrium-inst vs baked atrium: {close:.4f} of pixels within "
+                             f"{INSTANCED_PIXEL_TOL}, channel means rel {rel}")
+    return {"phase": "reference", "scene": "atrium-inst vs baked atrium", "size": [64, 64], "spp": 16,
+            "max_depth": 4, "baked_build_s": round(build_s, 3), "baked_n_tris": int(baked_meta.n_tris),
+            "pixels_close": close, "pixel_tol": INSTANCED_PIXEL_TOL, "mean": [float(x) for x in mi],
+            "baked_mean": [float(x) for x in mb], "rel_err": [float(x) for x in rel],
+            "mean_rtol": INSTANCED_MEAN_RTOL}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 renders (phase 4)")
@@ -518,7 +610,7 @@ def main() -> int:
     from yart_tpu_torch.kernels import brute, fusedtrace, presort
     from yart_tpu_torch.render import blocktrace
     from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres, textured_box_scene
-    from yart_tpu_torch.scene.showcase import atrium
+    from yart_tpu_torch.scene.showcase import atrium, instanced_leaves
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -645,6 +737,55 @@ def main() -> int:
                            nee=True)
     emit({"phase": "gated", **rec_gs})
 
+    # ---- 3f. B3 instanced (and B2) at atrium-inst's shapes --------------
+    t0 = time.time()
+    inst_builder = atrium(instanced=True)
+    inst_author_s = time.time() - t0
+    t0 = time.time()
+    inst, inst_meta = inst_builder.compile(dev)
+    torch.cuda.synchronize()
+    inst_compile_s = time.time() - t0
+    inst_build_s = round(inst_author_s + inst_compile_s, 3)
+    emit({"phase": "scene", "scene": "atrium-inst", "n_tris": inst_meta.n_tris,
+          "n_instances": inst_meta.n_instances, "n_prototypes": len(set(inst_meta.inst_proto)),
+          "n_inst_clusters": inst_meta.n_inst_clusters, "n_clus_pad": inst_meta.n_clus_pad,
+          "pack_rows": int(inst.clus_pack.shape[0]), "stored_tris": int(inst.shade_pack.shape[0]),
+          "any_alpha": inst_meta.any_alpha, "textures_and_meshes_s": round(inst_author_s, 3),
+          "compile_s": round(inst_compile_s, 3), "build_s": inst_build_s})
+    inst_pos, inst_target = CAMERAS["atrium-inst"]
+    inst_fwd = tuple(t - p for p, t in zip(inst_pos, inst_target))
+    ao, ad = camera_rays(CameraConfig(image_size=(side, side), focal_length=35.0, position=inst_pos,
+                                      forward=inst_fwd), dev)
+    at = torch.full((ao.shape[0],), 1e30, device=dev)
+    rec_ic = compare_blocktrace("atrium_inst_camera", inst, inst_meta, ao, ad, at, timed=True)
+    emit({"phase": "kernel", **rec_ic})
+    a_hit = blocktrace.intersect_blocktrace(inst, inst_meta, ao, ad, at)
+    sun = torch.tensor([0.45, 0.72, 0.3], device=dev)
+    sun_d = (sun / sun.norm()).expand_as(ad).contiguous()
+    sun_o = (ao + torch.where(a_hit[4] >= 0, a_hit[0], 0.0)[:, None] * ad).contiguous()
+    sun_t = torch.where(a_hit[4] >= 0, 100.0, -1.0)
+    rec_in = compare_blocktrace("atrium_inst_sun_shadow_nee", inst, inst_meta, sun_o, sun_d, sun_t,
+                                timed=True, nee=True)
+    emit({"phase": "kernel", **rec_in})
+
+    # ---- 3g. B3 instanced + amask and the gated loop, instanced ---------
+    lv, lv_meta = instanced_leaves().compile(dev)
+    lcam = CameraConfig(image_size=(256, 256), focal_length=30.0, position=(0.0, 1.2, 4.5),
+                        forward=(0.0, -0.1, -1.0))
+    lo_, ld_, lseed = camera_rays(lcam, dev, seeds=True)
+    rec_la = compare_amask("instanced_leaves_camera_2^16", lv, lv_meta, lo_, ld_, lseed, timed=False)
+    emit({"phase": "kernel", **rec_la})
+    l_tmax = torch.full((lo_.shape[0],), 1e30, device=dev)
+    rec_lg = compare_gated("instanced_leaves_camera_2^16", lv, lv_meta, lo_, ld_, l_tmax, lseed, nee=False)
+    emit({"phase": "gated", **rec_lg})
+    lh = blocktrace.intersect_blocktrace_gated(lv, lv_meta, lo_, ld_, l_tmax, alpha_seed=lseed)
+    l_sho = (lo_ + torch.where(lh.mask, lh.t, 0.0)[:, None] * ld_).contiguous()
+    rec_lgs = compare_gated("instanced_leaves_shadow_2^16", lv, lv_meta, l_sho, sun_d[: lo_.shape[0]].contiguous(),
+                            torch.where(lh.mask, 100.0, -1.0), lseed ^ 0x6A09E667, nee=True)
+    emit({"phase": "gated", **rec_lgs})
+    if rec_lg["casts"] < 2 or rec_lgs["casts"] < 2:
+        raise AssertionError("the instanced gated loop took a single cast: nothing passed through")
+
     # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
     cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
                                position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
@@ -661,7 +802,7 @@ def main() -> int:
     if launches_spheres["brute_intersect"] != 0:
         raise AssertionError("a spheres ray went to B1 instead of the block trace")
 
-    # ---- 4c. this slice's main path: atrium-ivy (gated loop, B3 amask) ---
+    # ---- 4c. atrium-ivy (gated loop, B3 amask) ---------------------------
     ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos, forward=ivy_fwd,
                            exposure=3.0)
     rec, launches_ivy = render_main_path("atrium-ivy", ivy, ivy_meta, ivy_cam, args.spp, dev)
@@ -671,6 +812,19 @@ def main() -> int:
         raise AssertionError(f"the atrium-ivy render did not launch B2 and B3 in amask mode: {launches_ivy}")
     if launches_ivy["brute_intersect"] != 0:
         raise AssertionError("an atrium-ivy ray went to B1 instead of the block trace")
+
+    # ---- 4d. this slice's main path: atrium-inst (B3 instanced) ---------
+    inst_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=inst_pos, forward=inst_fwd,
+                            exposure=3.0)
+    rec, launches_inst = render_main_path("atrium-inst", inst, inst_meta, inst_cam, args.spp, dev)
+    rec["scene_build_s"] = inst_build_s
+    emit(rec)
+    inst_modes = launches_inst["fused_trace_modes"]
+    if launches_inst["presort_keys"] <= 0 or inst_modes.get("instanced", 0) <= 0 \
+            or inst_modes.get("instanced+nee", 0) <= 0:
+        raise AssertionError(f"the atrium-inst render did not launch B2 and B3's instanced modes: {launches_inst}")
+    if set(inst_modes) != {"instanced", "instanced+nee"} or launches_inst["brute_intersect"] != 0:
+        raise AssertionError(f"an atrium-inst ray left B3's instanced modes: {launches_inst}")
 
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
@@ -692,6 +846,10 @@ def main() -> int:
                         first_wave_samples=2, max_wave_samples=2)
     emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, icfg, None, dev))
 
+    acam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
+    emit(reference_check("atrium-inst", inst, inst_meta, acam, icfg, None, dev))
+    emit(instanced_vs_baked(inst, inst_meta, inst_pos, inst_fwd, dev))
+
     print(json.dumps({"kernels": [
         {"name": "brute_intersect", "route": "cuda",
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
@@ -703,22 +861,28 @@ def main() -> int:
         {"name": "presort_keys", "route": "cuda",
          "source": "yart_tpu_torch/csrc/presort_keys.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:999",
-         "launches": launches_ivy["presort_keys"],
+         "launches": launches_inst["presort_keys"],
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
-                              "atrium-ivy": launches_ivy["presort_keys"]},
-         "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs),
-         "ms": rec_i["b2_ms"], "plain_ms": rec_i["b2_plain_ms"],
-         "bound_ms": rec_i["b2_bound_ms"], "bound_by": rec_i["b2_bound_by"], "library_ms": None},
+                              "atrium-ivy": launches_ivy["presort_keys"],
+                              "atrium-inst": launches_inst["presort_keys"]},
+         "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]),
+         "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
+         "bound_ms": rec_ic["b2_bound_ms"], "bound_by": rec_ic["b2_bound_by"], "library_ms": None,
+         "atrium_ivy": {k: rec_i[k] for k in ("b2_ms", "b2_plain_ms", "b2_bound_ms", "b2_bound_by")}},
         {"name": "fused_trace", "route": "cuda",
          "source": "yart_tpu_torch/csrc/fused_trace.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:1128",
-         "launches": launches_ivy["fused_trace"],
-         "modes": launches_ivy["fused_trace_modes"],
+         "launches": launches_inst["fused_trace"],
+         "modes": launches_inst["fused_trace_modes"],
          "launches_by_path": {"spheres": launches_spheres["fused_trace_modes"],
-                              "atrium-ivy": launches_ivy["fused_trace_modes"]},
-         "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs] + [rec_i["max_abs_err"]]),
-         "ms": rec_i["b3_ms"], "plain_ms": rec_i["b3_plain_ms"],
-         "bound_ms": rec_i["b3_bound_ms"], "bound_by": rec_i["b3_bound_by"], "library_ms": None},
+                              "atrium-ivy": launches_ivy["fused_trace_modes"],
+                              "atrium-inst": launches_inst["fused_trace_modes"]},
+         "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]
+                            + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),
+         "ms": rec_ic["b3_ms"], "plain_ms": rec_ic["b3_plain_ms"],
+         "bound_ms": rec_ic["b3_bound_ms"], "bound_by": rec_ic["b3_bound_by"], "library_ms": None,
+         "instanced_nee": {k: rec_in[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")},
+         "amask_atrium_ivy": {k: rec_i[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

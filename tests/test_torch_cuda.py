@@ -1,7 +1,8 @@
 """B1, B2 and B3 on the card: each Hopper kernel against its plain
-PyTorch twin (B3 in its closest-hit, any-hit and alpha-mask modes), the
-gated re-cast loop's kernel path against its twin path, and renders that
-go through them.
+PyTorch twin (B3 in its closest-hit, any-hit and alpha-mask modes, and in
+its instanced mode in each of them), the gated re-cast loop's kernel path
+against its twin path (plain and instanced), and renders that go through
+them.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -266,3 +267,72 @@ def test_textured_render_on_card():
     img = Renderer(scene, meta, cam, cfg).render().hdr
     assert brute.COUNTS.plain_cuda == presort.COUNTS.plain_cuda == fusedtrace.COUNTS.plain_cuda == 0
     assert np.isfinite(img).all() and img.mean() > 0.01
+
+
+@pytest.fixture(scope="module")
+def inst_leaves():
+    """The port's instanced gated fixture (`showcase.instanced_leaves`):
+    leaf quads instanced under rotated, non-uniformly scaled transforms,
+    a glass pane instance, a baked floor; and rays through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    from yart_tpu_torch.scene.showcase import instanced_leaves
+
+    scene, meta = instanced_leaves().compile(device="cuda")
+    rng = np.random.default_rng(12)
+    n = 65536
+    o = torch.from_numpy(np.asarray([0.0, 1.2, 4.5], np.float32) + rng.normal(size=(n, 3)).astype(np.float32) * 0.2)
+    target = np.stack([rng.uniform(-2, 2, n), rng.uniform(0, 2, n), rng.uniform(-2, 2, n)], 1)
+    d = torch.from_numpy(target.astype(np.float32)) - o
+    seed = torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.int64))
+    return scene, meta, o.cuda(), (d / d.norm(dim=1, keepdim=True)).cuda(), seed.cuda()
+
+
+@pytest.mark.parametrize("mode", ["instanced", "instanced+nee", "instanced+amask"])
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_fused_trace_instanced_kernel_equals_plain(inst_leaves, mode, n_rays):
+    scene, meta, o, d, _ = inst_leaves
+    assert meta.n_instances > 1 and meta.n_inst_clusters > 1
+    nee, amask = "nee" in mode, "amask" in mode
+    o, d = o[:n_rays].contiguous(), d[:n_rays].contiguous()
+    t_max = torch.full((n_rays,), 4.0 if nee else 100.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    floor = torch.zeros(n_rays, device=o.device)
+    floor[n_rays // 2 :] = 1.0
+    before = fusedtrace.COUNTS.modes.get(mode, 0)
+    k = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, amask=amask)
+    assert fusedtrace.COUNTS.modes[mode] == before + 1
+    saved = fusedtrace.fused_trace, presort.presort_keys
+    fusedtrace.fused_trace, presort.presort_keys = fusedtrace.fused_trace_plain, presort.presort_plain
+    try:
+        p = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, amask=amask)
+    finally:
+        fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    hit = k[4] >= 0
+    assert hit.any() and not hit[: n_rays // 8].any() and (k[0][hit & (floor > 0)] > 1.0).all()
+    if not nee:  # closest hits land on several instances of the one leaf prototype
+        assert scene.tri_aux[k[4][hit].long(), 1].unique().numel() > 2
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_gated_instanced_loop_kernel_path_equals_plain_path(inst_leaves, nee):
+    scene, meta, o, d, seed = inst_leaves
+    t_max = 6.0 if nee else 100.0
+    trace_k, trace_p = [], []
+    before = fusedtrace.COUNTS.modes.get("instanced+amask", 0)
+    k = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed, trace=trace_k)
+    assert fusedtrace.COUNTS.modes["instanced+amask"] == before + len(trace_k)
+    saved = fusedtrace.fused_trace, presort.presort_keys
+    fusedtrace.fused_trace, presort.presort_keys = fusedtrace.fused_trace_plain, presort.presort_plain
+    try:
+        p = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed,
+                                                  trace=trace_p)
+    finally:
+        fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert trace_k == trace_p and len(trace_k) >= 2

@@ -268,7 +268,7 @@ def test_amask_twin_equals_kernel_walk_and_counts_mask_tests(ivy):
     order, blive, slots = TBT.fused_order(ts, tm, T(o), T(d), t_max, torch.zeros(o.shape[0]), 1e-3)
     rays = TBT.ray_matrix(T(o), T(d), t_max)[order][:128].contiguous()
     assert int(blive[0]) == 1
-    counts = TBT.cluster_counts(ts)
+    counts = TBT.cluster_counts(ts, tm)
     args = (rays, slots[:128].contiguous(), ts.clus_box, ts.clus_pack, counts, blive[:1], 1e-3)
     out = fusedtrace.fused_trace_plain(*args, amask=True)
     ids = torch.where(slots[:128] == presort.KEY_DEAD, -1, slots[:128] & presort.ID_MASK)

@@ -1,9 +1,10 @@
 """yart_tpu_torch imports no JAX: the machine with the GPU has none.
 
 A fresh interpreter imports every module of the port, builds and renders
-tiny cornell-mat, spheres and textured-box scenes through the renderer and
-the CLI (spheres through the block trace, the textured box through the
-gated brute), parses the flagship scenes, and then checks that
+tiny cornell-mat, spheres, textured-box and instanced scenes through the
+renderer and the CLI (spheres through the block trace, the textured box
+through the gated brute, the instanced scene through B3's instanced
+mode), parses the flagship scenes, and then checks that
 no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
@@ -42,8 +43,29 @@ assert meta.any_alpha and meta.any_textures and meta.any_transparent
 res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 1.6, 3.2), forward=(0, -0.9, -3.0)),
                RenderConfig(samples=2, max_depth=3), device="cpu").render()
 assert res.samples_taken == 2 and res.hdr.mean() > 0
-for name in ("atrium", "atrium-ivy", "roadster", "luxball"):
+for name in ("atrium", "atrium-ivy", "atrium-inst", "roadster", "luxball"):
     parse_args([name, "--device", "cpu"])
+# An instanced scene (two rotated, scaled instances of one prototype over a
+# baked floor) through B3's instanced mode (its twin here).
+import numpy as np
+from yart_tpu_torch.scene.builder import SceneBuilder
+from yart_tpu_torch.scene.procedural import uv_sphere
+b = SceneBuilder()
+m = b.add_material(roughness=0.5)
+pos, nrm, tri = uv_sphere((0, 0, 0), 0.5, n_theta=6, n_phi=8)
+pid = b.add_prototype(pos, tri, m, normals=nrm)
+b.add_instance(pid, np.diag([1.0, 2.0, 1.0, 1.0]))
+rot = np.eye(4)
+rot[:3, :3] = [[0, 0, 1], [0, 1, 0], [-1, 0, 0]]
+rot[:3, 3] = (1.2, 0.0, 0.0)
+b.add_instance(pid, rot)
+b.add_mesh(np.asarray([[-3, -1, -3], [3, -1, -3], [3, -1, 3], [-3, -1, 3]], np.float32), [[0, 2, 1], [0, 3, 2]], m)
+b.set_env_uniform((0.5, 0.5, 0.5))
+scene, meta = b.compile(device="cpu")
+assert meta.n_instances == 3 and meta.n_inst_clusters == 3
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 0.5, 4.0), forward=(0, -0.1, -1)),
+               RenderConfig(samples=2, max_depth=3), device="cpu").render()
+assert res.samples_taken == 2 and res.hdr.mean() > 0
 import tempfile, os
 from yart_tpu_torch.cli import main
 with tempfile.TemporaryDirectory() as tmp:

@@ -286,7 +286,7 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["atrium-inst"],
+        ["cornell", "--env-scale", "2.0"],
         ["scene.glb"],
         ["cornell", "--env-hdr", "sky.hdr"],
         ["cornell", "--devices", "2"],

@@ -7,8 +7,9 @@ Mirrors `yart_tpu/cli.py` for what the port supports: the `cornell` and
 `cornell-mat` scenes (area lights, kernel B1), `furnace` (env light, B1),
 `spheres` (env light, 14,402 triangles through the block trace B2 + B3),
 the textured flagship scenes `atrium`, `roadster` and `luxball` (sky HDRI,
-block trace) and `atrium-ivy` (alpha-tested ivy: the gated re-cast loop
-with B3's alpha-mask cull), the MIS and naive integrators, the zsobol and hash samplers, every
+block trace), `atrium-ivy` (alpha-tested ivy: the gated re-cast loop
+with B3's alpha-mask cull) and `atrium-inst` (the columns and planters as
+instances: B3's instanced mode), the MIS and naive integrators, the zsobol and hash samplers, every
 estimator, AgX with its looks, the thin-lens camera and checkpoint/resume. Every other scene or flag of the JAX CLI is refused
 with an error naming the ROADMAP.md item that will bring it; none is
 ignored.
@@ -19,9 +20,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-SCENES = ("cornell", "cornell-mat", "spheres", "furnace", "atrium", "atrium-ivy", "roadster", "luxball")
-# Scenes of the JAX CLI still refused: name -> ROADMAP item.
-_REFUSED_SCENES = {"atrium-inst": "A.6, the instanced atrium-inst slice (B3's instanced mode)"}
+SCENES = ("cornell", "cornell-mat", "spheres", "furnace", "atrium", "atrium-ivy", "atrium-inst",
+          "roadster", "luxball")
 
 # JAX-CLI flags this slice lacks: dest -> (value meaning "unused", ROADMAP item)
 _REFUSED = {
@@ -83,8 +83,6 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
-    if args.scene in _REFUSED_SCENES:
-        p.error(f"scene {args.scene!r} is not ported yet (ROADMAP.md {_REFUSED_SCENES[args.scene]})")
     if args.scene not in SCENES:
         p.error(
             f"scene {args.scene!r} is not ported yet: this slice renders "
@@ -109,8 +107,8 @@ def build_scene(args, device):
         b = procedural.material_test_spheres()
     elif args.scene == "furnace":
         b = procedural.furnace()
-    elif args.scene in ("atrium", "atrium-ivy"):
-        b = showcase.atrium(ivy=args.scene == "atrium-ivy")
+    elif args.scene in ("atrium", "atrium-ivy", "atrium-inst"):
+        b = showcase.atrium(ivy=args.scene == "atrium-ivy", instanced=args.scene == "atrium-inst")
     elif args.scene == "roadster":
         b = showcase.roadster()
     elif args.scene == "luxball":
@@ -130,10 +128,11 @@ CAMERAS = {
     "furnace": ((0, 0, 3.5), (0, 0, 0)),
     "atrium": ((-10.0, 1.8, 0.0), (8.0, 2.6, 0.0)),
     "atrium-ivy": ((-10.0, 1.8, 0.0), (8.0, 2.6, 0.0)),
+    "atrium-inst": ((-10.0, 1.8, 0.0), (8.0, 2.6, 0.0)),
     "roadster": ((4.4, 1.7, 5.0), (0.0, 0.5, 0.0)),
     "luxball": ((0.12, 0.28, 0.35), (0.0, 0.06, 0.0)),
 }
-EXPOSURE = {"atrium": 3.0, "atrium-ivy": 3.0, "roadster": 1.0, "luxball": 1.0}
+EXPOSURE = {"atrium": 3.0, "atrium-ivy": 3.0, "atrium-inst": 3.0, "roadster": 1.0, "luxball": 1.0}
 
 
 def default_camera(args):

@@ -1,9 +1,9 @@
 // Fused block-trace closest hit for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel yart_tpu/kernels/pallas_fusedtrace.py
-// `fused_trace_pallas` (its pallas_call at :1128) for non-instanced
-// scenes, in its closest-hit, any-hit (`nee`) and alpha-mask (`amask`)
-// modes. It computes what that kernel computes, not how:
+// `fused_trace_pallas` (its pallas_call at :1128) in its closest-hit,
+// any-hit (`nee`), alpha-mask (`amask`) and instanced modes. It computes
+// what that kernel computes, not how:
 // the TPU kernel runs a block-wide nearest-entry loop over the cluster
 // packs with a winners epilogue; here one thread owns one ray and walks
 // the clusters itself.
@@ -22,7 +22,18 @@
 //   triangle's 8x8 alpha mask (pack row 5) is set, iu = int(clip(8u, 0, 7)),
 //   iv likewise: the cull of certainly-transparent texels that the gated
 //   re-cast loop relies on (yart_tpu_torch/scene/alphamask.py);
-// - with `nee` the ray stops after the first cluster that gives it a hit.
+// - with `nee` the ray stops after the first cluster that gives it a hit;
+// - instanced (`clus_src` non-null; pallas_fusedtrace.py:291-315,
+//   :651-660): traversal cluster `cid` is one (instance, prototype
+//   cluster) pair. Its box is world space, so the entry test above is
+//   unchanged; its triangles are pack row clus_src[cid], tested with the
+//   ray mapped into the prototype's object space by the instance's
+//   UNNORMALISED inverse 3x4 r = inst_flat[clus_inst[cid] * 12 ..]:
+//   o'_a = ((o0 r[4a] + o1 r[4a+1]) + o2 r[4a+2]) + r[4a+3], d'_a likewise
+//   without the translation, so t stays the world parameter and t_min,
+//   the floor and the best t compose across instances; the triangle id is
+//   clus_fid[cid] + column (the pack's row 4 holds the prototype-local
+//   id), and `amask` reads the prototype's own mask words.
 // Output row: t, u, v, back, tri bits (-1 = miss, t = t_cur), clusters
 // tested, triangles tested, alpha-mask tests run (0 without `amask`).
 //
@@ -33,14 +44,18 @@
 //   tiles, as the presort does; each thread reads the pack rows of the
 //   clusters it tests straight from global memory. After the presort's
 //   sort the rays of a warp mostly test the same clusters, so those reads
-//   are broadcasts served by L1/L2.
+//   are broadcasts served by L1/L2. The instanced mode reads a tested
+//   cluster's 12 transform floats once and transforms the ray in
+//   registers before the same triangle loop; after the presort a warp's
+//   rays mostly share the instance, so those reads are broadcasts too.
 // - Built with --fmad=false and without fast math, the kernel repeats the
 //   plain twin's float operations (yart_tpu_torch/kernels/fusedtrace.py)
 //   one by one and visits the same clusters in the same order, so the two
 //   agree bitwise.
 //
 // Bound on this card: ~30 flops per tested (ray, triangle) pair plus ~24
-// per (ray, box) slab test, against 64 B of ray and hit I/O per ray; at the
+// per (ray, box) slab test (+33 per tested instance cluster for the ray
+// transform), against 64 B of ray and hit I/O per ray; at the
 // bench's 132k triangles the tested pairs dominate and the kernel is
 // compute-bound. Left for later: wgmma / tensor-core projections, TMA
 // staging of the packs, and a block-wide nearest-first queue.
@@ -108,10 +123,13 @@ __device__ __forceinline__ bool amask_bit(const float* __restrict__ p, int w, in
   return ((word >> (bit & 31)) & 1u) != 0u;
 }
 
-__device__ __forceinline__ void test_cluster(const Ray& r, const float* __restrict__ p,
-                                             int c, int cnt, float t_min, int amask, Best& b) {
+// One cluster's triangles against the ray (o, d), which is the world ray or,
+// in the instanced mode, the ray in the prototype's object space; `first`
+// is the triangle id of column 0.
+__device__ __forceinline__ void test_cluster(const float o[3], const float d[3], float floor_t,
+                                             const float* __restrict__ p, int c, int cnt,
+                                             int first, float t_min, int amask, Best& b) {
   const int w = 3 * c;
-  const int first = __float_as_int(p[4 * w]);
   b.n_clus += 1;
   b.n_tris += cnt;
   for (int col = 0; col < cnt; ++col) {
@@ -119,18 +137,18 @@ __device__ __forceinline__ void test_cluster(const Ray& r, const float* __restri
     const float ux = p[c + col], uy = p[w + c + col], uz = p[2 * w + c + col];
     const float vx = p[2 * c + col], vy = p[w + 2 * c + col], vz = p[2 * w + 2 * c + col];
     const float cn = p[3 * w + col], cu = p[3 * w + c + col], cv = p[3 * w + 2 * c + col];
-    const float no = r.o[0] * nx + r.o[1] * ny + r.o[2] * nz;
-    const float uo = r.o[0] * ux + r.o[1] * uy + r.o[2] * uz;
-    const float vo = r.o[0] * vx + r.o[1] * vy + r.o[2] * vz;
-    const float nd = r.d[0] * nx + r.d[1] * ny + r.d[2] * nz;
-    const float ud = r.d[0] * ux + r.d[1] * uy + r.d[2] * uz;
-    const float vd = r.d[0] * vx + r.d[1] * vy + r.d[2] * vz;
+    const float no = o[0] * nx + o[1] * ny + o[2] * nz;
+    const float uo = o[0] * ux + o[1] * uy + o[2] * uz;
+    const float vo = o[0] * vx + o[1] * vy + o[2] * vz;
+    const float nd = d[0] * nx + d[1] * ny + d[2] * nz;
+    const float ud = d[0] * ux + d[1] * uy + d[2] * uz;
+    const float vd = d[0] * vx + d[1] * vy + d[2] * vz;
     const float t = (cn - no) / nd;
     const float u = uo + t * ud - cu;
     const float v = vo + t * vd - cv;
     const int tri = first + col;
     if (fabsf(nd) >= kEpsDet && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
-        t > t_min && t > r.floor_t &&
+        t > t_min && t > floor_t &&
         (t < b.t || (t == b.t && b.tri >= 0 && tri < b.tri))) {
       if (amask) {
         b.n_mask += 1;
@@ -145,12 +163,44 @@ __device__ __forceinline__ void test_cluster(const Ray& r, const float* __restri
   }
 }
 
+// The scene's cluster tables; the instanced ones are null for a scene
+// without instances.
+struct Clusters {
+  const float* __restrict__ pack;
+  const int32_t* __restrict__ count;
+  int c;
+  const int32_t* __restrict__ src;
+  const int32_t* __restrict__ inst;
+  const int32_t* __restrict__ fid;
+  const float* __restrict__ inst_flat;
+};
+
+// Test traversal cluster `cid` (its box already entered).
+__device__ __forceinline__ void visit(const Ray& r, const Clusters& k, int cid, float t_min,
+                                      int amask, Best& b) {
+  const size_t stride = (size_t)8 * 3 * k.c;
+  if (k.src == nullptr) {
+    const float* p = k.pack + cid * stride;
+    test_cluster(r.o, r.d, r.floor_t, p, k.c, k.count[cid], __float_as_int(p[4 * 3 * k.c]),
+                 t_min, amask, b);
+    return;
+  }
+  const float* m = k.inst_flat + (size_t)k.inst[cid] * 12;
+  float o[3], d[3];
+  for (int a = 0; a < 3; ++a) {
+    const float m0 = m[4 * a], m1 = m[4 * a + 1], m2 = m[4 * a + 2];
+    o[a] = r.o[0] * m0 + r.o[1] * m1 + r.o[2] * m2 + m[4 * a + 3];
+    d[a] = r.d[0] * m0 + r.d[1] * m1 + r.d[2] * m2;
+  }
+  test_cluster(o, d, r.floor_t, k.pack + k.src[cid] * stride, k.c, k.count[cid], k.fid[cid],
+               t_min, amask, b);
+}
+
 __global__ void __launch_bounds__(kThreads)
 fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ slots,
-                   const float* __restrict__ clus_box, int cpad,
-                   const float* __restrict__ pack, const int32_t* __restrict__ count,
-                   int n_clus, int c, const int32_t* __restrict__ blive, float t_min,
-                   int nee, int amask, float* __restrict__ out) {
+                   const float* __restrict__ clus_box, int cpad, Clusters clus, int n_clus,
+                   const int32_t* __restrict__ blive, float t_min, int nee, int amask,
+                   float* __restrict__ out) {
   __shared__ float s_box[6][kTile];
 
   const int i = blockIdx.x * kThreads + threadIdx.x;  // n is a multiple of kThreads
@@ -168,7 +218,6 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
       r.ia[a] = 1.0f / safe;
       r.oia[a] = r.o[a] * r.ia[a];
     }
-    const size_t pack_stride = (size_t)8 * 3 * c;
     int sc[kSlots];
     for (int k = 0; k < kSlots; ++k) {
       const int key = slots[(size_t)i * kSlots + k];
@@ -183,7 +232,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
       float box[6];
       for (int q = 0; q < 6; ++q) box[q] = clus_box[(size_t)q * cpad + cid];
       if (enters(r, box, t_min, b.t)) {
-        test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, amask, b);
+        visit(r, clus, cid, t_min, amask, b);
         done = nee && b.tri >= 0;
       }
     }
@@ -203,7 +252,7 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
         float box[6];
         for (int q = 0; q < 6; ++q) box[q] = s_box[q][j];
         if (enters(r, box, t_min, b.t)) {
-          test_cluster(r, pack + cid * pack_stride, c, count[cid], t_min, amask, b);
+          visit(r, clus, cid, t_min, amask, b);
           done = nee && b.tri >= 0;
         }
       }
@@ -224,15 +273,21 @@ fused_trace_kernel(const float* __restrict__ rays, const int32_t* __restrict__ s
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// n must be a multiple of 128 (the wrapper pads).
+// n must be a multiple of 128 (the wrapper pads). n_clus traversal
+// clusters; clus_src, clus_inst, clus_fid and inst_flat are null for a
+// scene without instances.
 extern "C" int fused_trace_launch(const float* rays, const int32_t* slots, int n,
                                   const float* clus_box, int cpad, const float* pack,
                                   const int32_t* count, int n_clus, int c,
+                                  const int32_t* clus_src, const int32_t* clus_inst,
+                                  const int32_t* clus_fid, const float* inst_flat,
                                   const int32_t* blive, float t_min, int nee, int amask,
                                   float* out, cudaStream_t stream) {
   if (n > 0) {
-    fused_trace_kernel<<<n / kThreads, kThreads, 0, stream>>>(
-        rays, slots, clus_box, cpad, pack, count, n_clus, c, blive, t_min, nee, amask, out);
+    const Clusters k = {pack, count, c, clus_src, clus_inst, clus_fid, inst_flat};
+    fused_trace_kernel<<<n / kThreads, kThreads, 0, stream>>>(rays, slots, clus_box, cpad, k,
+                                                              n_clus, blive, t_min, nee, amask,
+                                                              out);
   }
   return (int)cudaGetLastError();
 }

@@ -2,15 +2,15 @@
 
 `fused_trace` is the entry point. For tensors on a CUDA device it launches
 the hand-written kernel in `csrc/fused_trace.cu` (which replaces
-`yart_tpu/kernels/pallas_fusedtrace.py` `fused_trace_pallas` for
-non-instanced scenes) and raises if it cannot; for CPU tensors it runs
-`fused_trace_plain`, the same arithmetic in plain PyTorch. There is no
-fallback from one to the other.
+`yart_tpu/kernels/pallas_fusedtrace.py` `fused_trace_pallas`) and raises
+if it cannot; for CPU tensors it runs `fused_trace_plain`, the same
+arithmetic in plain PyTorch. There is no fallback from one to the other.
 
 Contract. Each row of `rays` [Np, 8] (o3, d3, t_cur, floor; presorted)
-gets the exact closest valid hit over all clusters of `clus_pack`
-[n_clus, 8, 3C], with `_t_only`'s plane test (pallas_fusedtrace.py:118-138)
-on the pack's rows, dot products formed x + y + z as in `_proj`:
+gets the exact closest valid hit over the n_clus = `clus_count.shape[0]`
+traversal clusters, with `_t_only`'s plane test
+(pallas_fusedtrace.py:118-138) on the pack rows [8, 3C] of `clus_pack`,
+dot products formed x + y + z as in `_proj`:
 
     t = (cn - n.o) / n.d,   u = eu.o + t (eu.d) - cu,   v likewise
     valid: |n.d| >= EPS_DET, 0 <= u <= 1, v >= 0, u + v <= 1,
@@ -26,6 +26,20 @@ u or v (t = 0/0 on a padding column) converts to an integer that depends
 on the device, which is why the bit index is clamped again in the integer
 domain; such lanes already fail the geometric tests, so kernel and twin
 agree on every valid candidate.
+
+Instanced mode (`inst` = (clus_src, clus_inst, clus_fid, inst_flat);
+pallas_fusedtrace.py:291-315, :651-660): traversal cluster `cid` is one
+(instance, prototype cluster) pair with a world box in `clus_box`. Its
+triangles are pack row clus_src[cid], tested with the ray mapped into the
+prototype's object space by the instance's unnormalised inverse 3x4
+r = inst_flat[12 clus_inst[cid] : +12],
+
+    o'_a = ((o0 r[4a] + o1 r[4a+1]) + o2 r[4a+2]) + r[4a+3]
+    d'_a = (d0 r[4a] + d1 r[4a+1]) + d2 r[4a+2]
+
+so t stays the world parameter; tri = clus_fid[cid] + column, and `amask`
+reads the prototype's own mask words. Without `inst`, cluster `cid` is pack
+row `cid` and the first triangle rides in its row 4, lane 0.
 
 Output [Np, 8] f32: t, u, v, back (0/1), tri (int32 bits; -1 = miss), the
 clusters tested, the triangles tested, and the alpha-mask tests run (0
@@ -49,7 +63,8 @@ bitwise; the kernel is built with --fmad=false. Blocks of 128 rays whose
 `blive` flag is 0 enter nothing and are skipped whole.
 
 `COUNTS` records kernel launches (in total and per mode: closest, nee,
-amask) and plain-twin calls on CUDA tensors.
+amask, instanced and their combinations) and plain-twin calls on CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -76,6 +91,7 @@ def _library():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # rays, slots, n
         ctypes.c_void_p, ctypes.c_int,  # clus_box, cpad
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # pack, count, n_clus, c
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # clus_src, _inst, _fid, inst_flat
         ctypes.c_void_p,  # blive
         ctypes.c_float, ctypes.c_int, ctypes.c_int,  # t_min, nee, amask
         ctypes.c_void_p,  # out
@@ -89,32 +105,45 @@ def build() -> bool:
     return load("fused_trace", SOURCES)[1]
 
 
-def _check(rays, slots, clus_box, clus_pack, clus_count, blive):
+def _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst=None):
     n = rays.shape[0]
     if rays.dim() != 2 or rays.shape[1] != 8 or n % BLOCK:
         raise ValueError(f"rays must be [Np, 8] with Np a multiple of {BLOCK}, got {tuple(rays.shape)}")
     if slots.shape != (n, N_SLOTS) or slots.dtype != torch.int32:
         raise ValueError(f"slots must be int32 [{n}, {N_SLOTS}], got {slots.dtype} {tuple(slots.shape)}")
     if clus_pack.dim() != 3 or clus_pack.shape[1] != 8 or clus_pack.shape[2] % 3:
-        raise ValueError(f"clus_pack must be [n_clus, 8, 3C], got {tuple(clus_pack.shape)}")
-    n_clus = clus_pack.shape[0]
+        raise ValueError(f"clus_pack must be [n_pack, 8, 3C], got {tuple(clus_pack.shape)}")
+    if clus_count.dim() != 1 or clus_count.dtype != torch.int32:
+        raise ValueError("clus_count must be int32 [n_clus]")
+    n_clus = clus_count.shape[0]
+    if inst is None and n_clus != clus_pack.shape[0]:
+        raise ValueError(f"clus_count has {n_clus} clusters, clus_pack {clus_pack.shape[0]}")
     if clus_box.dim() != 2 or clus_box.shape[0] != 8 or clus_box.shape[1] < n_clus:
         raise ValueError(f"clus_box must be [8, cpad >= {n_clus}], got {tuple(clus_box.shape)}")
-    if clus_count.shape != (n_clus,) or clus_count.dtype != torch.int32:
-        raise ValueError(f"clus_count must be int32 [{n_clus}]")
     if blive.shape != (n // BLOCK,) or blive.dtype != torch.int32:
         raise ValueError(f"blive must be int32 [{n // BLOCK}]")
     for name, a in (("rays", rays), ("clus_box", clus_box), ("clus_pack", clus_pack)):
         if a.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
-    for name, a in (("slots", slots), ("clus_box", clus_box), ("clus_pack", clus_pack),
-                    ("clus_count", clus_count), ("blive", blive)):
+    tables = [("slots", slots), ("clus_box", clus_box), ("clus_pack", clus_pack),
+              ("clus_count", clus_count), ("blive", blive)]
+    if inst is not None:
+        clus_src, clus_inst, clus_fid, inst_flat = inst
+        for name, a in (("clus_src", clus_src), ("clus_inst", clus_inst), ("clus_fid", clus_fid)):
+            if a.dim() != 1 or a.shape[0] < n_clus or a.dtype != torch.int32:
+                raise ValueError(f"{name} must be int32 [>= {n_clus}], got {a.dtype} {tuple(a.shape)}")
+        if inst_flat.dim() != 1 or inst_flat.shape[0] % 12 or inst_flat.dtype != torch.float32:
+            raise ValueError(f"inst_flat must be float32 [I * 12], got {inst_flat.dtype} {tuple(inst_flat.shape)}")
+        tables += [("clus_src", clus_src), ("clus_inst", clus_inst), ("clus_fid", clus_fid),
+                   ("inst_flat", inst_flat)]
+    for name, a in tables:
         if a.device != rays.device:
             raise ValueError(f"{name} is on {a.device}, rays on {rays.device}")
+    return tables
 
 
-def mode_name(nee: bool, amask: bool) -> str:
-    return "+".join(m for m, on in (("nee", nee), ("amask", amask)) if on) or "closest"
+def mode_name(nee: bool, amask: bool, inst: bool = False) -> str:
+    return "+".join(m for m, on in (("instanced", inst), ("nee", nee), ("amask", amask)) if on) or "closest"
 
 
 def amask_valid(u, v, words0, words1):
@@ -128,17 +157,25 @@ def amask_valid(u, v, words0, words1):
     return ((word >> torch.where(sel, bit, bit - 32)) & 1) != 0
 
 
+def to_object(o, d, r):
+    """Rays o, d [k, 3] in a prototype's object space: `r` [12] is the
+    instance's unnormalised inverse 3x4, applied in the kernel's order."""
+    lin = lambda x, a: x[:, 0:1] * r[4 * a] + x[:, 1:2] * r[4 * a + 1] + x[:, 2:3] * r[4 * a + 2]
+    return (torch.cat([lin(o, a) + r[4 * a + 3] for a in range(3)], dim=1),
+            torch.cat([lin(d, a) for a in range(3)], dim=1))
+
+
 def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                      nee: bool = False, amask: bool = False):
+                      nee: bool = False, amask: bool = False, inst=None):
     """Plain PyTorch twin of the kernel (see the module docstring). Loops
     over clusters; each pass tests only the rays that visit that cluster
     next, against the cluster's real triangles."""
-    _check(rays, slots, clus_box, clus_pack, clus_count, blive)
+    _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst)
     if rays.is_cuda:
         COUNTS.plain_cuda += 1
     dev = rays.device
     n = rays.shape[0]
-    n_clus = clus_pack.shape[0]
+    n_clus = clus_count.shape[0]
     c = clus_pack.shape[2] // 3
     out = torch.zeros((n, 8), dtype=torch.float32, device=dev)
     out[:, 0] = rays[:, 6]
@@ -159,8 +196,13 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
     done = torch.zeros(bt.shape, dtype=torch.bool, device=dev)
     s = slots[live]
     scid = torch.where(s == KEY_DEAD, -1, s & ID_MASK)
-    first = clus_pack[:, 4, 0].contiguous().view(torch.int32).tolist()
     count = clus_count.tolist()
+    if inst is None:
+        src = list(range(n_clus))
+        first = clus_pack[:, 4, 0].contiguous().view(torch.int32).tolist()
+    else:
+        src, which, first = (a[:n_clus].tolist() for a in inst[:3])
+        inst_rows = inst[3].view(-1, 12)
     t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
 
     def visit(cid, idx):
@@ -173,9 +215,11 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
         if idx.numel() == 0:
             return
         cnt = count[cid]
-        tri = clus_pack[cid]
+        tri = clus_pack[src[cid]]
         cols = torch.cat([tri[:, 0:cnt], tri[:, c : c + cnt], tri[:, 2 * c : 2 * c + cnt]], dim=1)
         oi, di = o[idx], d[idx]
+        if inst is not None:
+            oi, di = to_object(oi, di, inst_rows[which[cid]])
         ro = oi[:, 0:1] * cols[0][None] + oi[:, 1:2] * cols[1][None] + oi[:, 2:3] * cols[2][None]
         rd = di[:, 0:1] * cols[0][None] + di[:, 1:2] * cols[1][None] + di[:, 2:3] * cols[2][None]
         cn, cu, cv = cols[3, :cnt][None], cols[3, cnt : 2 * cnt][None], cols[3, 2 * cnt :][None]
@@ -241,14 +285,13 @@ def fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min
 
 
 def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                     nee: bool = False, amask: bool = False):
+                     nee: bool = False, amask: bool = False, inst=None):
     """Launch the Hopper kernel on the current stream; raises on any input
     it does not take or if the launch is refused."""
-    _check(rays, slots, clus_box, clus_pack, clus_count, blive)
+    tables = _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst)
     if not rays.is_cuda:
         raise ValueError("fused_trace_cuda needs CUDA tensors")
-    for name, a in (("rays", rays), ("slots", slots), ("clus_box", clus_box),
-                    ("clus_pack", clus_pack), ("clus_count", clus_count), ("blive", blive)):
+    for name, a in [("rays", rays)] + tables:
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n = rays.shape[0]
@@ -258,24 +301,28 @@ def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min:
     out = torch.empty((n, 8), dtype=torch.float32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
+        inst_ptrs = [None] * 4 if inst is None else [a.data_ptr() for a in inst]
         err = fn(rays.data_ptr(), slots.data_ptr(), int(n), clus_box.data_ptr(),
                  int(clus_box.shape[1]), clus_pack.data_ptr(), clus_count.data_ptr(),
-                 int(clus_pack.shape[0]), int(clus_pack.shape[2] // 3), blive.data_ptr(),
-                 float(t_min), int(bool(nee)), int(bool(amask)), out.data_ptr(), stream)
+                 int(clus_count.shape[0]), int(clus_pack.shape[2] // 3), *inst_ptrs,
+                 blive.data_ptr(), float(t_min), int(bool(nee)), int(bool(amask)), out.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"fused_trace launch failed: cudaError {err}")
     COUNTS.launches += 1
-    mode = mode_name(nee, amask)
+    mode = mode_name(nee, amask, inst is not None)
     COUNTS.modes[mode] = COUNTS.modes.get(mode, 0) + 1
     return out
 
 
 def fused_trace(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
-                nee: bool = False, amask: bool = False):
+                nee: bool = False, amask: bool = False, inst=None):
     """Closest hit (or, with `nee`, any hit; with `amask`, culled by the
-    alpha masks) of presorted `rays` [Np, 8] with their presort `slots`
-    [Np, 4]; see the module docstring. CUDA tensors go to the kernel, CPU
-    tensors to the plain twin."""
+    alpha masks; with `inst`, over instance clusters) of presorted `rays`
+    [Np, 8] with their presort `slots` [Np, 4]; see the module docstring.
+    CUDA tensors go to the kernel, CPU tensors to the plain twin."""
     if rays.is_cuda:
-        return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask)
-    return fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask)
+        return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask,
+                                inst)
+    return fused_trace_plain(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask,
+                             inst)

@@ -29,6 +29,12 @@ def cross(a, b):
     )
 
 
+def mat3_rows(m9, x):
+    """M x for the 3x3 matrices M [..., 9] stored row by row and x [..., 3]:
+    three dot products, as `integrator.shading_data`'s `mm` forms them."""
+    return torch.stack([dot(m9[..., 3 * i : 3 * i + 3], x) for i in range(3)], dim=-1)
+
+
 def length2(v, keepdim: bool = False):
     return (v * v).sum(dim=-1, keepdim=keepdim)
 

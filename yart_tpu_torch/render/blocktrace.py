@@ -1,8 +1,12 @@
 """Block-trace: presorted block traversal for big scenes.
 
-Port of `yart_tpu/render/blocktrace.py`'s fused path for non-instanced
-scenes: `intersect_blocktrace` (:217-349), `_fused_order` (:179-214),
-`_hit_gates` and `intersect_blocktrace_gated` (:422-658).
+Port of `yart_tpu/render/blocktrace.py`'s fused path:
+`intersect_blocktrace` (:217-349), `_fused_order` (:179-214), `_hit_gates`
+and `intersect_blocktrace_gated` (:422-658), for plain and instanced
+scenes. An instanced scene's traversal clusters are its (instance,
+prototype cluster) pairs (`_n_clus`, :96-100): B2 sweeps their world boxes
+in `clus_box` unchanged, and B3 runs in its instanced mode, mapping each
+ray into the prototype's object space per tested cluster.
 
 One cast (`intersect_blocktrace`):
 1. the rays become one [N, 8] matrix (o, d, t_max, floor), padded to whole
@@ -60,6 +64,7 @@ import torch
 from yart_tpu_torch.kernels import fusedtrace as _ft
 from yart_tpu_torch.kernels import presort as _ps
 from yart_tpu_torch.ops.qmc import alpha_draw
+from yart_tpu_torch.ops.vecmath import mat3_rows
 from yart_tpu_torch.render.texture import sample_stack
 
 BLOCK = _ft.BLOCK
@@ -83,13 +88,31 @@ class GatedCounts:
 GATED = GatedCounts()
 
 
-def cluster_counts(scene) -> torch.Tensor:
-    """Triangles per cluster [n_clus] int32: the clusters are contiguous
-    ranges of the leaf-ordered triangles, so each ends where the next
-    higher first triangle (or the last triangle) begins."""
-    first = scene.clus_first.long()
+def n_clus(meta) -> int:
+    """Traversal clusters: the instance clusters of an instanced scene."""
+    return meta.n_inst_clusters if meta.n_instances else meta.n_clusters
+
+
+def inst_tables(scene, meta):
+    """B3's instanced tables (clus_src, clus_inst, clus_fid, inst_flat), or
+    None for a scene without instances."""
+    if not meta.n_instances:
+        return None
+    return scene.clus_src, scene.clus_inst, scene.clus_fid, scene.inst_flat
+
+
+def cluster_counts(scene, meta) -> torch.Tensor:
+    """Triangles per traversal cluster [n_clus] int32. The clusters are
+    contiguous ranges of the leaf-ordered triangles, so each ends where the
+    next higher first triangle (or the last triangle) begins. The instance
+    clusters of an instanced scene are ranges of the virtual triangles,
+    which run instance after instance, each in its prototype's leaf order:
+    the same rule over their first virtual triangles `clus_fid`."""
+    if meta.n_instances:
+        first, n_tris = scene.clus_fid[: meta.n_inst_clusters].long(), meta.n_tris
+    else:
+        first, n_tris = scene.clus_first.long(), scene.tri_pack.shape[0]
     start, idx = torch.sort(first)
-    n_tris = scene.tri_pack.shape[0]
     end = torch.cat([start[1:], torch.full((1,), n_tris, dtype=torch.long, device=first.device)])
     counts = torch.empty_like(first)
     counts[idx] = end - start
@@ -128,7 +151,7 @@ def fused_order(scene, meta, o, d, t_max, floor, t_min: float):
     order. Every cast of a gated call reuses them (see the module
     docstring)."""
     rays = ray_matrix(o, d, t_max, floor)
-    pk = _ps.presort_keys(rays, scene.clus_box, meta.n_clusters, t_min)
+    pk = _ps.presort_keys(rays, scene.clus_box, n_clus(meta), t_min)
     order, blive = schedule(pk)
     return order, blive, pk[order, 1 : 1 + _ps.N_SLOTS].contiguous()
 
@@ -143,7 +166,7 @@ def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: boo
     n = o.shape[0]
     rays = ray_matrix(o, d, t_max, floor)
     if order_info is None:
-        pk = _ps.presort_keys(rays, scene.clus_box, meta.n_clusters, t_min)
+        pk = _ps.presort_keys(rays, scene.clus_box, n_clus(meta), t_min)
         order, blive = schedule(pk)
         slots = pk[order, 1 : 1 + _ps.N_SLOTS].contiguous()
         rays_s = rays[order]
@@ -152,8 +175,8 @@ def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: boo
         rays_s = rays[order]
         blive = ((rays_s[:, 6] > 0.0).view(-1, BLOCK).any(dim=1) & (blive0 != 0)).to(torch.int32)
     out_s = _ft.fused_trace(
-        rays_s, slots, scene.clus_box, scene.clus_pack, cluster_counts(scene), blive, t_min, nee,
-        amask,
+        rays_s, slots, scene.clus_box, scene.clus_pack, cluster_counts(scene, meta), blive, t_min,
+        nee, amask, inst_tables(scene, meta),
     )
     out = torch.empty_like(out_s)
     out[order] = out_s
@@ -170,13 +193,21 @@ def hit_gates(scene, meta, u, v, tri, d, nee: bool, alpha_seed):
     strictly, with u_a the (lane seed, tri) hash draw; shadow rays pass
     through thin transmissive surfaces, which attenuate by |n.d| x base
     colour (x tex^2 where textured). The gated brute
-    (render/intersect.py) calls it on [rays, triangles] candidates."""
+    (render/intersect.py) calls it on [rays, triangles] candidates. An
+    instanced scene finds material and shade row through `tri_aux`, and
+    rotates the object-space normal by the instance's normal matrix
+    before the cosine."""
     shape = torch.broadcast_shapes(u.shape, v.shape, tri.shape)
     dev = tri.device
     tri_c = torch.clamp(tri, 0, meta.n_tris - 1).long()
     m = scene.materials
-    mats = scene.tri_mat[tri_c].long()
-    srow = scene.shade_pack[tri_c]
+    if meta.n_instances:
+        aux = scene.tri_aux[tri_c].long()
+        mats = aux[..., 3]
+        srow = scene.shade_pack[aux[..., 0]]
+    else:
+        mats = scene.tri_mat[tri_c].long()
+        srow = scene.shade_pack[tri_c]
     w_b, uu, vv = (1.0 - u - v)[..., None], u[..., None], v[..., None]
     uv = w_b * srow[..., 9:11] + uu * srow[..., 11:13] + vv * srow[..., 13:15]
 
@@ -196,6 +227,9 @@ def hit_gates(scene, meta, u, v, tri, d, nee: bool, alpha_seed):
     if nee and meta.any_transparent:
         transparent = torch.broadcast_to(m.thin[mats] & (m.transmission[mats] > 0.0), shape)
         n_interp = w_b * srow[..., 0:3] + uu * srow[..., 3:6] + vv * srow[..., 6:9]
+        if meta.n_instances:
+            n_interp = mat3_rows(scene.inst_rows[aux[..., 1]][..., 24:33], n_interp)
+            n_interp = n_interp / torch.linalg.vector_norm(n_interp, dim=-1, keepdim=True).clamp_min(1e-20)
         base = m.base_color[mats, :3]
         if meta.any_textures:
             tb2 = m.tex_base[mats]

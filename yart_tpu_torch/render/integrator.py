@@ -1,8 +1,8 @@
 """Wavefront path-tracing integrators (MIS+NEE and naive).
 
 Port of `yart_tpu/render/integrator.py` (src/cpu/mis-integrator.cpp,
-naive-integrator.cpp) for non-instanced scenes, textured or not, lit by
-area lights and an environment light. The JAX
+naive-integrator.cpp) for plain and instanced scenes, textured or not, lit
+by area lights and an environment light. The JAX
 package's `lax.while_loop` over the wavefront becomes a host loop over
 depth with one `any(active)` sync per bounce; every lane advances one
 bounce per iteration and dead lanes are masked.
@@ -30,6 +30,7 @@ from yart_tpu_torch.ops.vecmath import (
     absdot,
     frame_from_normal_tangent,
     local_to_world,
+    mat3_rows,
     max_component,
     normalize,
     shading_tangent,
@@ -59,20 +60,40 @@ class Shading(NamedTuple):
 
 
 def shading_data(scene: CompiledScene, meta: SceneMeta, hit, o, d) -> Shading:
-    """Interpolated shading normal, uv, material and light id of each hit
-    (non-instanced), normal-mapped through the interpolated tangent frame
-    where the material has a normal map (bsdf.cpp:44-58). Miss lanes are
-    pinned to the ray origin."""
+    """Interpolated shading normal, uv, material and light id of each hit,
+    normal-mapped through the interpolated tangent frame where the
+    material has a normal map (bsdf.cpp:44-58). An instanced scene maps
+    the virtual triangle through ONE `tri_aux` row (shade row, instance,
+    light, material) and rotates the object-space normal by the instance's
+    normal matrix and the tangent by its forward linear part, keeping the
+    tangent's handedness (JAX integrator.py:64-125). Miss lanes are pinned
+    to the ray origin."""
     tri = torch.clamp(hit.tri, 0, meta.n_tris - 1).long()
-    row = scene.shade_pack[tri]  # one packed row per lane
+    if meta.n_instances:
+        aux = scene.tri_aux[tri].long()
+        row = scene.shade_pack[aux[..., 0]]
+        irow = scene.inst_rows[aux[..., 1]]  # [N, 40]
+    else:
+        row = scene.shade_pack[tri]  # one packed row per lane
     w = (1.0 - hit.u - hit.v)[..., None]
     u = hit.u[..., None]
     v = hit.v[..., None]
     n = normalize(w * row[..., 0:3] + u * row[..., 3:6] + v * row[..., 6:9])
     uv = w * row[..., 9:11] + u * row[..., 11:13] + v * row[..., 13:15]
-    mat = scene.tri_mat[tri]
+    if meta.n_instances:
+        mat = aux[..., 3].to(torch.int32)
+        light = aux[..., 2].to(torch.int32)
+        n = normalize(mat3_rows(irow[..., 24:33], n))
+    else:
+        mat = scene.tri_mat[tri]
+        light = scene.tri_light[tri]
     if meta.any_textures:
         t4 = w * row[..., 15:19] + u * row[..., 19:23] + v * row[..., 23:27]
+        if meta.n_instances:
+            # The forward 3x4's rows sit at columns 12:24; its linear part
+            # skips the translations at 15, 19 and 23.
+            fwd9 = torch.cat([irow[..., 12:15], irow[..., 16:19], irow[..., 20:23]], dim=-1)
+            t4 = torch.cat([normalize(mat3_rows(fwd9, t4[..., :3])), t4[..., 3:4]], dim=-1)
         tn_idx = scene.materials.tex_normal[mat.long()]
         tex_n = sample_stack(scene.tex_rgb, tn_idx, uv) * 2.0 - 1.0
         fx, fy, fz = frame_from_normal_tangent(n, t4[..., :3], t4[..., 3])
@@ -84,7 +105,7 @@ def shading_data(scene: CompiledScene, meta: SceneMeta, hit, o, d) -> Shading:
         tg=shading_tangent(n),
         uv=uv,
         mat=mat,
-        light=scene.tri_light[tri],
+        light=light,
         back=hit.back_side,
     )
 

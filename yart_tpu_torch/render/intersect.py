@@ -1,7 +1,7 @@
 """Wavefront ray-scene intersection.
 
 Port of `yart_tpu/render/intersect.py` `Hit`, `intersect_brute` and the
-dispatcher `intersect` (:937-1025) for non-instanced scenes. "Gates" are
+dispatcher `intersect` (:937-1025). "Gates" are
 the per-hit tests a hit must pass: the stochastic alpha test
 (`meta.any_alpha`) and, for shadow rays, transparent surfaces
 (`nee and meta.any_transparent`). The dispatcher (:981-1011):
@@ -15,11 +15,15 @@ the per-hit tests a hit must pass: the stochastic alpha test
   (`intersect_blocktrace_gated`, B2 once, B3 per cast in `amask` mode when
   the scene has alpha).
 
+An instanced scene takes the block trace whatever its size, gated or not,
+with B3 in its instanced mode, as the JAX package does on the TPU
+(:954-976): its traversal clusters are the (instance, prototype cluster)
+pairs, at most 8192 of them.
+
 CUDA tensors run the Hopper kernels, CPU tensors their plain twins. Shadow
 rays of ungated scenes are closest-hit queries for B1 and any-hit queries
-for the block trace, exactly as in the JAX package. Instanced scenes and
-scenes past the block trace's cluster cap raise NotImplementedError with
-their ROADMAP.md item.
+for the block trace, exactly as in the JAX package. Scenes past the block
+trace's cluster cap raise NotImplementedError with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -61,11 +65,13 @@ def has_gates(meta: SceneMeta, nee: bool) -> bool:
 def check_supported(meta: SceneMeta) -> None:
     """Raise for scenes the ported intersection paths cannot take."""
     if meta.n_instances:
-        raise NotImplementedError(
-            "instanced scenes need B3's instanced mode, B2 over instance "
-            "clusters and the instanced builder, not ported yet (ROADMAP.md "
-            "A.6, the instanced atrium-inst slice)"
-        )
+        if not 0 < meta.n_inst_clusters <= blocktrace.MAX_CLUSTERS:
+            raise NotImplementedError(
+                f"{meta.n_inst_clusters} instance clusters: instanced scenes past "
+                f"{blocktrace.MAX_CLUSTERS} need the per-instance traversal loop "
+                "`_intersect_instanced`, not ported yet (ROADMAP.md A.10, the application layer)"
+            )
+        return
     if meta.n_tris > _brute.MAX_TRIS and meta.n_clusters > blocktrace.MAX_CLUSTERS:
         raise NotImplementedError(
             f"{meta.n_clusters} clusters: scenes past {blocktrace.MAX_CLUSTERS} "
@@ -150,7 +156,7 @@ def intersect(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float =
     (u32 values in int64) keys the stochastic alpha test of gated scenes."""
     check_supported(meta)
     gates = has_gates(meta, nee)
-    if meta.n_tris <= _brute.MAX_TRIS:
+    if meta.n_tris <= _brute.MAX_TRIS and not meta.n_instances:
         if gates:
             return _gated_brute(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
         return _hit(*_brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))

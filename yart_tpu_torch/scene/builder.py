@@ -10,13 +10,15 @@ permutation (:389-399), the area-light table (:401-451), scene center and
 radius (:453-457), the packed `tri_pack` / `shade_pack` rows (:481-492),
 the block-trace cluster tables `clus_pack` (with the alpha-mask words of
 row 5 when a material has alpha, :510-526), `clus_first` and the
-lane-padded `clus_box` (:527-538) and the material table (:1028). Pure
-numpy on the host, then tensors: the machine with the GPU has no JAX, so
-the port builds its own scenes.
+lane-padded `clus_box` (:527-538), the material table (:1028), and
+instancing: `add_prototype`, `add_instance` and `_compile_instanced`
+(:225-278, :644-1020). Pure numpy on the host, then tensors: the machine
+with the GPU has no JAX, so the port builds its own scenes.
 
-Not ported: instancing (ROADMAP.md A.6, the instanced slice), mesh
-transforms, the native C++ BVH build and the BVH8 / coarse wide packs of
-the stack and bin-trace traversals (A.10).
+Not ported: mesh transforms in `add_mesh`, the native C++ BVH build and
+the BVH8 / coarse wide packs of the stack and bin-trace traversals
+(ROADMAP.md A.10), and the per-prototype scenes `protos` that the
+per-instance loop `_intersect_instanced` traverses (A.10).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from yart_tpu_torch.render.texture import qrows_from_data
 from yart_tpu_torch.scene.alphamask import bake_tri_masks, write_mask_rows
 from yart_tpu_torch.scene.bvh import build_bvh
 from yart_tpu_torch.scene.clusters import coarse_order, cut_clusters, woop_rows
-from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta, TextureStack
+from yart_tpu_torch.scene.types import (CompiledScene, InstancedScene, MaterialTable, SceneMeta,
+                                        TextureStack)
 
 _PI = float(np.pi)
 
@@ -87,6 +90,27 @@ def _face_normals_to_vertices(positions: np.ndarray, indices: np.ndarray) -> np.
     return out / np.maximum(n, 1e-20)
 
 
+def _mesh_arrays(positions, indices, material, normals, uvs, tangents) -> dict:
+    """A mesh's float64 vertex arrays with their defaults (area-weighted
+    normals, zero uvs, +x tangents of handedness 1), int64 triangles and
+    the per-face int32 materials."""
+    positions = np.asarray(positions, np.float64).reshape(-1, 3)
+    indices = np.asarray(indices, np.int64).reshape(-1, 3)
+    nv = positions.shape[0]
+    if normals is None:
+        normals = _face_normals_to_vertices(positions, indices)
+    if uvs is None:
+        uvs = np.zeros((nv, 2), np.float64)
+    if tangents is None:
+        tangents = np.zeros((nv, 4), np.float64)
+        tangents[:, 0] = 1.0
+        tangents[:, 3] = 1.0
+    mat = np.broadcast_to(np.asarray(material, np.int32), (indices.shape[0],)).copy()
+    return dict(positions=positions, normals=np.asarray(normals, np.float64).reshape(nv, 3),
+                uvs=np.asarray(uvs, np.float64).reshape(nv, 2),
+                tangents=np.asarray(tangents, np.float64).reshape(nv, 4), tris=indices, tri_mat=mat)
+
+
 def _stack_from_list(textures: List[np.ndarray], channels: int) -> TextureStack:
     """Shelf-pack [H, W, C] arrays into one atlas (builder.py:85-121):
     tallest first, left to right, on shelves of a power-of-two width of at
@@ -133,6 +157,10 @@ class SceneBuilder:
         self._tris: List[np.ndarray] = []
         self._tri_mat: List[np.ndarray] = []
         self._vtx_offset = 0
+        # Instancing: object-space prototype meshes and (prototype, [4, 4]
+        # transform) instances.
+        self._protos: List[dict] = []
+        self._instances: List[tuple] = []
         self._background = (0.0, 0.0, 0.0)
         self._env_image: Optional[np.ndarray] = None
         self._env_scale = 1.0
@@ -168,29 +196,37 @@ class SceneBuilder:
         per-face [T] array. Without `normals` [V, 3] the vertex normals are
         area-weighted face normals; `uvs` [V, 2] default to zero and
         `tangents` [V, 4] (xyz, handedness) to +x with handedness 1."""
-        positions = np.asarray(positions, np.float64).reshape(-1, 3)
-        indices = np.asarray(indices, np.int64).reshape(-1, 3)
-        nv = positions.shape[0]
-        if normals is None:
-            normals = _face_normals_to_vertices(positions, indices)
-        normals = np.asarray(normals, np.float64).reshape(nv, 3)
-        if uvs is None:
-            uvs = np.zeros((nv, 2), np.float64)
-        uvs = np.asarray(uvs, np.float64).reshape(nv, 2)
-        if tangents is None:
-            tangents = np.zeros((nv, 4), np.float64)
-            tangents[:, 0] = 1.0
-            tangents[:, 3] = 1.0
-        tangents = np.asarray(tangents, np.float64).reshape(nv, 4)
+        m = _mesh_arrays(positions, indices, material, normals, uvs, tangents)
+        self._positions.append(m["positions"].astype(np.float32))
+        self._normals.append(m["normals"].astype(np.float32))
+        self._tangents.append(m["tangents"].astype(np.float32))
+        self._uvs.append(m["uvs"].astype(np.float32))
+        self._tris.append((m["tris"] + self._vtx_offset).astype(np.int32))
+        self._tri_mat.append(m["tri_mat"])
+        self._vtx_offset += m["positions"].shape[0]
 
-        t = indices.shape[0]
-        self._positions.append(positions.astype(np.float32))
-        self._normals.append(normals.astype(np.float32))
-        self._tangents.append(tangents.astype(np.float32))
-        self._uvs.append(uvs.astype(np.float32))
-        self._tris.append((indices + self._vtx_offset).astype(np.int32))
-        self._tri_mat.append(np.broadcast_to(np.asarray(material, np.int32), (t,)).copy())
-        self._vtx_offset += nv
+    def add_prototype(self, positions: np.ndarray, indices: np.ndarray, material,
+                      normals: Optional[np.ndarray] = None, uvs: Optional[np.ndarray] = None,
+                      tangents: Optional[np.ndarray] = None) -> int:
+        """Register an object-space prototype mesh for instancing (the
+        reference shares one Mesh across scene-graph Nodes,
+        src/core/scene.hpp:48-66): its packs and shading rows are built once
+        and every instance adds a transform. Defaults as in add_mesh; kept
+        in float64 until the prototype's nested compile. Returns the
+        prototype id for `add_instance`."""
+        self._protos.append(_mesh_arrays(positions, indices, material, normals, uvs, tangents))
+        return len(self._protos) - 1
+
+    def add_instance(self, proto: int, transform=None) -> None:
+        """Instance prototype `proto` under an optional [4, 4] row-major
+        affine transform. A mirrored transform (determinant <= 0) raises
+        ValueError: it would flip the triangles' winding and with it the
+        back-side and volume semantics (parametric.cpp:834-838)."""
+        m = np.eye(4, dtype=np.float64) if transform is None else np.asarray(transform, np.float64).reshape(4, 4)
+        det = np.linalg.det(m[:3, :3])
+        if det <= 0:
+            raise ValueError(f"instance transform must be orientation-preserving (det={det:g})")
+        self._instances.append((int(proto), m))
 
     def set_env(self, image: np.ndarray, scale: float = 1.0, rotation=None, bounds=None) -> None:
         """Octahedral HDR environment image [H, W, 3] (src/main.cpp:81-84).
@@ -247,12 +283,11 @@ class SceneBuilder:
         return dict(env_img=env_img, env_alias=env_alias.astype(np.float32), pdf_cells=pdf_cells,
                     wc=wc, hc=hc)
 
-    def compile(self, device="cuda", cluster_size: int = 128):
-        """-> (CompiledScene on `device`, the card by default; SceneMeta).
-        Triangles are permuted into the leaf order of a binned-SAH BVH,
-        which is cut into clusters of at most `cluster_size` triangles for
-        the block trace."""
-        device = resolve(device)
+    def _tables(self, cluster_size: int) -> dict:
+        """The numpy tables of the meshes added so far, as compile() builds
+        them: triangles in BVH leaf order, the area lights, the packed
+        rows and the block-trace cluster tables. A prototype's nested
+        compile (`_compile_instanced`) takes exactly these."""
         if not self._tris:
             raise ValueError("scene has no geometry")
         positions = np.concatenate(self._positions)
@@ -286,19 +321,9 @@ class SceneBuilder:
         e2 = v2[light_tri] - v0[light_tri]
         l_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1).astype(np.float32)
         two_sided = np.asarray([m.two_sided for m in mats], bool)[tri_mat[light_tri]]
-        l_power = (
-            np.linalg.norm(l_emission, axis=-1) * l_area * _PI * np.where(two_sided, 2.0, 1.0)
-        ).astype(np.float32)
-        l_cdf = np.concatenate([[0.0], np.cumsum(l_power)]).astype(np.float32)
         ltv = tri_v[light_tri]
         l_verts = np.stack([positions[ltv[:, k]] for k in range(3)], axis=1).astype(np.float32)
         l_norms = np.stack([normals[ltv[:, k]] for k in range(3)], axis=1).astype(np.float32)
-
-        # Bounding sphere of the scene box: the env light's sample distance.
-        lo, hi = positions.min(axis=0), positions.max(axis=0)
-        center = (lo + hi) * 0.5
-        radius = float(np.linalg.norm(hi - lo) * 0.5)
-        env = self._compile_env()
 
         bits = lambda a: np.ascontiguousarray(a, np.int32).view(np.float32)
         tri_pack = np.zeros((tri_v.shape[0], 12), np.float32)
@@ -330,29 +355,41 @@ class SceneBuilder:
             )
             write_mask_rows(clus_pack, masks, cut.first, cut.count, cluster_size)
         n_clus = int(cut.first.shape[0])
-        n_clus_pad = max(128, -(-n_clus // 512) * 512 if n_clus > 128 else 128)
-        clus_box = np.full((8, n_clus_pad), 3.0e38, np.float32)
-        clus_box[6:8] = 0.0
-        clus_box[0:3, :n_clus] = cut.lo.T
-        clus_box[3:6, :n_clus] = cut.hi.T
+        clus_box = _box_rows(cut.lo, cut.hi)
+        return dict(positions=positions, tri_v=tri_v, tri_mat=tri_mat, tri_light=tri_light,
+                    l_emission=l_emission, l_area=l_area, two_sided=two_sided, l_verts=l_verts,
+                    l_norms=l_norms, tri_pack=tri_pack, shade_pack=shade_pack, clus_pack=clus_pack,
+                    clus_first=cut.first, clus_box=clus_box, n_clus=n_clus)
 
+    def _scene(self, device, geo: dict, lights: tuple, env: dict, center, radius,
+               **extra) -> CompiledScene:
+        """CompiledScene on `device` from numpy tables: `geo` as `_tables`
+        returns it (or the instanced scene's), `lights` = (emission, area,
+        two_sided, verts, norms), `env` from `_compile_env`, and this
+        builder's materials and texture atlases; `extra` are the instanced
+        fields."""
+        l_emission, l_area, two_sided, l_verts, l_norms = lights
+        l_power = (
+            np.linalg.norm(l_emission, axis=-1) * l_area * _PI * np.where(two_sided, 2.0, 1.0)
+        ).astype(np.float32)
+        l_cdf = np.concatenate([[0.0], np.cumsum(l_power)]).astype(np.float32)
         t = lambda a, dtype=None: torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
         env_img = torch.from_numpy(np.ascontiguousarray(env["env_img"], np.float32))
         from yart_tpu_torch.render.lights import env_rows_from_image
 
         env_rows = env_rows_from_image(env_img, torch.from_numpy(env["pdf_cells"]))
-        scene = CompiledScene(
-            tri_pack=t(tri_pack),
-            shade_pack=t(shade_pack),
-            tri_mat=t(tri_mat),
-            tri_light=t(tri_light),
-            materials=_material_table(mats).to(device),
-            light_emission=t(l_emission),
-            light_area=t(l_area),
+        return (InstancedScene if extra else CompiledScene)(
+            tri_pack=t(geo["tri_pack"]),
+            shade_pack=t(geo["shade_pack"]),
+            tri_mat=t(geo["tri_mat"]),
+            tri_light=t(geo["tri_light"]),
+            materials=_material_table(self._materials).to(device),
+            light_emission=t(l_emission, np.float32),
+            light_area=t(l_area, np.float32),
             light_power=t(l_power),
             light_cdf=t(l_cdf),
-            light_verts=t(l_verts),
-            light_norms=t(l_norms),
+            light_verts=t(l_verts, np.float32),
+            light_norms=t(l_norms, np.float32),
             env_image=env_img.to(device),
             env_bounds=t(self._env_bounds, np.float32),
             env_alias=t(env["env_alias"]),
@@ -365,14 +402,16 @@ class SceneBuilder:
             tex_rgb=_stack_from_list(self.textures_rgb, 3).to(device),
             tex_2ch=_stack_from_list(self.textures_2ch, 2).to(device),
             tex_mono=_stack_from_list(self.textures_mono, 1).to(device),
-            clus_pack=t(clus_pack),
-            clus_first=t(cut.first),
-            clus_box=t(clus_box),
+            clus_pack=t(geo["clus_pack"]),
+            clus_first=t(geo["clus_first"]),
+            clus_box=t(geo["clus_box"]),
+            **{k: t(v) for k, v in extra.items()},
         )
-        meta = SceneMeta(
-            n_tris=int(tri_v.shape[0]),
+
+    def _meta(self, env: dict, **fields) -> SceneMeta:
+        mats = self._materials
+        return SceneMeta(
             n_materials=len(mats),
-            n_lights=int(light_tri.size),
             has_env=self._env_image is not None,
             env_sampleable=self._env_sampleable,
             env_portal=self._env_bounds != (0.0, 0.0, 1.0, 1.0),
@@ -389,11 +428,230 @@ class SceneBuilder:
                     m.tex_clearcoat, m.tex_emission) >= 0
                 for m in mats
             ),
-            n_clusters=n_clus,
+            **fields,
+        )
+
+    def compile(self, device="cuda", cluster_size: int = 128):
+        """-> (CompiledScene on `device`, the card by default; SceneMeta).
+        Triangles are permuted into the leaf order of a binned-SAH BVH,
+        which is cut into clusters of at most `cluster_size` triangles for
+        the block trace. A scene with instances compiles through
+        `_compile_instanced`."""
+        device = resolve(device)
+        if self._instances:
+            return self._compile_instanced(device, cluster_size)
+        geo = self._tables(cluster_size)
+        # Bounding sphere of the scene box: the env light's sample distance.
+        positions = geo["positions"]
+        lo, hi = positions.min(axis=0), positions.max(axis=0)
+        center = (lo + hi) * 0.5
+        radius = float(np.linalg.norm(hi - lo) * 0.5)
+        lights = tuple(geo[k] for k in ("l_emission", "l_area", "two_sided", "l_verts", "l_norms"))
+        env = self._compile_env()
+        scene = self._scene(device, geo, lights, env, center, radius)
+        meta = self._meta(
+            env,
+            n_tris=int(geo["tri_v"].shape[0]),
+            n_lights=int(lights[1].size),
+            n_clusters=geo["n_clus"],
             cluster_size=int(cluster_size),
-            n_clus_pad=n_clus_pad,
+            n_clus_pad=int(geo["clus_box"].shape[1]),
         )
         return scene, meta
+
+    def _compile_instanced(self, device, cluster_size: int):
+        """Compile a scene with instanced prototypes (JAX builder.py:644-1020).
+
+        Each prototype is compiled once, in object space, by a nested
+        builder (`_tables`); an instance adds its transform rows, its
+        virtual triangles' id maps (`tri_aux`: shade row, instance, light,
+        material) and world-space area lights for its emissive triangles.
+        Every (instance, prototype cluster) pair becomes one traversal
+        cluster of the block trace: the world box of the object box's 8
+        transformed corners, the prototype's pack row (`clus_src`), its
+        instance (`clus_inst`) and its first virtual triangle
+        (`clus_fid`). The inverse and normal matrices are formed in
+        float64 and cast last."""
+        # Meshes added with add_mesh (already world space) join as identity
+        # instances of their own prototypes.
+        if self._tris:
+            v_off = 0
+            for k in range(len(self._tris)):
+                nv = self._positions[k].shape[0]
+                self._protos.append(dict(
+                    positions=self._positions[k].astype(np.float64),
+                    normals=self._normals[k].astype(np.float64),
+                    uvs=self._uvs[k].astype(np.float64),
+                    tangents=self._tangents[k].astype(np.float64),
+                    tris=self._tris[k].astype(np.int64) - v_off,
+                    tri_mat=self._tri_mat[k],
+                ))
+                self._instances.append((len(self._protos) - 1, np.eye(4, dtype=np.float64)))
+                v_off += nv
+            self._positions, self._normals, self._uvs, self._tangents = [], [], [], []
+            self._tris, self._tri_mat = [], []
+            self._vtx_offset = 0
+
+        # One object-space compile per prototype.
+        geo = []
+        for pr in self._protos:
+            sb = SceneBuilder()
+            sb._materials = self._materials
+            sb.textures_rgba = self.textures_rgba  # the alpha-mask bake reads them
+            sb.add_mesh(pr["positions"], pr["tris"], pr["tri_mat"], normals=pr["normals"],
+                        uvs=pr["uvs"], tangents=pr["tangents"])
+            geo.append(sb._tables(cluster_size))
+
+        mats = self._materials
+        inst_proto = tuple(int(p) for p, _ in self._instances)
+        n_inst = len(self._instances)
+        proto_ntris = [int(g["tri_v"].shape[0]) for g in geo]
+        proto_shade_base = np.concatenate([[0], np.cumsum(proto_ntris)]).astype(np.int64)
+        inst_tri_base = np.concatenate(
+            [[0], np.cumsum([proto_ntris[p] for p in inst_proto])]).astype(np.int64)
+        n_virt = int(inst_tri_base[-1])
+
+        emission_table = np.asarray(
+            [np.asarray(m.emission, np.float32) * np.float32(m.emission_strength) for m in mats]
+            or np.zeros((0, 3), np.float32),
+            np.float32,
+        )
+        emissive_mats = np.asarray([m.is_emissive for m in mats], bool)
+        ts_table = np.asarray([m.two_sided for m in mats] or [False], bool)
+
+        inst_rows = np.zeros((n_inst, 40), np.float32)
+        tri_aux = np.zeros((max(n_virt, 1), 8), np.int32)
+        lights = dict(emission=[], area=[], two=[], verts=[], norms=[])
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+        n_light = 0
+        for i, (p, m) in enumerate(self._instances):
+            inv = np.linalg.inv(m)
+            nrm_m = np.linalg.inv(m[:3, :3]).T
+            inst_rows[i, 0:12] = inv[:3, :4].reshape(-1)
+            inst_rows[i, 12:24] = m[:3, :4].reshape(-1)
+            inst_rows[i, 24:33] = nrm_m.reshape(-1)
+
+            base = int(inst_tri_base[i])
+            tp = proto_ntris[p]
+            proto_mat = geo[p]["tri_mat"]
+            tri_aux[base : base + tp, 0] = (proto_shade_base[p] + np.arange(tp)).astype(np.int32)
+            tri_aux[base : base + tp, 1] = i
+            tri_aux[base : base + tp, 2] = -1
+            tri_aux[base : base + tp, 3] = proto_mat
+
+            # World bounds from the 8 transformed corners of the
+            # prototype's vertex bounds.
+            pl = self._protos[p]["positions"].min(axis=0)
+            ph = self._protos[p]["positions"].max(axis=0)
+            cs = np.array([[x, y, z] for x in (pl[0], ph[0]) for y in (pl[1], ph[1])
+                           for z in (pl[2], ph[2])])
+            wc8 = cs @ m[:3, :3].T + m[:3, 3]
+            lo = np.minimum(lo, wc8.min(axis=0))
+            hi = np.maximum(hi, wc8.max(axis=0))
+
+            # Area lights of the emissive instance triangles, in world space.
+            em_mask = emissive_mats[proto_mat] if len(mats) else np.zeros(tp, bool)
+            em_idx = np.nonzero(em_mask)[0]
+            if em_idx.size:
+                v = geo[p]["tri_pack"][em_idx, 0:9].reshape(-1, 3, 3) @ m[:3, :3].T + m[:3, 3]
+                nn = geo[p]["shade_pack"][em_idx, 0:9].reshape(-1, 3, 3) @ nrm_m.T
+                nn = nn / np.maximum(np.linalg.norm(nn, axis=-1, keepdims=True), 1e-20)
+                tri_aux[base + em_idx, 2] = (n_light + np.arange(em_idx.size)).astype(np.int32)
+                lights["emission"].append(emission_table[proto_mat[em_idx]])
+                e1 = v[:, 1] - v[:, 0]
+                e2 = v[:, 2] - v[:, 0]
+                lights["area"].append(0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1))
+                lights["two"].append(ts_table[proto_mat[em_idx]])
+                lights["verts"].append(v)
+                lights["norms"].append(nn)
+                n_light += em_idx.size
+
+        if n_light:
+            light_rows = (
+                np.concatenate(lights["emission"]).astype(np.float32),
+                np.concatenate(lights["area"]).astype(np.float32),
+                np.concatenate(lights["two"]),
+                np.concatenate(lights["verts"]).astype(np.float32),
+                np.concatenate(lights["norms"]).astype(np.float32),
+            )
+        else:
+            light_rows = (np.zeros((0, 3), np.float32), np.zeros(0, np.float32), np.zeros(0, bool),
+                          np.zeros((0, 3, 3), np.float32), np.zeros((0, 3, 3), np.float32))
+        center = (lo + hi) * 0.5
+        radius = float(np.linalg.norm(hi - lo) * 0.5)
+
+        # The single-pass tables: one traversal cluster per (instance,
+        # prototype cluster), sharing the prototype's object-space pack row.
+        proto_nclus = [g["n_clus"] for g in geo]
+        proto_clus_base = np.concatenate([[0], np.cumsum(proto_nclus)]).astype(np.int64)
+        ic_src, ic_inst, ic_fid, ic_lo, ic_hi = [], [], [], [], []
+        for i, (p, m) in enumerate(self._instances):
+            nc = proto_nclus[p]
+            ic_src.append(proto_clus_base[p] + np.arange(nc))
+            ic_inst.append(np.full(nc, i))
+            ic_fid.append(int(inst_tri_base[i]) + geo[p]["clus_first"])
+            plo = geo[p]["clus_box"][0:3, :nc].T
+            phi = geo[p]["clus_box"][3:6, :nc].T
+            corners = np.stack(
+                [np.where(np.asarray([(ix >> a) & 1 for a in range(3)], bool)[None, :], phi, plo)
+                 for ix in range(8)],
+                axis=1,
+            )  # [nc, 8, 3]
+            wcor = corners @ m[:3, :3].T + m[:3, 3]
+            ic_lo.append(wcor.min(axis=1))
+            ic_hi.append(wcor.max(axis=1))
+        n_ic = int(sum(proto_nclus[p] for p in inst_proto))
+        ic_box = _box_rows(np.concatenate(ic_lo).astype(np.float32),
+                           np.concatenate(ic_hi).astype(np.float32))
+        pad_i = np.zeros(ic_box.shape[1] - n_ic, np.int32)
+        padded = lambda parts: np.concatenate([np.concatenate(parts).astype(np.int32), pad_i])
+
+        z1 = np.zeros(1, np.int32)
+        tables = dict(tri_pack=np.zeros((1, 12), np.float32),
+                      shade_pack=np.concatenate([g["shade_pack"] for g in geo]),
+                      tri_mat=z1, tri_light=z1,
+                      clus_pack=np.concatenate([g["clus_pack"] for g in geo]),
+                      clus_first=z1, clus_box=ic_box)
+        vert_base = np.concatenate([[0], np.cumsum([g["positions"].shape[0] for g in geo])])[:-1]
+        env = self._compile_env()
+        scene = self._scene(
+            device, tables, light_rows, env, center, radius,
+            inst_rows=inst_rows,
+            inst_tri_base=inst_tri_base[:-1].astype(np.int32),
+            tri_aux=tri_aux,
+            clus_src=padded(ic_src),
+            clus_inst=padded(ic_inst),
+            clus_fid=padded(ic_fid),
+            inst_flat=inst_rows[:, 0:12].reshape(-1).astype(np.float32),
+            proto_pos=np.concatenate([g["positions"] for g in geo]).astype(np.float32),
+            proto_tri=np.concatenate(
+                [g["tri_v"] + np.int32(b) for g, b in zip(geo, vert_base)]).astype(np.int32),
+        )
+        meta = self._meta(
+            env,
+            n_tris=n_virt,
+            n_lights=int(light_rows[1].size),
+            cluster_size=int(cluster_size),
+            n_clus_pad=int(ic_box.shape[1]),
+            n_instances=n_inst,
+            inst_proto=inst_proto,
+            n_inst_clusters=n_ic,
+        )
+        return scene, meta
+
+
+def _box_rows(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Cluster boxes lo [n, 3], hi [n, 3] as the block trace's SoA rows
+    [8, n_pad] (lo.xyz, hi.xyz, 2 zero rows), lane-padded to 128 or a
+    multiple of 512, with pad boxes at the far sentinel +3e38."""
+    n = lo.shape[0]
+    n_pad = max(128, -(-n // 512) * 512 if n > 128 else 128)
+    box = np.full((8, n_pad), 3.0e38, np.float32)
+    box[6:8] = 0.0
+    box[0:3, :n] = lo.T
+    box[3:6, :n] = hi.T
+    return box
 
 
 def _material_table(mats: List[MaterialDesc]) -> MaterialTable:

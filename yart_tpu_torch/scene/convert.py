@@ -4,7 +4,9 @@ The test side gets numpy leaves with
 `jax.tree_util.tree_map(np.asarray, scene)`; this module imports no jax.
 Every leaf is copied bit-exactly (byte copies only, no float conversion),
 so the int32 ids bit-cast into float32 columns
-survive, NaN patterns and denormals included.
+survive, NaN patterns and denormals included. A scene with instances (the
+JAX scene's `tri_aux` is not None) becomes an `InstancedScene`, its
+instanced tables carried the same way.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 import torch
 
 from yart_tpu_torch.device import resolve
-from yart_tpu_torch.scene.types import CompiledScene, MaterialTable, SceneMeta, TextureStack
+from yart_tpu_torch.scene.types import (CompiledScene, InstancedScene, MaterialTable, SceneMeta,
+                                        TextureStack)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -41,7 +44,8 @@ def from_numpy(leaves, meta_fields, device="cuda"):
             return TextureStack(*(_t(getattr(v, g), device) for g in TextureStack._fields))
         return _t(v, device)
 
-    scene = CompiledScene(**{f.name: leaf(f.name) for f in dataclasses.fields(CompiledScene)})
+    cls = CompiledScene if getattr(leaves, "tri_aux", None) is None else InstancedScene
+    scene = cls(**{f.name: leaf(f.name) for f in dataclasses.fields(cls)})
     names = {f.name for f in dataclasses.fields(SceneMeta)}
     meta = SceneMeta(**{k: v for k, v in dict(meta_fields).items() if k in names})
     return scene, meta

@@ -278,14 +278,11 @@ def atrium(ivy: bool = False, density: int = 1, tex_res: int = 512,
     """Two-story colonnaded courtyard (Sponza-class load; ~125k triangles
     at density=1, ~128k with ivy). `ivy=True` adds 1,500 alpha-tested leaf
     quads (the sponza-new-ivy analog), which route intersection through the
-    gated re-cast loop. `instanced=True` is refused: instancing is the next
-    slice of the port (ROADMAP.md A.6, atrium-inst)."""
-    if instanced:
-        raise NotImplementedError(
-            "atrium(instanced=True) needs instancing (the builder's prototypes "
-            "and B3's instanced mode), not ported yet (ROADMAP.md A.6, the "
-            "instanced atrium-inst slice)"
-        )
+    gated re-cast loop. `instanced=True` shares one column assembly (shaft,
+    base, capital) per story as a prototype and places the 52 columns and
+    5 planters as instances: the rendered image stays that of the baked
+    scene while the stored triangles drop, and every ray goes through B3's
+    instanced mode."""
     b = SceneBuilder()
     rng = np.random.default_rng(42)
 
@@ -341,11 +338,42 @@ def atrium(ivy: bool = False, density: int = 1, tex_res: int = 512,
         b.add_mesh(wp, widx, m_brick, uvs=wuv)
 
     # Colonnades: two rows per story.
+    def column_proto(r, h):
+        """One column assembly at the origin: fluted shaft + marble base +
+        metal capital, merged with per-face materials."""
+        parts = [
+            (cylinder((0, 0.25, 0), r, h - 0.5, seg=seg, rings=rings, flutes=1.0), m_marble),
+            (box((0, 0.125, 0), (0.32, 0.125, 0.32)), m_marble),
+            (box((0, h - 0.125, 0), (0.34, 0.125, 0.34)), m_trim),
+        ]
+        pos_l, nrm_l, uv_l, idx_l, mat_l = [], [], [], [], []
+        nv = 0
+        for (pos, nrm, uv, idx), mat in parts:
+            pos_l.append(pos)
+            nrm_l.append(nrm)
+            uv_l.append(uv)
+            idx_l.append(idx + nv)
+            mat_l.append(np.full(idx.shape[0], mat, np.int32))
+            nv += pos.shape[0]
+        return (np.concatenate(pos_l), np.concatenate(nrm_l), np.concatenate(uv_l),
+                np.concatenate(idx_l), np.concatenate(mat_l))
+
+    def translate(x, y, z):
+        m = np.eye(4)
+        m[:3, 3] = (x, y, z)
+        return m
+
     n_cols = 13
     xs = np.linspace(-L + 1.4, L - 1.4, n_cols)
     for y0, r, h in [(0.0, 0.22, H), (H + 0.25, 0.16, H - 0.6)]:
+        if instanced:
+            cp, cn, cu, ci, cm = column_proto(r, h)
+            pid = b.add_prototype(cp, ci, cm, normals=cn, uvs=cu)
         for z in (-W + 1.0, W - 1.0):
             for x in xs:
+                if instanced:
+                    b.add_instance(pid, translate(x, y0, z))
+                    continue
                 add(cylinder((x, y0 + 0.25, z), r, h - 0.5, seg=seg,
                              rings=rings, flutes=1.0), m_marble)
                 # base + capital
@@ -378,8 +406,14 @@ def atrium(ivy: bool = False, density: int = 1, tex_res: int = 512,
             b.add_mesh(cp, cidx, mat, uvs=cuv)
 
     # Planter boxes and a central fountain bowl.
-    for x in np.linspace(-L + 3, L - 3, 5):
-        add(box((x, 0.25, 0.0), (0.5, 0.25, 0.5), uv_scale=2.0), m_marble)
+    if instanced:
+        pp, pn, pu, pi = box((0, 0.25, 0), (0.5, 0.25, 0.5), uv_scale=2.0)
+        planter = b.add_prototype(pp, pi, m_marble, normals=pn, uvs=pu)
+        for x in np.linspace(-L + 3, L - 3, 5):
+            b.add_instance(planter, translate(x, 0.0, 0.0))
+    else:
+        for x in np.linspace(-L + 3, L - 3, 5):
+            add(box((x, 0.25, 0.0), (0.5, 0.25, 0.5), uv_scale=2.0), m_marble)
     add(cylinder((0, 0.5, 0), 1.1, 0.22, seg=seg * 2, rings=2), m_marble)
 
     if ivy:
@@ -410,6 +444,48 @@ def atrium(ivy: bool = False, density: int = 1, tex_res: int = 512,
         )
 
     b.set_env(sky_octahedral(512), scale=1.0)
+    return b
+
+
+def instanced_leaves(builder=SceneBuilder):
+    """A small gated instanced scene (the port's own fixture; the JAX
+    package has none): one alpha-tested leaf quad under `leaf_texture()`,
+    instanced under 40 seeded rotations with non-uniform scale, and
+    a thin glass pane instance (NEE transparency through the instance's
+    normal matrix), over a baked floor. `builder` is the builder class:
+    the JAX package's SceneBuilder has the same interface, which lets the
+    tests build the same scene with both."""
+    rng = np.random.default_rng(21)
+
+    def rot(axis, a):
+        c, s = np.cos(a), np.sin(a)
+        i, j = [k for k in range(3) if k != axis]
+        m = np.eye(3)
+        m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+        return m
+
+    def affine(lin, t):
+        m = np.eye(4)
+        m[:3, :3] = lin
+        m[:3, 3] = t
+        return m
+
+    b = builder()
+    t_leaf = b.add_texture("rgba", leaf_texture())
+    m_ivy = b.add_material(roughness=0.9, tex_base=t_leaf, has_alpha=True, thin=True)
+    m_glass = b.add_material(base_color=(0.6, 0.9, 0.7, 1.0), transmission=1.0, roughness=0.05, thin=True)
+    m_floor = b.add_material(base_color=(0.5, 0.5, 0.5, 1.0), roughness=0.8)
+    qp = np.asarray([[-0.5, -0.5, 0], [0.5, -0.5, 0], [0.5, 0.5, 0], [-0.5, 0.5, 0]], np.float32)
+    qi = [[0, 1, 2], [0, 2, 3]]
+    leaf = b.add_prototype(qp, qi, m_ivy, uvs=[[0, 0], [1, 0], [1, 1], [0, 1]])
+    for _ in range(40):
+        lin = rot(1, rng.uniform(0, _PI)) @ rot(0, rng.uniform(-0.5, 0.5)) @ np.diag(
+            [rng.uniform(0.3, 0.8), rng.uniform(0.3, 0.8), 1.0])
+        b.add_instance(leaf, affine(lin, (rng.uniform(-2, 2), rng.uniform(0.3, 2.0), rng.uniform(-2, 2))))
+    pane = b.add_prototype(qp, qi, m_glass)
+    b.add_instance(pane, affine(rot(1, 0.5) @ np.diag([3.0, 2.0, 1.0]), (0.0, 1.0, 1.5)))
+    b.add_mesh(np.asarray([[-3, 0, -3], [3, 0, -3], [3, 0, 3], [-3, 0, 3]], np.float32),
+               [[0, 2, 1], [0, 3, 2]], m_floor)
     return b
 
 

@@ -2,7 +2,8 @@
 
 Port of `yart_tpu/scene/types.py`, holding the fields the ported path
 reads (and `env_image` and `scene_center`, which the env rows and the
-sample distance derive from), under the JAX package's names. Triangles are a flat
+sample distance derive from), under the JAX package's names; a scene with
+instances is an `InstancedScene`, which adds the instanced tables. Triangles are a flat
 world-space soup in BVH leaf order; `tri_pack` and `shade_pack` keep the
 JAX package's packed row layouts (builder.py:481-492), including the int32
 ids bit-cast into float32 columns (`tri_pack[:, 9:11]`,
@@ -103,12 +104,33 @@ class CompiledScene:
     clus_box: torch.Tensor  # [8, n_clus_pad] lo.xyz, hi.xyz, pad; pad boxes at +3e38
 
     def to(self, device) -> "CompiledScene":
-        return CompiledScene(
-            **{
-                f.name: getattr(self, f.name).to(device)
-                for f in dataclasses.fields(self)
-            }
-        )
+        return type(self)(**{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+
+
+@dataclasses.dataclass(frozen=True)
+class InstancedScene(CompiledScene):
+    """A scene with instances (scene.hpp:48-66; JAX types.py:165-187, where
+    these fields are None for a scene without). Prototypes keep their
+    object-space packs and shading rows once; an instance adds a transform
+    row and its virtual triangle ids. Every (instance, prototype cluster)
+    pair is one traversal cluster of the block trace: its world box in
+    `clus_box`, the prototype's pack row through `clus_src`, its ray
+    transform in `inst_flat`. `tri_pack`, `tri_mat`, `tri_light` and
+    `clus_first` are the JAX builder's one-row placeholders; the virtual
+    triangles are indexed through `tri_aux`."""
+
+    inst_rows: torch.Tensor  # [I, 40] f32: inverse 3x4 | forward 3x4 | normal 3x3 | pad
+    inst_tri_base: torch.Tensor  # [I] int32 first virtual triangle of each instance
+    tri_aux: torch.Tensor  # [Tv, 8] int32: shade row, instance, light, material, pad
+    clus_src: torch.Tensor  # [n_ic_pad] int32 clus_pack row of each instance cluster
+    clus_inst: torch.Tensor  # [n_ic_pad] int32 instance of each instance cluster
+    clus_fid: torch.Tensor  # [n_ic_pad] int32 first virtual triangle of each instance cluster
+    inst_flat: torch.Tensor  # [I * 12] f32 the inverse 3x4 rows, flat
+    # Object-space prototype vertices and leaf-ordered triangles, carried
+    # for the differentiable path (ROADMAP.md A.8); the forward path does
+    # not read them.
+    proto_pos: torch.Tensor  # [sum V_p, 3] f32
+    proto_tri: torch.Tensor  # [sum T_p, 3] int32 into proto_pos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +159,5 @@ class SceneMeta:
     cluster_size: int = 128  # C: triangle capacity of a cluster
     n_clus_pad: int = 128  # clus_box lane padding
     n_instances: int = 0
+    inst_proto: tuple = ()  # prototype of each instance
+    n_inst_clusters: int = 0  # traversal clusters of an instanced scene
