@@ -36,7 +36,7 @@ exits non-zero and prints no final "ok" line:
                rays and on shadow rays from their hits (nee), with the
                active count of every cast.
   4. render  — the earlier main paths: Renderer on cuda, cornell-mat
-               512x512, 64 spp, max depth 30, ZSobol, GMoN, AgX, in the
+               512x512, 16 spp (`--spp`), max depth 30, ZSobol, GMoN, AgX, in the
                CLI's waves; B1's launch count must be > 0 and the plain twin
                must not have run on CUDA.
   4b. render — the same for `spheres` (14,402 triangles, env-lit, the
@@ -55,26 +55,42 @@ exits non-zero and prints no final "ok" line:
                transforms, a glass pane instance, a baked floor), cast 0 and
                a floored cast 1; the gated loop there, kernel path against
                twin path, for camera and shadow rays.
-  4c. render — atrium-ivy 512x512, depth 30, +3 EV, 64 spp: B2 and B3 in
+  3h. kernel — B4 (bin-trace's pair test) against its twin, bitwise on
+               t/u/v/back/tri, at round 1's collect and pair layout of 2^20
+               camera rays on the dense atrium (atrium(density=3): 1,094,508
+               triangles, 12,079 clusters) and of 262,144 incoherent rays on
+               the bench scene at C = 16 (11,866 clusters), both built here
+               on the host first (their seconds are reported); times, bound,
+               live pairs and blocks, rounds and collect iterations.
+  3i. bintrace — intersect_bintrace, kernel path against twin path, bitwise
+               on every Hit field and on rounds and collect iterations, at
+               2^16 dense-atrium camera rays and their sun shadow rays (nee).
+  4c. render — atrium-ivy 512x512, depth 30, +3 EV, 16 spp: B2 and B3 in
                `amask` mode must launch, no twin may run on CUDA; casts per
                gated call are reported.
-  4d. render — this slice's main path: atrium-inst 512x512, depth 30, +3
-               EV, 64 spp: B2 and B3 in the instanced modes (closest, nee)
-               must launch and B3 in no other mode, no twin may run on CUDA;
-               the host's scene build seconds are reported.
+  4d. render — atrium-inst 512x512, depth 30, +3 EV, 16 spp: B2 and B3 in
+               the instanced modes (closest, nee) must launch and B3 in no
+               other mode, no twin may run on CUDA; the host's scene build
+               seconds are reported.
+  4e. render — this slice's main path: the dense atrium 512x512, depth 30,
+               +3 EV, 16 spp (DENSE_SPP), through bin-trace: B4 must
+               launch and B1, B2 and B3 must not; rounds per call and
+               collect iterations per round, the host build seconds.
   5. reference — the golden_v1 cornell_mat_64 and spheres_dof
                configurations: the kernel path's image must equal the
                plain-twin path's bitwise, and its per-channel mean must
                lie within 2% of the golden's; golden_v1 `textured` from the
                port-built textured_box_scene (gated brute, no kernel) within
-               2%; small atrium-ivy and atrium-inst renders, kernel path ==
-               twin path bitwise; atrium-inst against the baked atrium at
+               2%; small atrium-ivy, atrium-inst and dense-atrium renders
+               (32x32, 2 spp, depth 4), kernel path == twin path bitwise;
+               atrium-inst against the baked atrium at
                64x64, 16 spp (channel means within 0.5%, >= 98% of pixels
                within rtol/atol 2e-2: tests/test_instancing.py's bar).
-The kernels line lists B1, B2 and B3 with their launches on the main paths
-(B1: cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and
-the earlier paths' beside them), times and bounds; then the card as
-nvidia-smi reports it; the last line is {"ok": true, "device": {...}}.
+The kernels line lists B1, B2, B3 and B4 with their launches on the main
+paths (B1: cornell-mat; B2, B3: atrium-inst, with B3's launches per mode,
+and the earlier paths' beside them; B4: the dense atrium), times and
+bounds; then the card as nvidia-smi reports it; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -86,7 +102,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -109,6 +124,7 @@ FLOPS_XFORM = 33
 INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
+DENSE_SPP = 16  # samples per pixel of the dense atrium render (phase 4e)
 
 
 def emit(obj) -> None:
@@ -193,9 +209,10 @@ def compare_brute(name, tri_pack, o, d, t_max, n_tris):
     return rec
 
 
-def big_scene(dev):
+def big_scene(dev, cluster_size: int = 128):
     """tools/perf_trace.py:31-43 `build_scene(60, 128)`, the bench's big
-    scene, built by the port's builder."""
+    scene, built by the port's builder (with `cluster_size` 16 it has 11,866
+    clusters, past the block trace's cap: a bin-trace scene)."""
     import numpy as np
 
     from yart_tpu_torch.scene.builder import SceneBuilder
@@ -209,7 +226,7 @@ def big_scene(dev):
         r = rng.uniform(0.4, 1.2)
         pos, nrm, tri = uv_sphere(c, r, n_theta=24, n_phi=48)
         b.add_mesh(pos, tri, m, normals=nrm)
-    return b.compile(dev)
+    return b.compile(dev, cluster_size=cluster_size)
 
 
 def make_rays(n: int, coherent: bool):
@@ -444,28 +461,108 @@ def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool):
             "kernel_path_ms": ms, "twin_path_s": plain_s}
 
 
+def b4_work(lay, c: int):
+    """(flops, bytes) of one B4 call on layout `lay`, from its data: every
+    live pair tests the C columns of its cluster; each live pair row is
+    read and its hit written once, and each live block reads its
+    cluster's [4, 3C] rows once (the block table 12 bytes a block)."""
+    live_pairs, live_blocks = lay.pair.numel(), int(lay.block_live.sum())
+    return (FLOPS_PLANE * live_pairs * c,
+            live_pairs * (32 + 17) + live_blocks * 4 * 3 * c * 4 + lay.block_cid.numel() * 12)
+
+
+def compare_pairs(name, scene, meta, o, d, t_max):
+    """B4 kernel vs its plain twin on the same card tensors, bitwise on t,
+    u, v, back and tri, at bin-trace's round-1 shapes for these rays (the
+    collect phase, then the pair layout); timed. Raises on any bit
+    difference; returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import clusterpairs
+    from yart_tpu_torch.render import bintrace
+
+    t_min, n, k = 1e-3, o.shape[0], meta.bintrace_k
+    t0 = time.perf_counter()
+    slots, n_col, _, _ = bintrace.collect_clusters(
+        scene, meta, o, d, t_max, t_min, torch.full((n,), -1.0, device=o.device),
+        torch.full((n,), -1, dtype=torch.int32, device=o.device), torch.ones(n, dtype=torch.bool, device=o.device), k)
+    lay = bintrace.pair_layout(scene, meta, slots, n_col, o, d, t_max)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    args = (scene.clus_pack, lay.block_cid, lay.block_first, lay.block_live, lay.x, meta.cluster_size, t_min)
+    out = clusterpairs.cluster_pairs_cuda(*args)
+    out_p = clusterpairs.cluster_pairs_plain(*args)
+    torch.cuda.synchronize()
+    fields = ("t", "u", "v", "back", "tri")
+    hit = out[4] >= 0
+    err = max(float((a[hit] - b[hit]).abs().max()) if hit.any() else 0.0 for a, b in zip(out[:3], out_p[:3]))
+    diff = [f for f, a, b in zip(fields, out, out_p) if not bits_equal(a, b)]
+    if diff:
+        raise AssertionError(f"{name}: B4 kernel and plain twin differ in {diff} (max abs t/u/v over hits {err})")
+    bintrace.COUNTS.reset()
+    bintrace.intersect_bintrace(scene, meta, o, d, t_max)
+    rec = {"case": name, "n_rays": n, "n_tris": int(meta.n_tris), "n_clusters": int(meta.n_clusters),
+           "cluster_size": int(meta.cluster_size), "bitwise_equal": True, "max_abs_err": err,
+           "live_pairs": int(lay.pair.numel()), "blocks": int(lay.block_cid.numel()),
+           "live_blocks": int(lay.block_live.sum()), "pair_hit_frac": float(hit[lay.pos].float().mean()),
+           "collect_iters_round1": bintrace.COUNTS.iters[0], "rounds": bintrace.COUNTS.rounds,
+           "collect_iters_per_round": bintrace.COUNTS.iters, "round1_collect_and_layout_s": layout_s}
+    rec["ms"] = cuda_ms(lambda: clusterpairs.cluster_pairs_cuda(*args), reps=11)
+    rec["plain_ms"] = cuda_ms(lambda: clusterpairs.cluster_pairs_plain(*args), reps=1, warmup_s=0.0,
+                              warmup_calls=1)
+    rec["bound_ms"], rec["bound_by"] = bound(*b4_work(lay, meta.cluster_size))
+    return rec
+
+
+def compare_bintrace(name, scene, meta, o, d, t_max, nee: bool):
+    """intersect_bintrace, kernel path against twin path, bitwise on every
+    Hit field, the round count and the collect iterations."""
+    import torch
+
+    from yart_tpu_torch.render import bintrace
+
+    res = []
+    for forced in (False, True):
+        bintrace.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with intersection_forced_to_plain() if forced else contextlib.nullcontext():
+            h = bintrace.intersect_bintrace(scene, meta, o, d, t_max, nee=nee)
+        torch.cuda.synchronize()
+        res.append((h, bintrace.COUNTS.rounds, list(bintrace.COUNTS.iters), time.perf_counter() - t0))
+    (hk, rk, ik, sk), (hp, rp, ip, sp) = res
+    diff = [f for f in hk._fields if not bits_equal(getattr(hk, f), getattr(hp, f))]
+    if diff or (rk, ik) != (rp, ip):
+        raise AssertionError(f"{name}: bin-trace kernel path and twin path differ in {diff}; "
+                             f"rounds {rk} vs {rp}, collect iterations {ik} vs {ip}")
+    return {"case": name, "nee": nee, "n_rays": int(o.shape[0]), "bitwise_equal": True, "rounds": rk,
+            "collect_iters_per_round": ik, "hit_frac": float(hk.mask.float().mean()),
+            "kernel_path_s": sk, "twin_path_s": sp}
+
+
 @contextlib.contextmanager
 def intersection_forced_to_plain():
     """Test-only switch for phase 5: route the render path's B1, B2 and B3
     calls to the plain twins (on the same CUDA tensors) instead of the
     kernels."""
-    from yart_tpu_torch.kernels import brute, fusedtrace, presort
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
 
-    saved = brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace
+    saved = brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs
     brute.brute_intersect = brute.brute_plain
     presort.presort_keys = presort.presort_plain
     fusedtrace.fused_trace = fusedtrace.fused_trace_plain
+    clusterpairs.cluster_pairs = clusterpairs.cluster_pairs_plain
     try:
         yield
     finally:
-        brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace = saved
+        brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs = saved
 
 
 def reset_counts():
-    from yart_tpu_torch.kernels import brute, fusedtrace, presort
-    from yart_tpu_torch.render import blocktrace
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
+    from yart_tpu_torch.render import bintrace, blocktrace
 
-    for m in (brute, presort, fusedtrace):
+    for m in (brute, presort, fusedtrace, clusterpairs, bintrace):
         m.COUNTS.reset()
     blocktrace.GATED.reset()
 
@@ -478,8 +575,8 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
 
     from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.io.image import write_png
-    from yart_tpu_torch.kernels import brute, fusedtrace, presort
-    from yart_tpu_torch.render import blocktrace
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
+    from yart_tpu_torch.render import bintrace, blocktrace
     from yart_tpu_torch.render.renderer import Renderer
 
     # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
@@ -501,11 +598,16 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
-                "fused_trace": fusedtrace.COUNTS.launches}
+                "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches}
     modes = dict(fusedtrace.COUNTS.modes)
     gated = {"calls": blocktrace.GATED.calls, "casts": blocktrace.GATED.casts,
              "casts_per_call": blocktrace.GATED.casts / max(blocktrace.GATED.calls, 1)}
-    plain_cuda = brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
+    bt = bintrace.COUNTS
+    bins = {"calls": bt.calls, "rounds": bt.rounds, "rounds_per_call": bt.rounds / max(bt.calls, 1),
+            "collect_iters_per_round": sum(bt.iters) / max(len(bt.iters), 1),
+            "collect_iters_max": max(bt.iters, default=0)}
+    plain_cuda = (brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
+                  + clusterpairs.COUNTS.plain_cuda)
     peak = torch.cuda.max_memory_allocated(dev)
     if plain_cuda != 0:
         raise AssertionError(f"{name}: the plain twins ran {plain_cuda} times on CUDA tensors in the render")
@@ -518,7 +620,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     rec = {"phase": "render", "scene": name, "n_tris": int(meta.n_tris), "size": list(cam_cfg.image_size),
            "spp": res.samples_taken, "max_depth": 30, "wall_s": round(wall, 3), "rays": res.total_rays,
            "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
-           "launches": launches, "fused_trace_modes": modes, "gated": gated,
+           "launches": launches, "fused_trace_modes": modes, "gated": gated, "bintrace": bins,
            "plain_calls_on_cuda": plain_cuda, "waves": waves,
            "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)}
     return rec, dict(launches, fused_trace_modes=modes)
@@ -594,8 +696,9 @@ def instanced_vs_baked(inst, inst_meta, pos, fwd, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--spp", type=int, default=64, help="samples per pixel of the 512x512 renders (phase 4)")
+    ap.add_argument("--spp", type=int, default=16, help="samples per pixel of the 512x512 renders (phases 4-4d)")
     args = ap.parse_args()
+    t_start = time.time()
 
     import numpy as np
     import torch
@@ -607,8 +710,8 @@ def main() -> int:
     # package fails here with no output.
     from yart_tpu_torch.cli import CAMERAS
     from yart_tpu_torch.config import CameraConfig, RenderConfig
-    from yart_tpu_torch.kernels import brute, fusedtrace, presort
-    from yart_tpu_torch.render import blocktrace
+    from yart_tpu_torch.kernels import brute, build
+    from yart_tpu_torch.render import bintrace, blocktrace
     from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres, textured_box_scene
     from yart_tpu_torch.scene.showcase import atrium, instanced_leaves
 
@@ -625,10 +728,8 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, all started together -------------
     t0 = time.time()
-    kernels = {"brute_intersect": brute, "presort_keys": presort, "fused_trace": fusedtrace}
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        compiled = dict(zip(kernels, pool.map(lambda m: m.build(), kernels.values())))
-    emit({"phase": "build", "kernels": list(kernels), "compiled_now": compiled,
+    compiled = build.build_all()
+    emit({"phase": "build", "kernels": list(compiled), "compiled_now": compiled,
           "seconds": round(time.time() - t0, 3)})
 
     # ---- 3. B1 vs plain twin --------------------------------------------
@@ -786,6 +887,55 @@ def main() -> int:
     if rec_lg["casts"] < 2 or rec_lgs["casts"] < 2:
         raise AssertionError("the instanced gated loop took a single cast: nothing passed through")
 
+    # ---- 3h. B4 at the dense atrium's and the bench scene's shapes ------
+    # Both bin-trace scenes build here on the host (the port's numpy SAH;
+    # about a minute and a half for the dense atrium).
+    t0 = time.time()
+    dense_builder = atrium(density=3)
+    dense_author_s = time.time() - t0
+    t0 = time.time()
+    dense, dense_meta = dense_builder.compile(dev)
+    dense_compile_s = time.time() - t0
+    del dense_builder
+    dense_build_s = round(dense_author_s + dense_compile_s, 3)
+    emit({"phase": "scene", "scene": "atrium(density=3)", "n_tris": dense_meta.n_tris,
+          "n_clusters": dense_meta.n_clusters, "coarse_groups": int(dense.coarse_pack.shape[0]),
+          "coarse_depth": dense_meta.coarse_depth, "any_alpha": dense_meta.any_alpha,
+          "any_transparent": dense_meta.any_transparent,
+          "textures_and_meshes_s": round(dense_author_s, 3),
+          "compile_s": round(dense_compile_s, 3), "build_s": dense_build_s})
+    t0 = time.time()
+    big16, big16_meta = big_scene(dev, cluster_size=16)
+    emit({"phase": "scene", "scene": "bench bigscene (60 spheres), C = 16", "n_tris": big16_meta.n_tris,
+          "n_clusters": big16_meta.n_clusters, "build_s": round(time.time() - t0, 3)})
+    if dense_meta.n_clusters <= blocktrace.MAX_CLUSTERS or big16_meta.n_clusters <= blocktrace.MAX_CLUSTERS:
+        raise AssertionError("a bin-trace scene fits the block trace's cluster cap")
+    dense_pos, dense_target = CAMERAS["atrium"]
+    dense_fwd = tuple(t - p for p, t in zip(dense_pos, dense_target))
+    do, dd = camera_rays(CameraConfig(image_size=(side, side), focal_length=35.0, position=dense_pos,
+                                      forward=dense_fwd), dev)
+    rec_h = compare_pairs("atrium_dense_camera", dense, dense_meta, do, dd,
+                          torch.full((do.shape[0],), 1e30, device=dev))
+    emit({"phase": "kernel", **rec_h})
+    bo, bd = (torch.from_numpy(a).to(dev) for a in make_rays(lanes, False))
+    rec_hb = compare_pairs("bigscene_c16_incoherent", big16, big16_meta, bo, bd,
+                           torch.full((lanes,), 100.0, device=dev))
+    emit({"phase": "kernel", **rec_hb})
+
+    # ---- 3i. intersect_bintrace: kernel path vs twin path ----------------
+    go, gd = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=dense_pos,
+                                      forward=dense_fwd), dev)
+    g_tmax = torch.full((go.shape[0],), 1e30, device=dev)
+    rec_i1 = compare_bintrace("atrium_dense_camera_2^16", dense, dense_meta, go, gd, g_tmax, nee=False)
+    emit({"phase": "bintrace", **rec_i1})
+    gh = bintrace.intersect_bintrace(dense, dense_meta, go, gd, g_tmax)
+    sun = torch.tensor([0.45, 0.72, 0.3], device=dev)
+    sh_d = (sun / sun.norm()).expand_as(gd).contiguous()
+    sh_o = (go + torch.where(gh.mask, gh.t, 0.0)[:, None] * gd).contiguous()
+    rec_i2 = compare_bintrace("atrium_dense_sun_shadow_2^16", dense, dense_meta, sh_o, sh_d,
+                              torch.where(gh.mask, 100.0, -1.0), nee=True)
+    emit({"phase": "bintrace", **rec_i2})
+
     # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
     cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
                                position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
@@ -826,6 +976,17 @@ def main() -> int:
     if set(inst_modes) != {"instanced", "instanced+nee"} or launches_inst["brute_intersect"] != 0:
         raise AssertionError(f"an atrium-inst ray left B3's instanced modes: {launches_inst}")
 
+    # ---- 4e. this slice's main path: the dense atrium (bin-trace, B4) ---
+    dense_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=dense_pos, forward=dense_fwd,
+                             exposure=3.0)
+    rec, launches_dense = render_main_path("atrium-dense", dense, dense_meta, dense_cam, DENSE_SPP, dev)
+    rec["scene_build_s"] = dense_build_s
+    emit(rec)
+    if launches_dense["cluster_pairs"] <= 0:
+        raise AssertionError(f"the dense atrium render launched B4 no time: {launches_dense}")
+    if any(launches_dense[k] for k in ("brute_intersect", "presort_keys", "fused_trace")):
+        raise AssertionError(f"a dense atrium ray left bin-trace for B1, B2 or B3: {launches_dense}")
+
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
     gcfg = RenderConfig(samples=16, max_depth=6, tonemap="none", estimator="gmon",
@@ -848,8 +1009,11 @@ def main() -> int:
 
     acam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
     emit(reference_check("atrium-inst", inst, inst_meta, acam, icfg, None, dev))
+    dcam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=dense_pos, forward=dense_fwd, exposure=3.0)
+    emit(reference_check("atrium-dense", dense, dense_meta, dcam, icfg, None, dev))
     emit(instanced_vs_baked(inst, inst_meta, inst_pos, inst_fwd, dev))
 
+    emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     print(json.dumps({"kernels": [
         {"name": "brute_intersect", "route": "cuda",
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
@@ -883,6 +1047,14 @@ def main() -> int:
          "bound_ms": rec_ic["b3_bound_ms"], "bound_by": rec_ic["b3_bound_by"], "library_ms": None,
          "instanced_nee": {k: rec_in[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")},
          "amask_atrium_ivy": {k: rec_i[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")}},
+        {"name": "cluster_pairs", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/cluster_pairs.cu",
+         "replaces": "yart_tpu/kernels/pallas_cluster.py:200",
+         "launches": launches_dense["cluster_pairs"],
+         "max_abs_err": max(rec_h["max_abs_err"], rec_hb["max_abs_err"]),
+         "ms": rec_h["ms"], "plain_ms": rec_h["plain_ms"],
+         "bound_ms": rec_h["bound_ms"], "bound_by": rec_h["bound_by"], "library_ms": None,
+         "bench_bigscene_c16": {k: rec_hb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -6,7 +6,8 @@ Both sides are numpy, so everything is compared exactly:
 - `SceneBuilder.compile` against the JAX builder on its numpy SAH path
   (the JAX builder prefers its native C++ build, which orders equal-cost
   splits differently; the port has no native build): the permuted
-  triangle rows, the cluster tables with their +3e38 pad boxes, the env
+  triangle rows, the cluster tables with their +3e38 pad boxes and the
+  coarse BVH8 of bin-trace, the env
   tables and the scene bounds, bit for bit, on the `spheres` scene and on
   image, rotated + portal-cropped and uniform envs."""
 
@@ -56,7 +57,7 @@ def test_clusters_equal_jax(soup, c):
     for f in TCl.ClusterCut._fields:
         _eq(getattr(tcut, f), getattr(jcut, f), f)
     assert tcut.first.shape[0] > 8 and tcut.count.max() <= c
-    jco, tco = JCl.build_coarse(jcut).cut, TCl.coarse_order(tcut)
+    jco, tco = JCl.build_coarse(jcut).cut, TCl.build_coarse(tcut).cut
     for f in TCl.ClusterCut._fields:
         _eq(getattr(tco, f), getattr(jco, f), f)
     w = tuple(v[hb.tri_order] for v in soup)
@@ -82,7 +83,8 @@ def _check_tables(ts, tm, js, jm):
             assert x.shape == y.shape, name
             _eq(x.view(np.uint8), y.view(np.uint8), name)
     for f in ("n_tris", "n_lights", "has_env", "env_sampleable", "env_portal", "env_wc",
-              "env_hc", "n_clusters", "cluster_size", "n_clus_pad"):
+              "env_hc", "n_clusters", "cluster_size", "n_clus_pad", "coarse_depth",
+              "coarse_max_leaf", "bintrace_k"):
         assert getattr(tm, f) == getattr(jm, f), f
 
 

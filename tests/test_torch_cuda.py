@@ -1,8 +1,9 @@
-"""B1, B2 and B3 on the card: each Hopper kernel against its plain
+"""B1, B2, B3 and B4 on the card: each Hopper kernel against its plain
 PyTorch twin (B3 in its closest-hit, any-hit and alpha-mask modes, and in
-its instanced mode in each of them), the gated re-cast loop's kernel path
-against its twin path (plain and instanced), and renders that go through
-them.
+its instanced mode in each of them; B4 with dead blocks and empty rows),
+the gated re-cast loop's and bin-trace's kernel paths against their twin
+paths, torch.argmin's first-minimum rule on the card, and renders that go
+through them.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -17,8 +18,8 @@ import pytest
 import torch
 
 from yart_tpu_torch.config import CameraConfig, RenderConfig
-from yart_tpu_torch.kernels import brute, fusedtrace, presort
-from yart_tpu_torch.render import blocktrace
+from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
+from yart_tpu_torch.render import bintrace, blocktrace
 from yart_tpu_torch.render.renderer import Renderer
 from yart_tpu_torch.scene.builder import SceneBuilder
 from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
@@ -336,3 +337,67 @@ def test_gated_instanced_loop_kernel_path_equals_plain_path(inst_leaves, nee):
     for a, b in zip(k, p):
         assert _bits_equal(a, b)
     assert trace_k == trace_p and len(trace_k) >= 2
+
+
+def test_argmin_takes_the_first_minimum_on_cuda(dev):
+    # bin-trace's per-ray reduction and B4's twin rely on it (jnp.argmin's rule).
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(0, 3, (4096, 37)).astype(np.float32)).to(dev)
+    got = torch.argmin(a, dim=1).cpu().numpy()
+    np.testing.assert_array_equal(got, np.argmin(a.cpu().numpy(), axis=1))  # numpy: the first one
+    assert int(torch.argmin(torch.full((1000,), 3e38, device=dev))) == 0
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, 300])
+def test_cluster_pairs_kernel_equals_plain(quad_soup, n_blocks):
+    scene, meta = quad_soup
+    dev = scene.clus_pack.device
+    rng = np.random.default_rng(n_blocks)
+    p = n_blocks * clusterpairs.B_PAIRS
+    o, d = _trace_rays(p, 3 * n_blocks, dev)
+    tmax = torch.full((p, 1), 100.0, device=dev)
+    x = torch.cat([o, d, tmax, torch.zeros_like(tmax)], dim=1)
+    x[::5] = 0.0  # empty rows, as in a cluster's last block
+    cid = torch.from_numpy(rng.integers(0, meta.n_clusters, n_blocks).astype(np.int32)).to(dev)
+    live = torch.from_numpy((rng.uniform(size=n_blocks) < 0.8).astype(np.int32)).to(dev)
+    live[0] = 1
+    args = (scene.clus_pack, cid, scene.clus_first[cid.long()], live, x.contiguous(), meta.cluster_size, 1e-3)
+    before = clusterpairs.COUNTS.launches
+    k = clusterpairs.cluster_pairs(*args)
+    assert clusterpairs.COUNTS.launches == before + 1
+    pl = clusterpairs.cluster_pairs_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(k, pl):
+        assert _bits_equal(a, b)
+    hit = k[4] >= 0
+    dead = (live == 0).repeat_interleave(clusterpairs.B_PAIRS)
+    assert hit.any() and not hit[dead].any() and (k[0][~hit] == 3e38).all() and not k[3][~hit].any()
+
+
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_bintrace_kernel_path_equals_plain_path(quad_soup, n_rays, nee):
+    scene, meta = quad_soup  # bin-trace serves any ungated scene; this one fits the block trace too
+    o, d = _trace_rays(n_rays, 11 * n_rays, scene.clus_pack.device)
+    t_max = torch.full((n_rays,), 8.0 if nee else 100.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    bintrace.COUNTS.reset()
+    before = clusterpairs.COUNTS.launches
+    k = bintrace.intersect_bintrace(scene, meta, o, d, t_max, nee=nee, k=4)
+    rounds_k, iters_k = bintrace.COUNTS.rounds, list(bintrace.COUNTS.iters)
+    assert rounds_k >= 2 and 1 <= clusterpairs.COUNTS.launches - before <= rounds_k  # k = 4: extra rounds
+    saved = clusterpairs.cluster_pairs
+    clusterpairs.cluster_pairs = clusterpairs.cluster_pairs_plain
+    bintrace.COUNTS.reset()
+    try:
+        p = bintrace.intersect_bintrace(scene, meta, o, d, t_max, nee=nee, k=4)
+    finally:
+        clusterpairs.cluster_pairs = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert (bintrace.COUNTS.rounds, bintrace.COUNTS.iters) == (rounds_k, iters_k)
+    assert k.mask.any() and not k.mask[: n_rays // 8].any()
+    if not nee:  # the block trace's plane test, another traversal: the same closest hits
+        ref = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max)
+        assert (k.tri == ref[4]).float().mean() >= 0.999

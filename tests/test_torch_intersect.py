@@ -119,7 +119,7 @@ def test_wrapper_routes_cpu_to_plain_and_validates():
 @pytest.mark.parametrize(
     "fields,nee",
     [
-        (dict(n_tris=5000, n_clusters=(1 << 13) + 1), False),  # past the block trace's cap
+        (dict(n_instances=2, n_inst_clusters=(1 << 13) + 1), False),  # instanced, past the cap
         (dict(n_tris=5000, n_clusters=(1 << 13) + 1, any_alpha=True), False),  # gated, past the cap
         (dict(n_tris=5000, n_clusters=(1 << 13) + 1, any_transparent=True), True),
         (dict(n_instances=2), False),

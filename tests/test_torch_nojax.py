@@ -4,7 +4,8 @@ A fresh interpreter imports every module of the port, builds and renders
 tiny cornell-mat, spheres, textured-box and instanced scenes through the
 renderer and the CLI (spheres through the block trace, the textured box
 through the gated brute, the instanced scene through B3's instanced
-mode), parses the flagship scenes, and then checks that
+mode), traces a few rays through bin-trace, parses the flagship scenes,
+and then checks that
 no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
@@ -35,6 +36,11 @@ assert meta.n_tris > 4096 and meta.has_env
 res = Renderer(scene, meta, CameraConfig(image_size=(4, 4), position=(0, 2.2, 5.5), forward=(0, -1.8, -6.1)),
                RenderConfig(samples=2, max_depth=3), device="cpu").render()
 assert res.samples_taken == 2 and res.hdr.mean() > 0
+# Bin-trace (its collect loop, pair layout and B4's twin) on the same scene.
+from yart_tpu_torch.render.bintrace import intersect_bintrace
+o = torch.tensor([[0.0, 2.2, 5.5]]).repeat(64, 1)
+d = torch.nn.functional.normalize(torch.tensor([[0.0, -1.8, -6.1]]) + 0.01 * torch.randn(64, 3), dim=1)
+assert intersect_bintrace(scene, meta, o, d, 100.0).mask.any()
 # The textured box (every texture class, alpha cutout, thin glass) through
 # the gated brute; the flagship scenes parse.
 from yart_tpu_torch.scene.procedural import textured_box_scene

@@ -100,7 +100,10 @@ def parse_args(argv=None):
     return args
 
 
-def build_scene(args, device):
+def build_scene(args, device, density: int = 1):
+    """The scene of the parsed arguments; `density` multiplies the atrium
+    scenes' tessellation (showcase.atrium: 3 gives the 1,094,508-triangle
+    atrium that bin-trace serves)."""
     from yart_tpu_torch.scene import procedural, showcase
 
     if args.scene == "spheres":
@@ -108,7 +111,8 @@ def build_scene(args, device):
     elif args.scene == "furnace":
         b = procedural.furnace()
     elif args.scene in ("atrium", "atrium-ivy", "atrium-inst"):
-        b = showcase.atrium(ivy=args.scene == "atrium-ivy", instanced=args.scene == "atrium-inst")
+        b = showcase.atrium(ivy=args.scene == "atrium-ivy", density=density,
+                            instanced=args.scene == "atrium-inst")
     elif args.scene == "roadster":
         b = showcase.roadster()
     elif args.scene == "luxball":

@@ -31,7 +31,7 @@ COUNTS = Counts()
 
 
 def _library():
-    lib, _ = load("brute_intersect", ["brute_intersect.cu"])
+    lib, _ = load("brute_intersect")
     fn = lib.brute_intersect_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -43,11 +43,6 @@ def _library():
         ctypes.c_void_p,  # stream
     ]
     return fn
-
-
-def build() -> bool:
-    """Build (if needed) and load the kernel; True if it compiled now."""
-    return load("brute_intersect", ["brute_intersect.cu"])[1]
 
 
 def _check(tri_pack, o, d, t_max, n_tris):

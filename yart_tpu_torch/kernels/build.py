@@ -18,8 +18,16 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
+# Every kernel library of the port: name -> its sources under csrc/.
+LIBRARIES = {
+    "brute_intersect": ("brute_intersect.cu",),  # B1, kernels/brute.py
+    "presort_keys": ("presort_keys.cu",),  # B2, kernels/presort.py
+    "fused_trace": ("fused_trace.cu",),  # B3, kernels/fusedtrace.py
+    "cluster_pairs": ("cluster_pairs.cu",),  # B4, kernels/clusterpairs.py
+}
 BUILD_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "yart_tpu_torch")
 )
@@ -71,10 +79,11 @@ def library_path(name: str, sources) -> str:
     return os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")
 
 
-def load(name: str, sources) -> tuple:
-    """Build (if needed) and load library `name` from `sources` (file names
-    under csrc/). Returns (ctypes.CDLL, built_now). nvcc runs outside the
-    lock, so threads loading different libraries build them at once."""
+def load(name: str) -> tuple:
+    """Build (if needed) and load library `name` of LIBRARIES. Returns
+    (ctypes.CDLL, built_now). nvcc runs outside the lock, so threads
+    loading different libraries build them at once."""
+    sources = LIBRARIES[name]
     path = library_path(name, sources)
     with _lock:
         if path in _loaded:
@@ -97,3 +106,10 @@ def load(name: str, sources) -> tuple:
     lib = ctypes.CDLL(path)
     with _lock:
         return _loaded.setdefault(path, lib), built
+
+
+def build_all() -> dict:
+    """Build and load every library of LIBRARIES, one nvcc per library, all
+    started together. Returns {name: compiled_now}."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return dict(zip(LIBRARIES, pool.map(lambda name: load(name)[1], LIBRARIES)))

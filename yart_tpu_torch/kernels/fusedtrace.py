@@ -80,11 +80,10 @@ EPS_DET = 1e-12
 BLOCK = 128  # rays per `blive` flag and per kernel thread block
 
 COUNTS = Counts()
-SOURCES = ["fused_trace.cu"]
 
 
 def _library():
-    lib, _ = load("fused_trace", SOURCES)
+    lib, _ = load("fused_trace")
     fn = lib.fused_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -98,11 +97,6 @@ def _library():
         ctypes.c_void_p,  # stream
     ]
     return fn
-
-
-def build() -> bool:
-    """Build (if needed) and load the kernel; True if it compiled now."""
-    return load("fused_trace", SOURCES)[1]
 
 
 def _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst=None):

@@ -44,11 +44,10 @@ SKEY_NOTHING = SKEY_HEAVY << 1  # no cluster entered (or a retired ray)
 PLAIN_BUDGET = 1 << 22  # rays x clusters per plain-twin chunk
 
 COUNTS = Counts()
-SOURCES = ["presort_keys.cu"]
 
 
 def _library():
-    lib, _ = load("presort_keys", SOURCES)
+    lib, _ = load("presort_keys")
     fn = lib.presort_keys_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -59,11 +58,6 @@ def _library():
         ctypes.c_void_p,  # stream
     ]
     return fn
-
-
-def build() -> bool:
-    """Build (if needed) and load the kernel; True if it compiled now."""
-    return load("presort_keys", SOURCES)[1]
 
 
 def _check(rays, clus_box, n_clus):

@@ -1,9 +1,11 @@
 """Where a render's time goes on the card.
 
     python -m yart_tpu_torch.profile_render spheres --spp 16 --size 512x512 [--out DIR]
+    python -m yart_tpu_torch.profile_render atrium --density 3 --spp 4 --size 512x512
 
 Takes the CLI's scene, camera and render flags (after the scene name, any
-flag of `python -m yart_tpu_torch.cli`), renders once without the
+flag of `python -m yart_tpu_torch.cli`; `--density` multiplies the atrium
+scenes' tessellation, 3 giving the bin-trace scene), renders once without the
 profiler (the timing of record, and the warm-up: the kernels build
 there), then once under `torch.profiler` with CPU and CUDA activities, and
 prints one JSON line:
@@ -12,9 +14,14 @@ prints one JSON line:
 - kernel launches and summed kernel milliseconds of the profiled render,
   and the device's busy share there (kernel time / profiled wall; one
   stream, so kernels do not overlap);
-- kernel milliseconds grouped as the port's kernels B1, B2 and B3 (by
+- kernel milliseconds grouped as the port's kernels B1, B2, B3 and B4 (by
   their CUDA function names), sorting, and the rest (PyTorch's own
-  kernels), with the 12 kernels of most device time.
+  kernels), with the 12 kernels of most device time;
+- bin-trace's phases (`render/bintrace.py`), from their profiler ranges:
+  the collect loop (plain PyTorch) and the pair phase (layout, B4, the
+  per-ray reduction), each with its calls, host milliseconds and the device
+  milliseconds of the kernels it launched (these kernels are also in the
+  groups above).
 
 With --out DIR the profiler's chrome trace is written to DIR/trace.json.
 The card is required: this measures the device, never the CPU.
@@ -33,6 +40,7 @@ GROUPS = (  # (group, substring of the CUDA kernel's name, lower case)
     ("B1 brute_intersect", "brute_intersect_kernel"),
     ("B2 presort_keys", "presort_keys_kernel"),
     ("B3 fused_trace", "fused_trace_kernel"),
+    ("B4 cluster_pairs", "cluster_pairs_kernel"),
     ("sort", "sort"),  # cub's radix sort kernels ("DeviceRadixSort...")
 )
 
@@ -53,6 +61,7 @@ def _render(scene, meta, cam, cfg, device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="directory for the chrome trace")
+    ap.add_argument("--density", type=int, default=1, help="atrium tessellation (3: the bin-trace scene)")
     own, rest = ap.parse_known_args(argv)
 
     import torch
@@ -60,12 +69,13 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from yart_tpu_torch import cli
+    from yart_tpu_torch.render import bintrace
 
     args = cli.parse_args(rest)
     if not torch.cuda.is_available() or torch.device(args.device).type != "cuda":
         raise SystemExit("profile_render measures the card: it needs a CUDA device")
     device = torch.device(args.device)
-    scene, meta = cli.build_scene(args, device)
+    scene, meta = cli.build_scene(args, device, own.density)
     cam, cfg = cli.render_configs(args)
 
     plain = _render(scene, meta, cam, cfg, device)
@@ -73,8 +83,14 @@ def main(argv=None) -> int:
         profiled = _render(scene, meta, cam, cfg, device)
 
     by_name = collections.defaultdict(lambda: [0, 0.0])  # name -> [launches, us]
+    ranges = {r: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0} for r in bintrace.RANGES}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in ranges:  # a phase range (its device-side copy is no kernel)
+            if e.device_type == DeviceType.CPU:
+                ranges[e.name]["calls"] += 1
+                ranges[e.name]["host_ms"] += e.cpu_time_total / 1e3
+                ranges[e.name]["device_ms"] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.device_time_total
     total_us = sum(us for _, us in by_name.values())
@@ -93,7 +109,7 @@ def main(argv=None) -> int:
         "unprofiled": plain, "profiled": profiled,
         "kernel_launches": sum(n for n, _ in by_name.values()), "kernel_ms": total_us / 1e3,
         "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
-        "kernel_ms_by_group": groups,
+        "kernel_ms_by_group": groups, "bintrace_phases": ranges,
         "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],
     }), flush=True)
     return 0

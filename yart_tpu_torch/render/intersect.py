@@ -10,10 +10,11 @@ the per-hit tests a hit must pass: the stochastic alpha test
 - at most 4096 triangles with gates: `intersect_brute` with gates, plain
   PyTorch on every device (XLA in the JAX package, no kernel);
 - more triangles, no gates: the block trace (`render/blocktrace.py`,
-  kernels B2 and B3);
+  kernels B2 and B3) up to its cap of 8192 clusters, bin-trace
+  (`render/bintrace.py`, kernel B4) past it;
 - more triangles with gates: the block trace's gated re-cast loop
   (`intersect_blocktrace_gated`, B2 once, B3 per cast in `amask` mode when
-  the scene has alpha).
+  the scene has alpha), up to the cluster cap.
 
 An instanced scene takes the block trace whatever its size, gated or not,
 with B3 in its instanced mode, as the JAX package does on the TPU
@@ -22,8 +23,9 @@ pairs, at most 8192 of them.
 
 CUDA tensors run the Hopper kernels, CPU tensors their plain twins. Shadow
 rays of ungated scenes are closest-hit queries for B1 and any-hit queries
-for the block trace, exactly as in the JAX package. Scenes past the block
-trace's cluster cap raise NotImplementedError with their ROADMAP.md item.
+for the block trace and bin-trace, exactly as in the JAX package. Gated
+scenes past the cluster cap and instanced scenes past it raise
+NotImplementedError with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.kernels import brute as _brute
-from yart_tpu_torch.render import blocktrace
+from yart_tpu_torch.render import bintrace, blocktrace
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 F32_MAX = 3.0e38
@@ -72,10 +74,12 @@ def check_supported(meta: SceneMeta) -> None:
                 "`_intersect_instanced`, not ported yet (ROADMAP.md A.10, the application layer)"
             )
         return
-    if meta.n_tris > _brute.MAX_TRIS and meta.n_clusters > blocktrace.MAX_CLUSTERS:
+    if (meta.n_tris > _brute.MAX_TRIS and meta.n_clusters > blocktrace.MAX_CLUSTERS
+            and has_gates(meta, nee=True)):
         raise NotImplementedError(
-            f"{meta.n_clusters} clusters: scenes past {blocktrace.MAX_CLUSTERS} "
-            "need the bin-trace traversal (B4), not ported yet (ROADMAP.md A.9)"
+            f"{meta.n_clusters} clusters with alpha or transparency gates: gated scenes past "
+            f"{blocktrace.MAX_CLUSTERS} clusters need the stack traversals `intersect_bvh8` / "
+            "`intersect_bvh_sorted`, not ported yet (ROADMAP.md A.9)"
         )
 
 
@@ -160,6 +164,8 @@ def intersect(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float =
         if gates:
             return _gated_brute(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
         return _hit(*_brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))
+    if not meta.n_instances and meta.n_clusters > blocktrace.MAX_CLUSTERS:
+        return bintrace.intersect_bintrace(scene, meta, o, d, t_max, t_min, nee)
     if gates:
         return blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
     t, u, v, back, tri, _, _ = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, t_min, nee)

@@ -8,17 +8,18 @@ environment light (`set_env`, `set_env_uniform`, `_compile_env`,
 :280-371) and `compile()`: the numpy SAH BVH and its leaf-order triangle
 permutation (:389-399), the area-light table (:401-451), scene center and
 radius (:453-457), the packed `tri_pack` / `shade_pack` rows (:481-492),
-the block-trace cluster tables `clus_pack` (with the alpha-mask words of
-row 5 when a material has alpha, :510-526), `clus_first` and the
-lane-padded `clus_box` (:527-538), the material table (:1028), and
-instancing: `add_prototype`, `add_instance` and `_compile_instanced`
-(:225-278, :644-1020). Pure numpy on the host, then tensors: the machine
-with the GPU has no JAX, so the port builds its own scenes.
+the cluster tables `clus_pack` (with the alpha-mask words of row 5 when a
+material has alpha, :510-526), `clus_first`, bin-trace's coarse BVH8
+`coarse_pack` (:505-507) and the block trace's lane-padded `clus_box`
+(:527-538), the material table (:1028), and instancing: `add_prototype`,
+`add_instance` and `_compile_instanced` (:225-278, :644-1020). Pure numpy
+on the host, then tensors: the machine with the GPU has no JAX, so the
+port builds its own scenes.
 
-Not ported: mesh transforms in `add_mesh`, the native C++ BVH build and
-the BVH8 / coarse wide packs of the stack and bin-trace traversals
-(ROADMAP.md A.10), and the per-prototype scenes `protos` that the
-per-instance loop `_intersect_instanced` traverses (A.10).
+Not ported: mesh transforms in `add_mesh`, the native C++ BVH build, the
+triangle BVH8 of the stack traversals (ROADMAP.md A.9), and the
+per-prototype scenes `protos` that the per-instance loop
+`_intersect_instanced` traverses (A.10).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from yart_tpu_torch.ops.distribution import build_alias
 from yart_tpu_torch.render.texture import qrows_from_data
 from yart_tpu_torch.scene.alphamask import bake_tri_masks, write_mask_rows
 from yart_tpu_torch.scene.bvh import build_bvh
-from yart_tpu_torch.scene.clusters import coarse_order, cut_clusters, woop_rows
+from yart_tpu_torch.scene.clusters import build_coarse, cut_clusters, woop_rows
 from yart_tpu_torch.scene.types import (CompiledScene, InstancedScene, MaterialTable, SceneMeta,
                                         TextureStack)
 
@@ -339,12 +340,14 @@ class SceneBuilder:
         shade_pack[:, 27] = bits(tri_mat)
         shade_pack[:, 28] = bits(tri_light)
 
-        # Block-trace tables: clusters in coarse-tree order, their packs,
-        # and their boxes SoA, lane-padded. Pad boxes sit at +3e38: the slab
-        # test min/max-normalises inverted bounds, so a lo > hi sentinel
-        # would become a real box around the origin, while a far degenerate
-        # box is never entered.
-        cut = coarse_order(cut_clusters(hb, cluster_size))
+        # Cluster tables: the coarse BVH8 over the clusters (bin-trace), the
+        # clusters in its leaf order, their packs, and their boxes SoA,
+        # lane-padded (block trace). Pad boxes sit at +3e38: the slab test
+        # min/max-normalises inverted bounds, so a lo > hi sentinel would
+        # become a real box around the origin, while a far degenerate box is
+        # never entered.
+        coarse = build_coarse(cut_clusters(hb, cluster_size))
+        cut = coarse.cut
         clus_pack = woop_rows(v0, v1, v2, cut, cluster_size)
         if any(m.has_alpha for m in mats):
             # Conservative alpha bitmasks in pack row 5, for B3's `amask`
@@ -359,7 +362,9 @@ class SceneBuilder:
         return dict(positions=positions, tri_v=tri_v, tri_mat=tri_mat, tri_light=tri_light,
                     l_emission=l_emission, l_area=l_area, two_sided=two_sided, l_verts=l_verts,
                     l_norms=l_norms, tri_pack=tri_pack, shade_pack=shade_pack, clus_pack=clus_pack,
-                    clus_first=cut.first, clus_box=clus_box, n_clus=n_clus)
+                    clus_first=cut.first, clus_box=clus_box, n_clus=n_clus,
+                    coarse_pack=coarse.wide_pack, coarse_depth=coarse.depth,
+                    coarse_max_leaf=coarse.max_leaf)
 
     def _scene(self, device, geo: dict, lights: tuple, env: dict, center, radius,
                **extra) -> CompiledScene:
@@ -404,6 +409,7 @@ class SceneBuilder:
             tex_mono=_stack_from_list(self.textures_mono, 1).to(device),
             clus_pack=t(geo["clus_pack"]),
             clus_first=t(geo["clus_first"]),
+            coarse_pack=t(geo["coarse_pack"]),
             clus_box=t(geo["clus_box"]),
             **{k: t(v) for k, v in extra.items()},
         )
@@ -456,6 +462,8 @@ class SceneBuilder:
             n_clusters=geo["n_clus"],
             cluster_size=int(cluster_size),
             n_clus_pad=int(geo["clus_box"].shape[1]),
+            coarse_depth=geo["coarse_depth"],
+            coarse_max_leaf=geo["coarse_max_leaf"],
         )
         return scene, meta
 
@@ -612,7 +620,8 @@ class SceneBuilder:
                       shade_pack=np.concatenate([g["shade_pack"] for g in geo]),
                       tri_mat=z1, tri_light=z1,
                       clus_pack=np.concatenate([g["clus_pack"] for g in geo]),
-                      clus_first=z1, clus_box=ic_box)
+                      clus_first=z1, clus_box=ic_box,
+                      coarse_pack=np.zeros((1, 56), np.float32))  # bin-trace skips instanced scenes
         vert_base = np.concatenate([[0], np.cumsum([g["positions"].shape[0] for g in geo])])[:-1]
         env = self._compile_env()
         scene = self._scene(

@@ -1,14 +1,17 @@
 """Host-side binned-SAH BVH build over world-space triangles.
 
 Port of `yart_tpu/scene/bvh.py` `build_bvh`, `build_bvh_boxes` and
-`_sah_split` (the reference's binned SAH, src/core/bvh.hpp:41-348): numpy
-only, and the same arithmetic, so the tree, the triangle permutation and
-everything cut from it (scene/clusters.py) equal the JAX package's numpy
-builder exactly. The JAX builder prefers its native C++ build when that
-library is present; the port has none and always runs this one.
+`_sah_split` (the reference's binned SAH, src/core/bvh.hpp:41-348), and
+`collapse_bvh8` / `encode_leaf8` (:237-331): numpy only, and the same
+arithmetic, so the tree, the triangle permutation and everything cut from
+it (scene/clusters.py) equal the JAX package's numpy builder exactly. The
+JAX builder prefers its native C++ build when that library is present; the
+port has none and always runs this one.
 
-The port's device traversal never walks this tree: the builder uses it for
-the leaf-order triangle permutation and the cluster cut only.
+The port's device traversals never walk the triangle tree: the builder uses
+it for the leaf-order triangle permutation and the cluster cut. The 8-wide
+collapse serves the coarse tree over the clusters, which bin-trace walks
+(render/bintrace.py).
 """
 
 from __future__ import annotations
@@ -141,3 +144,98 @@ def _sah_split(cent, lo, hi, n_bins, span):
     if parent_area > 0.0 and best[0] / parent_area >= span:
         return None
     return best[1], best[2]
+
+
+class HostBVH8(NamedTuple):
+    """8-wide BVH collapsed from the binary SAH tree.
+
+    boxes: [M, 8, 6] child AABBs (min3, max3); empty slots +inf/-inf
+    child: [M, 8] int32 encoded refs: >= 0 inner node index, -1 empty,
+           <= -2 leaf with v = -(child + 2), first = v >> 4, count = v & 15
+    depth: wide-tree depth
+    """
+
+    boxes: np.ndarray
+    child: np.ndarray
+    depth: int
+
+
+def encode_leaf8(first: int, count: int) -> int:
+    assert count <= 15
+    return -(((first << 4) | count) + 2)
+
+
+def _wide_slots(hb: HostBVH, b: int, width: int, area) -> list:
+    """The children of wide node `b`: starting from [b], greedily replace
+    the inner slot of largest area by its two children until `width` slots
+    or only leaves remain."""
+    slots = [b]
+    while len(slots) < width:
+        inner = [i for i, s in enumerate(slots) if hb.count[s] == 0]
+        if not inner:
+            break
+        best = max(inner, key=lambda i: area(slots[i]))
+        s = slots.pop(best)
+        slots.extend([int(hb.left[s]), int(hb.left[s]) + 1])
+    return slots
+
+
+def collapse_bvh8(hb: HostBVH, width: int = 8) -> HostBVH8:
+    """Collapse the binary tree to `width` children per node (groups are
+    numbered in the order of a depth-first walk with an explicit stack, as
+    in the JAX package)."""
+
+    def area(i):
+        d = np.maximum(hb.node_max[i] - hb.node_min[i], 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    if hb.count[0] > 0:  # the binary root is itself a leaf
+        boxes = np.zeros((1, width, 6), np.float32)
+        boxes[:, :, 0:3] = np.inf
+        boxes[:, :, 3:6] = -np.inf
+        boxes[0, 0, 0:3] = hb.node_min[0]
+        boxes[0, 0, 3:6] = hb.node_max[0]
+        child = np.full((1, width), -1, np.int64)
+        child[0, 0] = encode_leaf8(int(hb.left[0]), int(hb.count[0]))
+        return HostBVH8(boxes, child.astype(np.int32), 1)
+
+    group_of = {}
+    order = []
+    stack = [0]
+    while stack:
+        b = stack.pop()
+        if b in group_of:
+            continue
+        group_of[b] = len(order)
+        order.append(b)
+        stack.extend(s for s in _wide_slots(hb, b, width, area) if hb.count[s] == 0)
+
+    m = len(order)
+    boxes = np.zeros((m, width, 6), np.float32)
+    boxes[:, :, 0:3] = np.inf
+    boxes[:, :, 3:6] = -np.inf
+    child = np.full((m, width), -1, np.int64)
+    for gi, b in enumerate(order):
+        for k, s in enumerate(_wide_slots(hb, b, width, area)):
+            boxes[gi, k, 0:3] = hb.node_min[s]
+            boxes[gi, k, 3:6] = hb.node_max[s]
+            if hb.count[s] > 0:
+                child[gi, k] = encode_leaf8(int(hb.left[s]), int(hb.count[s]))
+            else:
+                child[gi, k] = group_of[s]
+
+    # Depth by levels from the root (group ids are not topologically sorted).
+    depth = 1
+    level = {0}
+    seen = {0}
+    while level:
+        nxt = set()
+        for g in level:
+            for c in child[g]:
+                if c >= 0 and c not in seen:
+                    seen.add(int(c))
+                    nxt.add(int(c))
+        if nxt:
+            depth += 1
+        level = nxt
+    return HostBVH8(boxes, child.astype(np.int32), depth)

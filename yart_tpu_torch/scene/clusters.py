@@ -1,18 +1,19 @@
-"""Triangle clusters for the block-trace traversal.
+"""Triangle clusters for the block-trace and bin-trace traversals.
 
-Port of `yart_tpu/scene/clusters.py` `cut_clusters`, `woop_rows` and the
-cluster-permutation half of `build_coarse` (:63-162), numpy only:
+Port of `yart_tpu/scene/clusters.py` `cut_clusters`, `build_coarse` and
+`woop_rows` (:63-162), numpy only:
 
 - `cut_clusters` cuts the binary SAH tree (scene/bvh.py) into maximal
   subtrees of at most C triangles. The SAH build partitions the triangle
   order in place, so every cluster is a contiguous (first, count) range of
   the leaf-ordered triangles.
-- `coarse_order` permutes the clusters into the leaf order of a small SAH
-  tree over their boxes (`build_coarse`'s permutation). The coarse BVH8
-  itself (`wide_pack`) feeds the bin-trace traversal (kernel B4) and is not
-  built here.
+- `build_coarse` builds a small SAH tree over the cluster boxes, permutes
+  the clusters into its leaf order (so a coarse leaf names a contiguous
+  cluster range) and collapses it to the 8-wide `wide_pack` that
+  bin-trace's collect phase walks (render/bintrace.py).
 - `woop_rows` packs per-triangle plane and barycentric constants per
-  cluster, the [n_clus, 8, 3C] operand of the fused trace (kernel B3).
+  cluster, the [n_clus, 8, 3C] operand of the fused trace (kernel B3) and
+  of the pair kernel (B4).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from yart_tpu_torch.scene.bvh import HostBVH, build_bvh_boxes
+from yart_tpu_torch.scene.bvh import HostBVH, build_bvh_boxes, collapse_bvh8
 
 
 class ClusterCut(NamedTuple):
@@ -73,11 +74,25 @@ def cut_clusters(hb: HostBVH, max_cluster: int) -> ClusterCut:
     )
 
 
-def coarse_order(cut: ClusterCut, max_leaf: int = 2, n_bins: int = 20) -> ClusterCut:
-    """The clusters permuted into the leaf order of an SAH tree over their
-    boxes, as `build_coarse` leaves them in the JAX scene."""
-    perm = build_bvh_boxes(cut.lo, cut.hi, max_leaf=max_leaf, n_bins=n_bins).tri_order
-    return ClusterCut(cut.first[perm], cut.count[perm], cut.lo[perm], cut.hi[perm])
+class CoarseTree(NamedTuple):
+    wide_pack: np.ndarray  # [G, 56] f32: 8 x (min3, max3) + 8 child refs as int32 bits
+    depth: int  # wide-tree depth (collect's stack holds depth + 2 entries)
+    max_leaf: int  # most clusters in one coarse leaf
+    cut: ClusterCut  # the clusters, permuted into coarse leaf order
+
+
+def build_coarse(cut: ClusterCut, max_leaf: int = 2, n_bins: int = 20) -> CoarseTree:
+    """The coarse BVH8 over the cluster boxes; its leaves reference
+    contiguous cluster ranges (leaf payload (first cluster, count))."""
+    hb = build_bvh_boxes(cut.lo, cut.hi, max_leaf=max_leaf, n_bins=n_bins)
+    perm = hb.tri_order
+    cut = ClusterCut(cut.first[perm], cut.count[perm], cut.lo[perm], cut.hi[perm])
+    hb8 = collapse_bvh8(hb)
+    bits = lambda a: np.ascontiguousarray(a, np.int32).view(np.float32)
+    wide_pack = np.concatenate(
+        [hb8.boxes.reshape(-1, 48), bits(hb8.child).reshape(-1, 8)], axis=1
+    ).astype(np.float32)
+    return CoarseTree(wide_pack, hb8.depth, int(hb.count.max()), cut)
 
 
 def woop_rows(v0, v1, v2, cut: ClusterCut, c: int) -> np.ndarray:

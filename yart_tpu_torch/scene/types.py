@@ -98,9 +98,11 @@ class CompiledScene:
     tex_rgb: TextureStack  # normal maps, emission (gamma-2)
     tex_2ch: TextureStack  # metallic-roughness
     tex_mono: TextureStack  # transmission, clearcoat
-    # Block-trace tables (scene/clusters.py, render/blocktrace.py):
+    # Block-trace and bin-trace tables (scene/clusters.py, render/blocktrace.py,
+    # render/bintrace.py):
     clus_pack: torch.Tensor  # [n_clus, 8, 3C] plane/barycentric rows; row 5: alpha-mask words
     clus_first: torch.Tensor  # [n_clus] int32 first triangle of each cluster
+    coarse_pack: torch.Tensor  # [G, 56] coarse BVH8 over the cluster boxes (bin-trace)
     clus_box: torch.Tensor  # [8, n_clus_pad] lo.xyz, hi.xyz, pad; pad boxes at +3e38
 
     def to(self, device) -> "CompiledScene":
@@ -157,6 +159,9 @@ class SceneMeta:
     any_anisotropy: bool = True
     n_clusters: int = 1
     cluster_size: int = 128  # C: triangle capacity of a cluster
+    coarse_depth: int = 1  # depth of the coarse BVH8 (bin-trace)
+    coarse_max_leaf: int = 2  # most clusters in one coarse leaf
+    bintrace_k: int = 12  # K: cluster slots per ray per bin-trace round
     n_clus_pad: int = 128  # clus_box lane padding
     n_instances: int = 0
     inst_proto: tuple = ()  # prototype of each instance
