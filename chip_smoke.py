@@ -35,6 +35,20 @@ exits non-zero and prints no final "ok" line:
                path against twin path bitwise, on 2^16 atrium-ivy camera
                rays and on shadow rays from their hits (nee), with the
                active count of every cast.
+  3j. kernel — B6 (the bounce's 8 sampler draws) against its twin (the
+               sampler's own ops/qmc.py draws), bitwise on all 8 outputs, at
+               2^20 lanes of a 512x512 render's first chunk at bounce 0
+               and 3 (dim0 = 4, 28): ZSobol at 16 spp (even log2spp) and 8
+               spp (odd: the pow2_samples branch), hash; a ragged 1000;
+               timed, with its bound (INT32 operations).
+  3k. kernel — B5 (the fused shade tail) against its twin
+               (shade_math.shade), bitwise on every output and lane, on
+               the lanes of a real depth-1 bounce of cornell-mat and
+               atrium-ivy (2^20) and of roadster (2^16; metallic,
+               transmissive and clearcoat gates on; built here), on 2^20
+               random lanes with all four gates on (also with mis off and
+               with no lights) and on 2^16 with whole dead blocks; timed,
+               with its bound (bytes).
   4. render  — the earlier main paths: Renderer on cuda, cornell-mat
                512x512, 16 spp (`--spp`), max depth 30, ZSobol, GMoN, AgX, in the
                CLI's waves; B1's launch count must be > 0 and the plain twin
@@ -76,6 +90,14 @@ exits non-zero and prints no final "ok" line:
                +3 EV, 16 spp (DENSE_SPP), through bin-trace: B4 must
                launch and B1, B2 and B3 must not; rounds per call and
                collect iterations per round, the host build seconds.
+  4f. render — this slice's main path: cornell-mat and atrium-ivy
+               512x512, 16 spp, depth 30 with shade_kernel="pallas": B5 and
+               B6 must launch once per bounce, no twin on CUDA, the
+               intersection kernels' counts beside phase 4/4c's "off"
+               renders; against "off" at _assert_images_equivalent's bar
+               (tests/test_shade_kernel.py:209-222) at the 4 spp and depth
+               4 where that test sets it, that bar's numbers at 16 spp,
+               depth 30.
   5. reference — the golden_v1 cornell_mat_64 and spheres_dof
                configurations: the kernel path's image must equal the
                plain-twin path's bitwise, and its per-channel mean must
@@ -85,11 +107,14 @@ exits non-zero and prints no final "ok" line:
                (32x32, 2 spp, depth 4), kernel path == twin path bitwise;
                atrium-inst against the baked atrium at
                64x64, 16 spp (channel means within 0.5%, >= 98% of pixels
-               within rtol/atol 2e-2: tests/test_instancing.py's bar).
-The kernels line lists B1, B2, B3 and B4 with their launches on the main
-paths (B1: cornell-mat; B2, B3: atrium-inst, with B3's launches per mode,
-and the earlier paths' beside them; B4: the dense atrium), times and
-bounds; then the card as nvidia-smi reports it; the last line is
+               within rtol/atol 2e-2: tests/test_instancing.py's bar);
+               cornell-mat, atrium-ivy and roadster at 64x64, 2 spp, depth
+               4 with shade_kernel="pallas" equal bitwise to "xla".
+The kernels line lists B1-B6 with their launches on the main paths (B1:
+cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
+earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
+with "pallas", atrium-ivy beside it), times and bounds; then the card as
+nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -121,6 +146,14 @@ FLOPS_AMASK = 6
 # B3 instanced: the ray's transform into the prototype's object space per
 # tested (ray, instance cluster): 9 multiplies + 9 adds for o, 9 + 6 for d.
 FLOPS_XFORM = 33
+# Hopper's INT32 rate: 64 INT32 lanes per SM per clock, 132 SMs at 1.98 GHz
+# (NVIDIA's Hopper white paper; the FP32 peak above is 128 lanes x 2 flops).
+PEAK_INT32 = 132 * 64 * 1.98e9
+# B5: float operations per live lane, a lower count from shade.cu (frames
+# and VNDF sampling ~150, one lobe's sample ~120, 13 LUT lerps ~200, the
+# NEE f and pdf of up to four lobes ~400, the update and roulette ~60;
+# a transcendental counted once).
+FLOPS_SHADE = 900
 INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
@@ -540,6 +573,184 @@ def compare_bintrace(name, scene, meta, o, d, t_max, nee: bool):
             "kernel_path_s": sk, "twin_path_s": sp}
 
 
+def b6_ops(setup) -> int:
+    """B6's 32-bit integer instructions per lane, counted from the kernel's
+    source for this call's sampler: a 64-bit multiply as 3 IMADs, a 64-bit
+    shift or xor as 2, `% 24` of a u64 as a 10-instruction multiply-high;
+    per base-4 digit ~43 (one mix_bits64 of ~18), the odd-log2spp branch
+    ~25, a FastOwen scramble with its bit reversals and the u32 -> float ~19,
+    5 per Sobol' matrix column. Hash: 15 per draw."""
+    if setup.kind == "hash":
+        return 8 * 15
+    s = setup.sampler
+    last = s.log2spp & 1
+    index = 43 * (s.n_base4_digits - last) + (25 if last else 0)
+    return 6 * index + 4 * 19 + 2 * (2 * 19 + 5 * len(s._matrix1))
+
+
+def compare_draws(name, sampler, state, dim0: int, timed: bool = False):
+    """B6 against its twin (the sampler's own draws) on the same card
+    lanes, bitwise on all 8 outputs; timed with its bound. Raises on any
+    bit difference; returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import shade
+
+    setup = shade.sampler_draw_setup(sampler, state, dim0)
+    n = int(state.shape[0])
+    k = shade.draws_cuda(setup, n)
+    p = shade.draws_plain(setup, n)
+    torch.cuda.synchronize()
+    diff = {key: int((k[key].view(torch.int32) != p[key].contiguous().view(torch.int32)).sum())
+            for key in shade.DRAW_OUT}
+    diff = {key: v for key, v in diff.items() if v}
+    err = max(float((k[key] - p[key]).abs().max()) for key in shade.DRAW_OUT)
+    if diff:
+        raise AssertionError(f"{name}: B6 and its twin differ on lanes {diff} (max abs {err})")
+    rec = {"case": name, "kind": setup.kind, "n": n, "dim0": dim0, "bitwise_equal": True, "max_abs_err": err}
+    if setup.kind == "zsobol":
+        rec.update(log2spp=sampler.log2spp, n_base4_digits=sampler.n_base4_digits)
+    if timed:
+        rec["ms"] = cuda_ms(lambda: shade.draws_cuda(setup, n), reps=21)
+        rec["plain_ms"] = cuda_ms(lambda: shade.draws_plain(setup, n), reps=3)
+        ops = b6_ops(setup) * n
+        t_ops, t_bytes = ops / PEAK_INT32 * 1e3, (8 + 8 * 4) * n / PEAK_BYTES * 1e3
+        rec.update(int_ops_per_lane=b6_ops(setup), bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rec
+
+
+def b5_bytes(inp, mis: bool, any_lights: bool, tables) -> int:
+    """The bytes B5 must move for this call: every input it reads for a live
+    lane (active or found) once, only the pass-through fields for a dead
+    one, every output once, and the six LUTs once."""
+    from yart_tpu_torch.kernels import shade
+    from yart_tpu_torch.kernels import shade_math as SM
+
+    n = int(inp["active"].shape[0])
+    live = int((inp["active"] | inp["found"]).sum())
+    per_live = sum(12 if k in SM.V3_KEYS else 1 if k in SM.B_KEYS else 4 for k in shade._needs(mis, any_lights))
+    per_dead = 3 + 4 * 12 + 2 * 4  # 3 flags, atten / o / d / last_p, last_pdf / acc_rough
+    out = 12 * len(SM.OUT_V3) + 4 * len(SM.OUT_F) + len(SM.OUT_B)
+    return live * per_live + (n - live) * per_dead + n * out + nbytes(*(tables[k] for k in shade.LUT_KEYS))
+
+
+def compare_shade(name, inp, gates, mis: bool, any_lights: bool, tables, timed: bool = False):
+    """B5 against its twin (shade_math.shade) on the same card tensors,
+    bitwise on every output and every lane (dead lanes included: the
+    kernel writes their pass-through state, the twin zeroes their contrib
+    and shadow_d). Raises on any bit difference; returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import shade
+
+    k = shade.shade_cuda(inp, gates, mis, any_lights, tables)
+    p = shade.shade_plain(inp, gates, mis, any_lights, tables)
+    torch.cuda.synchronize()
+    diff = {}
+    for key in k:
+        a, b = k[key], p[key].contiguous()
+        ne = a.view(torch.int32) != b.view(torch.int32) if a.dtype == torch.float32 else a != b
+        if ne.any():
+            lanes = torch.nonzero(ne.reshape(ne.shape[0], -1).any(dim=1))[:, 0]
+            diff[key] = {"lanes": int(lanes.numel()), "first": [
+                (int(j), a[j].tolist(), b[j].tolist()) for j in lanes[:3].tolist()]}
+    err = max(float((k[key] - p[key]).abs().max()) for key in k if k[key].dtype == torch.float32)
+    if diff:
+        raise AssertionError(f"{name}: B5 and its twin differ: {diff} (max abs {err})")
+    n = int(inp["active"].shape[0])
+    live = int((inp["active"] | inp["found"]).sum())
+    rec = {"case": name, "n": n, "live": live, "gates": list(gates), "mis": mis, "any_lights": any_lights,
+           "nee_need": int(k["nee_need"].sum()), "bitwise_equal": True, "max_abs_err": err}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: shade.shade_cuda(inp, gates, mis, any_lights, tables), reps=21)
+        rec["plain_ms"] = cuda_ms(lambda: shade.shade_plain(inp, gates, mis, any_lights, tables), reps=3)
+        rec["bound_ms"], rec["bound_by"] = bound(FLOPS_SHADE * live, b5_bytes(inp, mis, any_lights, tables))
+    return rec
+
+
+def random_shade_lanes(n: int, seed: int, dev, dead_blocks: bool = False):
+    """B5's inputs for `n` random lanes with every lobe in play (the
+    material ranges of tests/test_shade_kernel.py:30-64, smooth, thin and
+    anisotropic lanes among them), random light samples and state; with
+    `dead_blocks` every other run of 4096 lanes is neither active nor
+    found."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+    def uni(lo=0.0, hi=1.0, shape=(n,)):
+        return rng.uniform(lo, hi, size=shape).astype(np.float32)
+
+    rough = uni()
+    rough[: n // 8] = uni(0.0, 0.03, (n // 8,))  # a smooth band
+    active = rng.uniform(size=n) < 0.9
+    if dead_blocks:
+        active &= (np.arange(n) // 4096) % 2 == 1
+    a = dict(
+        o=uni(-1, 1, (n, 3)), d=unit(), n=unit(), p=uni(-1, 1, (n, 3)), atten=uni(0.05, 1, (n, 3)),
+        last_p=uni(-1, 1, (n, 3)), base=uni(0.05, 1, (n, 3)),
+        emission=np.where(rng.uniform(size=(n, 1)) < 0.3, uni(0.5, 5, (n, 3)), 0).astype(np.float32),
+        volume_color=uni(0, 1, (n, 3)), ls_wi=unit(), ls_Li=uni(0, 4, (n, 3)), ls_n=unit(),
+        ls_p=uni(-2, 2, (n, 3)),
+        last_pdf=uni(0, 3), acc_rough=uni(0, 1), hit_t=uni(0, 3),
+        u0=uni(), u1=uni(), uc=uni(), uc2=uni(), u_rr=uni(),
+        metallic=uni(), roughness=rough, roughness_base=rough, transmission=uni(), ior=uni(1.05, 2.2),
+        anisotropic=uni(), aniso_rotation=uni(-3, 3), clearcoat=uni(), cc_roughness=uni(),
+        cc_roughness_base=uni(), volume_density=uni(0, 2), pdf_area=uni(0, 2), sel_p=uni(0, 1),
+        ls_pdf=uni(0, 2), ls_select_p=uni(0, 1),
+        active=active, found=active & (rng.uniform(size=n) < 0.9), specular_prev=rng.uniform(size=n) < 0.2,
+        light_neg=rng.uniform(size=n) < 0.7, hit_back=rng.uniform(size=n) < 0.3,
+        thin=rng.uniform(size=n) < 0.3, ls_valid=rng.uniform(size=n) < 0.9,
+        ls_is_env=rng.uniform(size=n) < 0.3,
+    )
+    inp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in a.items()}
+    inp.update(depth0=False, rr_on=True, reg_threshold=0.5)
+    return inp
+
+
+def capture_shade_call(scene, meta, cam_cfg, spp: int, dev, call: int = 1):
+    """The inputs of B5's call number `call` (0 = bounce 0; the first wave
+    runs its first bounces at full width) in a render with
+    shade_kernel="pallas": (inp, gates, mis, any_lights, tables)."""
+    from yart_tpu_torch.config import RenderConfig
+    from yart_tpu_torch.kernels import shade
+    from yart_tpu_torch.render.renderer import Renderer
+
+    got = []
+    orig = shade.shade
+
+    def record(inp, gates, mis, any_lights, tables):
+        if len(got) <= call:
+            got.append((dict(inp), gates, mis, any_lights, tables))
+        return orig(inp, gates, mis, any_lights, tables)
+
+    cfg = RenderConfig(samples=spp, max_depth=call + 1, first_wave_samples=spp, max_wave_samples=spp,
+                       shade_kernel="pallas", tonemap="none", estimator="mean")
+    shade.shade = record
+    try:
+        Renderer(scene, meta, cam_cfg, cfg, device=dev).render()
+    finally:
+        shade.shade = orig
+    return got[call]
+
+
+def pixel_lanes(side: int, spp: int, sampler, dev):
+    """The lane states of a side x side, spp render's first chunk."""
+    import torch
+
+    yy, xx = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
+    px = xx.reshape(-1).repeat_interleave(spp)
+    py = yy.reshape(-1).repeat_interleave(spp)
+    s = torch.arange(spp, device=dev).repeat(side * side)
+    return sampler.init_lanes(px, py, s)
+
+
 @contextlib.contextmanager
 def intersection_forced_to_plain():
     """Test-only switch for phase 5: route the render path's B1, B2 and B3
@@ -559,31 +770,35 @@ def intersection_forced_to_plain():
 
 
 def reset_counts():
-    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
-    from yart_tpu_torch.render import bintrace, blocktrace
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
+    from yart_tpu_torch.render import bintrace, blocktrace, integrator
 
     for m in (brute, presort, fusedtrace, clusterpairs, bintrace):
         m.COUNTS.reset()
+    shade.COUNTS_SHADE.reset()
+    shade.COUNTS_DRAWS.reset()
     blocktrace.GATED.reset()
+    integrator.BOUNCES.reset()
 
 
-def render_main_path(name, scene, meta, cam_cfg, spp, dev):
+def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "off", max_depth: int = 30):
     """Drive Renderer on the card with every kernel count set to 0 just
-    before; returns (record, image, {kernel: launches}) read just after."""
+    before; returns (record, {kernel: launches}, HDR image) read just
+    after."""
     import numpy as np
     import torch
 
     from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.io.image import write_png
-    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
-    from yart_tpu_torch.render import bintrace, blocktrace
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
+    from yart_tpu_torch.render import bintrace, blocktrace, integrator
     from yart_tpu_torch.render.renderer import Renderer
 
     # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
     # probes per-depth live lanes and the later ones run the compaction
     # the autotune picks, so the staged-compaction path runs on the card.
-    cfg = RenderConfig(samples=spp, max_depth=30, sampler="zsobol", estimator="gmon",
-                       tonemap="agx", first_wave_samples=8, max_wave_samples=128)
+    cfg = RenderConfig(samples=spp, max_depth=max_depth, sampler="zsobol", estimator="gmon",
+                       tonemap="agx", first_wave_samples=8, max_wave_samples=128, shade_kernel=shade_kernel)
     waves = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -598,7 +813,9 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
-                "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches}
+                "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches,
+                "shade": shade.COUNTS_SHADE.launches, "draws": shade.COUNTS_DRAWS.launches}
+    bounces = integrator.BOUNCES.bounces
     modes = dict(fusedtrace.COUNTS.modes)
     gated = {"calls": blocktrace.GATED.calls, "casts": blocktrace.GATED.casts,
              "casts_per_call": blocktrace.GATED.casts / max(blocktrace.GATED.calls, 1)}
@@ -607,7 +824,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
             "collect_iters_per_round": sum(bt.iters) / max(len(bt.iters), 1),
             "collect_iters_max": max(bt.iters, default=0)}
     plain_cuda = (brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
-                  + clusterpairs.COUNTS.plain_cuda)
+                  + clusterpairs.COUNTS.plain_cuda + shade.COUNTS_SHADE.plain_cuda + shade.COUNTS_DRAWS.plain_cuda)
     peak = torch.cuda.max_memory_allocated(dev)
     if plain_cuda != 0:
         raise AssertionError(f"{name}: the plain twins ran {plain_cuda} times on CUDA tensors in the render")
@@ -615,15 +832,57 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev):
     if not np.isfinite(hdr).all() or not hdr.mean() > 0.01:
         raise AssertionError(f"{name}: bad image: finite={np.isfinite(hdr).all()} mean={hdr.mean()}")
     os.makedirs(OUT_DIR, exist_ok=True)
-    png = os.path.join(OUT_DIR, f"{name}_{cam_cfg.image_size[0]}.png")
+    png = os.path.join(OUT_DIR, f"{name}_{shade_kernel}_{cam_cfg.image_size[0]}_d{max_depth}.png")
     write_png(png, res.display)
-    rec = {"phase": "render", "scene": name, "n_tris": int(meta.n_tris), "size": list(cam_cfg.image_size),
-           "spp": res.samples_taken, "max_depth": 30, "wall_s": round(wall, 3), "rays": res.total_rays,
+    rec = {"phase": "render", "scene": name, "shade_kernel": shade_kernel, "n_tris": int(meta.n_tris),
+           "size": list(cam_cfg.image_size), "spp": res.samples_taken, "max_depth": max_depth,
+           "wall_s": round(wall, 3), "rays": res.total_rays,
            "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
-           "launches": launches, "fused_trace_modes": modes, "gated": gated, "bintrace": bins,
-           "plain_calls_on_cuda": plain_cuda, "waves": waves,
+           "launches": launches, "bounces": bounces, "fused_trace_modes": modes, "gated": gated,
+           "bintrace": bins, "plain_calls_on_cuda": plain_cuda, "waves": waves,
            "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)}
-    return rec, dict(launches, fused_trace_modes=modes)
+    return rec, dict(launches, fused_trace_modes=modes, bounces=bounces, rays=res.total_rays), hdr
+
+
+def images_equivalent(a, b, rays_a, rays_b) -> dict:
+    """tests/test_shade_kernel.py:209-222 `_assert_images_equivalent`'s four
+    criteria, measured: >= 99% of pixels within 1e-3 relative, the median
+    relative difference under 1e-5, the means within 2%, the ray counts
+    within max(8, 0.5%)."""
+    import numpy as np
+
+    rel = np.abs(a - b) / np.maximum(np.abs(a), 1.0)
+    r = {"close_share": float((rel < 1e-3).mean()), "median_rel": float(np.median(rel)),
+         "mean_rel": float(abs(a.mean() - b.mean()) / max(a.mean(), 1e-6)), "rays": [rays_a, rays_b]}
+    r["meets_bar"] = bool(r["close_share"] > 0.99 and r["median_rel"] < 1e-5 and r["mean_rel"] < 0.02
+                          and abs(rays_a - rays_b) <= max(8.0, 0.005 * rays_a))
+    return r
+
+
+def pallas_equals_xla(name, scene, meta, cam, dev):
+    """A small render with shade_kernel="pallas" (B6 + B5) equal bitwise to
+    the same render with "xla" (their plain PyTorch math), on the card."""
+    import numpy as np
+
+    from yart_tpu_torch.config import RenderConfig
+    from yart_tpu_torch.kernels import shade
+    from yart_tpu_torch.render.renderer import Renderer
+
+    imgs = {}
+    for mode in ("xla", "pallas"):
+        cfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean", first_wave_samples=2,
+                           max_wave_samples=2, shade_kernel=mode)
+        before = shade.COUNTS_SHADE.launches
+        res = Renderer(scene, meta, cam, cfg, device=dev).render()
+        imgs[mode] = (res.hdr, res.total_rays, shade.COUNTS_SHADE.launches - before)
+    (a, ra, la), (b, rb, lb) = imgs["xla"], imgs["pallas"]
+    if la != 0 or lb <= 0:
+        raise AssertionError(f"{name}: B5 launched {la} times under xla and {lb} under pallas")
+    if not (np.isfinite(b).all() and np.array_equal(a.view(np.int32), b.view(np.int32)) and ra == rb):
+        raise AssertionError(f"{name}: pallas and xla images differ (max abs {np.abs(a - b).max()}, "
+                             f"rays {ra} vs {rb})")
+    return {"phase": "reference", "scene": name, "size": list(cam.image_size), "spp": 2, "max_depth": 4,
+            "pallas_eq_xla_bitwise": True, "b5_launches": lb, "rays": ra, "mean": float(b.mean())}
 
 
 def reference_check(name, scene, meta, gcam, gcfg, golden_key, dev, twin: bool = True):
@@ -711,9 +970,10 @@ def main() -> int:
     from yart_tpu_torch.cli import CAMERAS
     from yart_tpu_torch.config import CameraConfig, RenderConfig
     from yart_tpu_torch.kernels import brute, build
+    from yart_tpu_torch.ops import lut, qmc
     from yart_tpu_torch.render import bintrace, blocktrace
     from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres, textured_box_scene
-    from yart_tpu_torch.scene.showcase import atrium, instanced_leaves
+    from yart_tpu_torch.scene.showcase import atrium, instanced_leaves, roadster
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -730,7 +990,7 @@ def main() -> int:
     t0 = time.time()
     compiled = build.build_all()
     emit({"phase": "build", "kernels": list(compiled), "compiled_now": compiled,
-          "seconds": round(time.time() - t0, 3)})
+          "seconds": round(time.time() - t0, 3), "ptxas": {k: build.ptxas_report(k) for k in compiled}})
 
     # ---- 3. B1 vs plain twin --------------------------------------------
     scene, meta = cornell_box(extra_materials=True).compile(dev)
@@ -936,16 +1196,75 @@ def main() -> int:
                               torch.where(gh.mask, 100.0, -1.0), nee=True)
     emit({"phase": "bintrace", **rec_i2})
 
-    # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
+    # ---- 3j. B6 (the bounce's sampler draws) against its twin -----------
+    # The lane states of a 512x512 render's first chunk (4 samples a pixel:
+    # 2^20 lanes), at bounce 0 and 3, ZSobol at 16 spp (even log2spp) and
+    # 8 spp (odd: the pow2_samples branch), hash; and a ragged 1000.
+    b6 = []
+    for spp_j in (16, 8):
+        zs = qmc.ZSobolSampler(spp_j, (512, 512), device=dev)
+        lanes = pixel_lanes(512, 4, zs, dev)
+        for d0 in (4, 28):
+            b6.append(compare_draws(f"zsobol_{spp_j}spp_dim{d0}_2^20", zs, lanes, d0, timed=d0 == 4))
+            emit({"phase": "kernel", **b6[-1]})
+        b6.append(compare_draws(f"zsobol_{spp_j}spp_ragged_1000", zs, lanes[:1000].contiguous(), 12))
+        emit({"phase": "kernel", **b6[-1]})
+    hs = qmc.HashSampler(16, (512, 512), device=dev)
+    b6.append(compare_draws("hash_dim4_2^20", hs, pixel_lanes(512, 4, hs, dev), 4, timed=True))
+    emit({"phase": "kernel", **b6[-1]})
+    rec_j = b6[0]
+
+    # ---- 3k. B5 (the fused shade tail) against its twin -----------------
+    # The lanes of a real bounce (depth 1) of cornell-mat and atrium-ivy at
+    # 2^20 lanes and of roadster (metallic, transmissive and clearcoat
+    # gates on) at 2^16; 2^20 random lanes with all four gates on, also
+    # with mis and any_lights off; a set with whole dead blocks.
     cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
                                position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
-    rec, launches_cornell = render_main_path("cornell-mat", scene, meta, cornell_cam, args.spp, dev)
+    ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos, forward=ivy_fwd,
+                           exposure=3.0)
+    b5 = [compare_shade("cornell-mat_bounce1_2^20", *capture_shade_call(scene, meta, cornell_cam, 4, dev),
+                        timed=True)]
+    emit({"phase": "kernel", **b5[-1]})
+    b5.append(compare_shade("atrium-ivy_bounce1_2^20", *capture_shade_call(ivy, ivy_meta, ivy_cam, 4, dev),
+                            timed=True))
+    emit({"phase": "kernel", **b5[-1]})
+    t0 = time.time()
+    road, road_meta = roadster().compile(dev)
+    road_gates = (road_meta.any_metallic, road_meta.any_transmissive, road_meta.any_clearcoat,
+                  road_meta.any_anisotropy)
+    emit({"phase": "scene", "scene": "roadster", "n_tris": road_meta.n_tris, "gates": list(road_gates),
+          "build_s": round(time.time() - t0, 3)})
+    if not all(road_gates[:3]):
+        raise AssertionError(f"roadster's metallic, transmissive and clearcoat gates are not all on: {road_gates}")
+    road_pos, road_target = CAMERAS["roadster"]
+    road_fwd = tuple(t - p for p, t in zip(road_pos, road_target))
+    road_cam = CameraConfig(image_size=(256, 256), focal_length=35.0, position=road_pos, forward=road_fwd,
+                            exposure=1.0)
+    b5.append(compare_shade("roadster_bounce1_2^16", *capture_shade_call(road, road_meta, road_cam, 1, dev)))
+    emit({"phase": "kernel", **b5[-1]})
+    tables = lut.load_tables(dev)
+    rnd = random_shade_lanes(1 << 20, 3, dev)
+    all_gates = (True, True, True, True)
+    b5.append(compare_shade("random_all_gates_2^20", rnd, all_gates, True, True, tables, timed=True))
+    emit({"phase": "kernel", **b5[-1]})
+    b5.append(compare_shade("random_all_gates_mis_off", rnd, all_gates, False, True, tables))
+    emit({"phase": "kernel", **b5[-1]})
+    b5.append(compare_shade("random_all_gates_no_lights", rnd, all_gates, True, False, tables))
+    emit({"phase": "kernel", **b5[-1]})
+    b5.append(compare_shade("random_dead_blocks_2^16", random_shade_lanes(1 << 16, 4, dev, dead_blocks=True),
+                            all_gates, True, True, tables))
+    emit({"phase": "kernel", **b5[-1]})
+    del rnd
+
+    # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
+    rec, launches_cornell, off_cornell = render_main_path("cornell-mat", scene, meta, cornell_cam, args.spp, dev)
     emit(rec)
     if launches_cornell["brute_intersect"] <= 0:
         raise AssertionError("the cornell-mat render launched B1 no time")
 
     spheres_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=pos, forward=spheres_fwd)
-    rec, launches_spheres = render_main_path("spheres", spheres, spheres_meta, spheres_cam, args.spp, dev)
+    rec, launches_spheres, _ = render_main_path("spheres", spheres, spheres_meta, spheres_cam, args.spp, dev)
     emit(rec)
     if launches_spheres["presort_keys"] <= 0 or launches_spheres["fused_trace"] <= 0:
         raise AssertionError(f"the spheres render did not launch B2 and B3: {launches_spheres}")
@@ -953,9 +1272,7 @@ def main() -> int:
         raise AssertionError("a spheres ray went to B1 instead of the block trace")
 
     # ---- 4c. atrium-ivy (gated loop, B3 amask) ---------------------------
-    ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos, forward=ivy_fwd,
-                           exposure=3.0)
-    rec, launches_ivy = render_main_path("atrium-ivy", ivy, ivy_meta, ivy_cam, args.spp, dev)
+    rec, launches_ivy, off_ivy = render_main_path("atrium-ivy", ivy, ivy_meta, ivy_cam, args.spp, dev)
     rec["scene_build_s"] = round(author_s + compile_s, 3)
     emit(rec)
     if launches_ivy["presort_keys"] <= 0 or launches_ivy["fused_trace_modes"].get("amask", 0) <= 0:
@@ -966,7 +1283,7 @@ def main() -> int:
     # ---- 4d. this slice's main path: atrium-inst (B3 instanced) ---------
     inst_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=inst_pos, forward=inst_fwd,
                             exposure=3.0)
-    rec, launches_inst = render_main_path("atrium-inst", inst, inst_meta, inst_cam, args.spp, dev)
+    rec, launches_inst, _ = render_main_path("atrium-inst", inst, inst_meta, inst_cam, args.spp, dev)
     rec["scene_build_s"] = inst_build_s
     emit(rec)
     inst_modes = launches_inst["fused_trace_modes"]
@@ -979,13 +1296,46 @@ def main() -> int:
     # ---- 4e. this slice's main path: the dense atrium (bin-trace, B4) ---
     dense_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=dense_pos, forward=dense_fwd,
                              exposure=3.0)
-    rec, launches_dense = render_main_path("atrium-dense", dense, dense_meta, dense_cam, DENSE_SPP, dev)
+    rec, launches_dense, _ = render_main_path("atrium-dense", dense, dense_meta, dense_cam, DENSE_SPP, dev)
     rec["scene_build_s"] = dense_build_s
     emit(rec)
     if launches_dense["cluster_pairs"] <= 0:
         raise AssertionError(f"the dense atrium render launched B4 no time: {launches_dense}")
     if any(launches_dense[k] for k in ("brute_intersect", "presort_keys", "fused_trace")):
         raise AssertionError(f"a dense atrium ray left bin-trace for B1, B2 or B3: {launches_dense}")
+
+    # ---- 4f. this slice's main path: the fused shade tail (B6 + B5) -----
+    # cornell-mat and atrium-ivy with shade_kernel="pallas": B6 and B5 must
+    # launch once per bounce (per depth and compaction stage), no twin on
+    # CUDA; the intersection kernels' counts beside phase 4/4c's "off"
+    # render. The image against "off" at _assert_images_equivalent's bar
+    # (tests/test_shade_kernel.py:209-222) at the spp and depth where that
+    # test sets it (4 spp, depth 4), at 512x512; at 16 spp and depth 30 the
+    # two bodies' float orders drift apart over long paths (from the same
+    # state they take the same decisions), and the bar's four numbers are
+    # reported.
+    fused = {}
+    for name, sc, sc_meta, cam, off_img, off_l in (
+            ("cornell-mat", scene, meta, cornell_cam, off_cornell, launches_cornell),
+            ("atrium-ivy", ivy, ivy_meta, ivy_cam, off_ivy, launches_ivy)):
+        rec, lp, img = render_main_path(name, sc, sc_meta, cam, args.spp, dev, shade_kernel="pallas")
+        if lp["bounces"] <= 0 or lp["shade"] != lp["bounces"] or lp["draws"] != lp["bounces"]:
+            raise AssertionError(f"{name}: B5 / B6 launched {lp['shade']} / {lp['draws']} times "
+                                 f"over {lp['bounces']} bounces")
+        keys = ("brute_intersect", "presort_keys", "fused_trace", "cluster_pairs")
+        if any((lp[k] > 0) != (off_l[k] > 0) for k in keys):
+            raise AssertionError(f"{name}: pallas and off take different intersection kernels: {lp} vs {off_l}")
+        rec["off"] = {"launches": {k: off_l[k] for k in keys}, "fused_trace_modes": off_l["fused_trace_modes"],
+                      "bounces": off_l["bounces"], "rays": off_l["rays"]}
+        rec["vs_off_depth30"] = images_equivalent(off_img, img, off_l["rays"], lp["rays"])
+        _, l4o, i4o = render_main_path(name, sc, sc_meta, cam, 4, dev, max_depth=4)
+        _, l4p, i4p = render_main_path(name, sc, sc_meta, cam, 4, dev, shade_kernel="pallas", max_depth=4)
+        rec["vs_off_4spp_depth4"] = images_equivalent(i4o, i4p, l4o["rays"], l4p["rays"])
+        emit(rec)
+        if not rec["vs_off_4spp_depth4"]["meets_bar"]:
+            raise AssertionError(f"{name}: pallas against off at 4 spp, depth 4 misses the bar: "
+                                 f"{rec['vs_off_4spp_depth4']}")
+        fused[name] = (rec, lp)
 
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
@@ -1012,6 +1362,11 @@ def main() -> int:
     dcam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=dense_pos, forward=dense_fwd, exposure=3.0)
     emit(reference_check("atrium-dense", dense, dense_meta, dcam, icfg, None, dev))
     emit(instanced_vs_baked(inst, inst_meta, inst_pos, inst_fwd, dev))
+    emit(pallas_equals_xla("cornell-mat", scene, meta, gcam, dev))
+    emit(pallas_equals_xla("atrium-ivy", ivy, ivy_meta, CameraConfig(
+        image_size=(64, 64), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0), dev))
+    emit(pallas_equals_xla("roadster", road, road_meta, CameraConfig(
+        image_size=(64, 64), focal_length=35.0, position=road_pos, forward=road_fwd, exposure=1.0), dev))
 
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     print(json.dumps({"kernels": [
@@ -1055,6 +1410,26 @@ def main() -> int:
          "ms": rec_h["ms"], "plain_ms": rec_h["plain_ms"],
          "bound_ms": rec_h["bound_ms"], "bound_by": rec_h["bound_by"], "library_ms": None,
          "bench_bigscene_c16": {k: rec_hb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "shade", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/shade.cu",
+         "replaces": "yart_tpu/kernels/pallas_shade.py:168",
+         "launches": fused["cornell-mat"][1]["shade"],
+         "launches_by_path": {k: {"shade": v[1]["shade"], "bounces": v[1]["bounces"]} for k, v in fused.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in b5),
+         "ms": b5[0]["ms"], "plain_ms": b5[0]["plain_ms"],
+         "bound_ms": b5[0]["bound_ms"], "bound_by": b5[0]["bound_by"], "library_ms": None,
+         "atrium_ivy": {k: b5[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "random_all_gates": {k: b5[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "draws", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/draws.cu",
+         "replaces": "yart_tpu/kernels/pallas_shade.py:283",
+         "launches": fused["cornell-mat"][1]["draws"],
+         "launches_by_path": {k: {"draws": v[1]["draws"], "bounces": v[1]["bounces"]} for k, v in fused.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in b6),
+         "ms": rec_j["ms"], "plain_ms": rec_j["plain_ms"],
+         "bound_ms": rec_j["bound_ms"], "bound_by": rec_j["bound_by"], "library_ms": None,
+         "zsobol_odd_log2spp": {k: b6[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "hash": {k: b6[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

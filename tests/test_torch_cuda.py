@@ -1,6 +1,8 @@
-"""B1, B2, B3 and B4 on the card: each Hopper kernel against its plain
-PyTorch twin (B3 in its closest-hit, any-hit and alpha-mask modes, and in
-its instanced mode in each of them; B4 with dead blocks and empty rows),
+"""B1-B6 on the card: each Hopper kernel against its plain PyTorch twin
+(B3 in its closest-hit, any-hit and alpha-mask modes, and in its instanced
+mode in each of them; B4 with dead blocks and empty rows; B5 with every
+lobe gate on, dead blocks and mis off; B6 for ZSobol at even and odd
+log2spp and hash),
 the gated re-cast loop's and bin-trace's kernel paths against their twin
 paths, torch.argmin's first-minimum rule on the card, and renders that go
 through them.
@@ -18,8 +20,9 @@ import pytest
 import torch
 
 from yart_tpu_torch.config import CameraConfig, RenderConfig
-from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
-from yart_tpu_torch.render import bintrace, blocktrace
+from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
+from yart_tpu_torch.ops import lut, qmc
+from yart_tpu_torch.render import bintrace, blocktrace, integrator
 from yart_tpu_torch.render.renderer import Renderer
 from yart_tpu_torch.scene.builder import SceneBuilder
 from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
@@ -401,3 +404,93 @@ def test_bintrace_kernel_path_equals_plain_path(quad_soup, n_rays, nee):
     if not nee:  # the block trace's plane test, another traversal: the same closest hits
         ref = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max)
         assert (k.tri == ref[4]).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("kind", ["zsobol_16spp", "zsobol_8spp", "hash"])
+@pytest.mark.parametrize("n", [1000, 65536])
+def test_draws_kernel_equals_plain(dev, kind, n):
+    """B6 against the sampler's own draws, bitwise on all 8 outputs (8 spp:
+    odd log2spp, the pow2_samples branch; 1000: not a block multiple)."""
+    rng = np.random.default_rng(n)
+    px, py, s = (torch.from_numpy(rng.integers(0, hi, n)).to(dev) for hi in (512, 512, 8))
+    spp = 8 if kind == "zsobol_8spp" else 16
+    sampler = (qmc.HashSampler if kind == "hash" else qmc.ZSobolSampler)(spp, (512, 512), device=dev)
+    state = sampler.init_lanes(px, py, s)
+    for dim0 in (4, 28):
+        setup = shade.sampler_draw_setup(sampler, state, dim0)
+        before = shade.COUNTS_DRAWS.launches
+        k = shade.draws(setup, n)
+        assert shade.COUNTS_DRAWS.launches == before + 1
+        p = shade.draws_plain(setup, n)
+        torch.cuda.synchronize()
+        for key in shade.DRAW_OUT:
+            assert _bits_equal(k[key], p[key]), (key, dim0)
+
+
+def _shade_lanes(n, seed, dev, dead_blocks=False):
+    """B5's inputs for n random lanes with every lobe in play."""
+    rng = np.random.default_rng(seed)
+    uni = lambda lo=0.0, hi=1.0, shape=(n,): rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def unit():
+        v = rng.normal(size=(n, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32)
+
+    rough = uni()
+    rough[: n // 8] = uni(0.0, 0.03, (n // 8,))
+    active = rng.uniform(size=n) < 0.9
+    if dead_blocks:
+        active &= (np.arange(n) // 4096) % 2 == 1
+    a = dict(o=uni(-1, 1, (n, 3)), d=unit(), n=unit(), p=uni(-1, 1, (n, 3)), atten=uni(0.05, 1, (n, 3)),
+             last_p=uni(-1, 1, (n, 3)), base=uni(0.05, 1, (n, 3)),
+             emission=np.where(rng.uniform(size=(n, 1)) < 0.3, uni(0.5, 5, (n, 3)), 0).astype(np.float32),
+             volume_color=uni(0, 1, (n, 3)), ls_wi=unit(), ls_Li=uni(0, 4, (n, 3)), ls_n=unit(),
+             ls_p=uni(-2, 2, (n, 3)), roughness=rough, roughness_base=rough, ior=uni(1.05, 2.2),
+             aniso_rotation=uni(-3, 3), volume_density=uni(0, 2), active=active,
+             found=active & (rng.uniform(size=n) < 0.9))
+    for k in ("last_pdf", "acc_rough", "hit_t", "u0", "u1", "uc", "uc2", "u_rr", "metallic", "transmission",
+              "anisotropic", "clearcoat", "cc_roughness", "cc_roughness_base", "pdf_area", "sel_p", "ls_pdf",
+              "ls_select_p"):
+        a[k] = uni()
+    for k, q in (("specular_prev", 0.2), ("light_neg", 0.7), ("hit_back", 0.3), ("thin", 0.3),
+                 ("ls_valid", 0.9), ("ls_is_env", 0.3)):
+        a[k] = rng.uniform(size=n) < q
+    inp = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in a.items()}
+    inp.update(depth0=False, rr_on=True, reg_threshold=0.5)
+    return inp
+
+
+@pytest.mark.parametrize("case", ["all_gates", "dead_blocks", "mis_off", "no_lights", "gates_off"])
+def test_shade_kernel_equals_plain(dev, case):
+    """B5 against shade_math.shade, bitwise on every output and lane (the
+    kernel writes a dead lane's pass-through state, the twin zeroes its
+    contrib and shadow_d)."""
+    inp = _shade_lanes(65536 + 77, 5, dev, dead_blocks=case == "dead_blocks")
+    gates = (False, False, False, False) if case == "gates_off" else (True, True, True, True)
+    mis, any_lights = case != "mis_off", case != "no_lights"
+    tables = lut.load_tables(dev)
+    before = shade.COUNTS_SHADE.launches
+    k = shade.shade(inp, gates, mis, any_lights, tables)
+    assert shade.COUNTS_SHADE.launches == before + 1
+    p = shade.shade_plain(inp, gates, mis, any_lights, tables)
+    torch.cuda.synchronize()
+    for key in k:
+        assert _bits_equal(k[key], p[key].contiguous()), key
+    assert k["active"].any() and (k["nee_need"].any() or not (mis and any_lights))
+
+
+def test_fused_render_on_card_goes_through_b5_b6(dev):
+    """cornell-mat with shade_kernel="pallas": B6 and B5 once per bounce, no
+    twin on CUDA, the image equal bitwise to "xla"'s."""
+    scene, meta = cornell_box(extra_materials=True).compile()
+    cam = CameraConfig(image_size=(16, 16), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
+    imgs = {}
+    for mode in ("xla", "pallas"):
+        cfg = RenderConfig(samples=4, max_depth=6, tonemap="none", first_wave_samples=4, shade_kernel=mode)
+        for c in (shade.COUNTS_SHADE, shade.COUNTS_DRAWS, integrator.BOUNCES):
+            c.reset()
+        imgs[mode] = Renderer(scene, meta, cam, cfg).render().hdr
+        launches = (shade.COUNTS_SHADE.launches, shade.COUNTS_DRAWS.launches)
+        assert launches == ((0, 0) if mode == "xla" else (integrator.BOUNCES.bounces,) * 2), (mode, launches)
+        assert shade.COUNTS_SHADE.plain_cuda == shade.COUNTS_DRAWS.plain_cuda == 0
+    assert np.array_equal(imgs["xla"].view(np.int32), imgs["pallas"].view(np.int32))

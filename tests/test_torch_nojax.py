@@ -1,12 +1,13 @@
 """yart_tpu_torch imports no JAX: the machine with the GPU has none.
 
-A fresh interpreter imports every module of the port, builds and renders
-tiny cornell-mat, spheres, textured-box and instanced scenes through the
-renderer and the CLI (spheres through the block trace, the textured box
-through the gated brute, the instanced scene through B3's instanced
-mode), traces a few rays through bin-trace, parses the flagship scenes,
-and then checks that
-no module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
+A fresh interpreter in which jax and the JAX package cannot be imported
+imports every module of the port, builds and renders tiny cornell-mat
+(also with shade_kernel="pallas": B6's and B5's twins), spheres,
+textured-box and instanced scenes through the renderer and the CLI
+(spheres through the block trace, the textured box through the gated
+brute, the instanced scene through B3's instanced mode), traces a few rays
+through bin-trace, parses the flagship scenes, and then checks that no
+module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
 import subprocess
@@ -16,6 +17,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
+
+
+class _NoJax:
+    # jax, jaxlib and the JAX package cannot be imported in this process.
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "yart_tpu"):
+            raise ImportError(f"{name} cannot be imported here")
+        return None
+
+
+sys.meta_path.insert(0, _NoJax())
 import yart_tpu_torch
 for m in pkgutil.walk_packages(yart_tpu_torch.__path__, "yart_tpu_torch."):
     importlib.import_module(m.name)
@@ -29,6 +41,11 @@ parse_args(["cornell-mat", "--device", "cpu"])
 scene, meta = cornell_box(extra_materials=True).compile(device="cpu")
 res = Renderer(scene, meta, CameraConfig(image_size=(4, 4)), RenderConfig(samples=2, max_depth=2), device="cpu").render()
 assert res.samples_taken == 2
+# The fused shade tail: B6's and B5's twins on the CPU.
+from yart_tpu_torch.kernels import shade
+res = Renderer(scene, meta, CameraConfig(image_size=(4, 4)),
+               RenderConfig(samples=2, max_depth=3, shade_kernel="pallas"), device="cpu").render()
+assert res.samples_taken == 2 and res.hdr.mean() > 0 and shade.COUNTS_SHADE.launches == 0
 # spheres (14,402 triangles, env-lit) through the block trace's twins.
 from yart_tpu_torch.scene.procedural import material_test_spheres
 scene, meta = material_test_spheres().compile(device="cpu")
@@ -77,6 +94,8 @@ from yart_tpu_torch.cli import main
 with tempfile.TemporaryDirectory() as tmp:
     assert main(["spheres", "--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "2",
                  "--quiet", "-o", os.path.join(tmp, "s.png")]) == 0
+    assert main(["cornell-mat", "--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "3",
+                 "--shade-kernel", "pallas", "--quiet", "-o", os.path.join(tmp, "c.png")]) == 0
 bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu") or m.startswith(("jax.", "jaxlib", "yart_tpu.")))
 assert not bad, bad
 print("NO_JAX_OK")

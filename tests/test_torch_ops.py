@@ -25,8 +25,21 @@ from yart_tpu_torch.ops import tonemap as TT
 from yart_tpu_torch.ops import vecmath as TV
 from yart_tpu_torch.ops import warps as TW
 
-torch.set_num_threads(2)
 N = 4096
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """This module's tests run the port on one intra-op thread, set when
+    they start (every test module sets its own at import, so under xdist
+    the last import would win). With two, PyTorch's CPU unary math splits
+    an op at its 2048-element grain and the worker thread's results can
+    move (tests/test_torch_bsdf.py); test_vecmath's refract was seen off
+    by up to 2e-4 on the lanes such a worker computes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _unit(rng, n=N):

@@ -258,7 +258,7 @@ def test_renderer_refusals(cornell_mat):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Renderer(ts, tm, cam, cfg, devices=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, shade_kernel="pallas"), device="cpu").render()
+        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, diff_geometry=True), device="cpu").render()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"), device="cpu")
     for fields in (dict(n_instances=2), dict(n_instances=2, any_alpha=True)):  # the instanced slice
@@ -292,7 +292,7 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
         ["cornell", "--devices", "2"],
         ["cornell", "--distributed"],
         ["cornell", "--serve", "8000"],
-        ["cornell", "--shade-kernel", "pallas"],
+        ["cornell", "--serve-host", "0.0.0.0"],
         ["cornell", "--sampler", "stratified"],
         ["cornell", "--sampler", "zsobol:owen"],
         ["cornell", "--profile", "/tmp/x"],

@@ -9,8 +9,10 @@ Mirrors `yart_tpu/cli.py` for what the port supports: the `cornell` and
 the textured flagship scenes `atrium`, `roadster` and `luxball` (sky HDRI,
 block trace), `atrium-ivy` (alpha-tested ivy: the gated re-cast loop
 with B3's alpha-mask cull) and `atrium-inst` (the columns and planters as
-instances: B3's instanced mode), the MIS and naive integrators, the zsobol and hash samplers, every
-estimator, AgX with its looks, the thin-lens camera and checkpoint/resume. Every other scene or flag of the JAX CLI is refused
+instances: B3's instanced mode), the MIS and naive integrators, the fused
+shade tail (`--shade-kernel xla|pallas`: B6 + B5), the zsobol and hash
+samplers, every estimator, AgX with its looks, the thin-lens camera and
+checkpoint/resume. Every other scene or flag of the JAX CLI is refused
 with an error naming the ROADMAP.md item that will bring it; none is
 ignored.
 """
@@ -28,7 +30,6 @@ _REFUSED = {
     "config": (None, "A.10 application layer (JSON flag files)"),
     "env_hdr": (None, "A.10 application layer (io.load_hdr)"),
     "env_scale": (1.0, "A.10 application layer (io.load_hdr)"),
-    "shade_kernel": ("off", "A.11 shade kernels B5/B6"),
     "preview": (None, "A.10 application layer (preview PNG)"),
     "serve": (None, "A.10 application layer (preview server)"),
     "serve_host": ("127.0.0.1", "A.10 application layer (preview server)"),
@@ -65,6 +66,9 @@ def parse_args(argv=None):
     p.add_argument("--first-wave", type=int, default=8)
     p.add_argument("--max-wave", type=int, default=128)
     p.add_argument("--regularize-specular", type=int, default=None, metavar="K")
+    p.add_argument("--shade-kernel", choices=["off", "xla", "pallas"], default="off",
+                   help="bounce tail: off = classic; xla = the fused shade math in plain PyTorch; "
+                        "pallas = B6 + B5 as CUDA kernels")
     p.add_argument("--clamp", type=float, default=None)
     p.add_argument("--chunk-pixels", type=int, default=None)
     p.add_argument("--checkpoint", default=None)
@@ -73,7 +77,6 @@ def parse_args(argv=None):
     p.add_argument("--config", default=None, help=argparse.SUPPRESS)
     p.add_argument("--env-hdr", default=None, help=argparse.SUPPRESS)
     p.add_argument("--env-scale", type=float, default=1.0, help=argparse.SUPPRESS)
-    p.add_argument("--shade-kernel", default="off", help=argparse.SUPPRESS)
     p.add_argument("--preview", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve-host", default="127.0.0.1", help=argparse.SUPPRESS)
@@ -92,6 +95,10 @@ def parse_args(argv=None):
     for dest, (unused, item) in _REFUSED.items():
         if getattr(args, dest) != unused:
             p.error(f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md {item})")
+    if args.shade_kernel == "pallas" and args.regularize_specular is not None:
+        from yart_tpu_torch.render.integrator import PALLAS_REG_SPECULAR
+
+        p.error(f"--shade-kernel pallas --regularize-specular: {PALLAS_REG_SPECULAR}")
     if args.sampler not in ("zsobol", "zsobol:fastowen", "hash"):
         p.error(
             f"--sampler {args.sampler!r} is not ported yet (ROADMAP.md A.2: "
@@ -166,6 +173,7 @@ def render_configs(args):
         agx_look=args.look, seed=args.seed, first_wave_samples=args.first_wave,
         max_wave_samples=args.max_wave, lane_chunk=args.chunk_pixels,
         clamp=args.clamp, regularize_specular=args.regularize_specular,
+        shade_kernel=args.shade_kernel,
     )
     return cam, cfg
 

@@ -4,8 +4,8 @@ The port keeps its own copies so that it depends on nothing of the JAX
 package. Every field has the name and default of its counterpart in
 `yart_tpu/config.py` (tests/test_torch_render.py holds them equal), so a
 configuration written for one package reads the same in the other. Only
-the knobs this slice reads are here; `shade_kernel` and `diff_geometry`
-stay so that their unported values can be refused by name.
+the knobs the port reads are here; `diff_geometry` stays so that its
+unported value can be refused by name.
 """
 
 from __future__ import annotations
@@ -58,5 +58,9 @@ class RenderConfig:
     compact_factor: int = 4
     lane_chunk: Optional[int] = None  # pixels per chunk; None = ~2^20 lanes
     seed: int = 0
-    shade_kernel: str = "off"  # only "off" is ported
+    # The bounce tail: "off" = the classic body; "xla" = the component-form
+    # shade math (kernels/shade_math.py) in plain PyTorch; "pallas" = B6
+    # (sampler draws) + B5 (fused shade) as CUDA kernels on a CUDA device,
+    # their plain twins on the CPU. The names are the JAX package's.
+    shade_kernel: str = "off"
     diff_geometry: bool = False  # only False is ported (no gradients yet)

@@ -14,6 +14,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +28,8 @@ LIBRARIES = {
     "presort_keys": ("presort_keys.cu",),  # B2, kernels/presort.py
     "fused_trace": ("fused_trace.cu",),  # B3, kernels/fusedtrace.py
     "cluster_pairs": ("cluster_pairs.cu",),  # B4, kernels/clusterpairs.py
+    "shade": ("shade.cu",),  # B5, kernels/shade.py
+    "draws": ("draws.cu",),  # B6, kernels/shade.py
 }
 BUILD_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "yart_tpu_torch")
@@ -35,6 +38,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills; kept beside the library
 )
 
 @dataclasses.dataclass
@@ -101,6 +105,8 @@ def load(name: str) -> tuple:
                 f"nvcc failed building {name} (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        with open(os.path.join(os.path.dirname(path), "ptxas.txt"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
         os.replace(tmp, path)  # atomic: a concurrent loader sees old or new
         built = True
     lib = ctypes.CDLL(path)
@@ -113,3 +119,25 @@ def build_all() -> dict:
     started together. Returns {name: compiled_now}."""
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         return dict(zip(LIBRARIES, pool.map(lambda name: load(name)[1], LIBRARIES)))
+
+
+def ptxas_report(name: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} of library
+    `name` from the `-Xptxas -v` lines its build kept (empty if it was
+    built elsewhere)."""
+    txt = os.path.join(os.path.dirname(library_path(name, LIBRARIES[name])), "ptxas.txt")
+    if not os.path.exists(txt):
+        return {}
+    out, kernel = {}, None
+    with open(txt) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and kernel:
+                out.setdefault(kernel, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out.setdefault(kernel, {})["registers"] = int(m.group(1))
+    return out

@@ -2,6 +2,7 @@
 
     python -m yart_tpu_torch.profile_render spheres --spp 16 --size 512x512 [--out DIR]
     python -m yart_tpu_torch.profile_render atrium --density 3 --spp 4 --size 512x512
+    python -m yart_tpu_torch.profile_render cornell-mat --spp 4 --shade-kernel pallas
 
 Takes the CLI's scene, camera and render flags (after the scene name, any
 flag of `python -m yart_tpu_torch.cli`; `--density` multiplies the atrium
@@ -12,11 +13,12 @@ prints one JSON line:
 
 - wall seconds, rays and Mrays/s of both renders;
 - kernel launches and summed kernel milliseconds of the profiled render,
-  and the device's busy share there (kernel time / profiled wall; one
-  stream, so kernels do not overlap);
-- kernel milliseconds grouped as the port's kernels B1, B2, B3 and B4 (by
-  their CUDA function names), sorting, and the rest (PyTorch's own
-  kernels), with the 12 kernels of most device time;
+  the bounces it ran (one per depth per compaction stage) and the kernel
+  launches per bounce, and the device's busy share there (kernel time /
+  profiled wall; one stream, so kernels do not overlap);
+- kernel milliseconds grouped as the port's kernels B1-B6 (by their CUDA
+  function names), sorting, and the rest (PyTorch's own kernels), with
+  the 12 kernels of most device time;
 - bin-trace's phases (`render/bintrace.py`), from their profiler ranges:
   the collect loop (plain PyTorch) and the pair phase (layout, B4, the
   per-ray reduction), each with its calls, host milliseconds and the device
@@ -41,6 +43,8 @@ GROUPS = (  # (group, substring of the CUDA kernel's name, lower case)
     ("B2 presort_keys", "presort_keys_kernel"),
     ("B3 fused_trace", "fused_trace_kernel"),
     ("B4 cluster_pairs", "cluster_pairs_kernel"),
+    ("B5 shade", "shade_kernel"),
+    ("B6 draws", "draws_kernel"),
     ("sort", "sort"),  # cub's radix sort kernels ("DeviceRadixSort...")
 )
 
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from yart_tpu_torch import cli
-    from yart_tpu_torch.render import bintrace
+    from yart_tpu_torch.render import bintrace, integrator
 
     args = cli.parse_args(rest)
     if not torch.cuda.is_available() or torch.device(args.device).type != "cuda":
@@ -79,8 +83,10 @@ def main(argv=None) -> int:
     cam, cfg = cli.render_configs(args)
 
     plain = _render(scene, meta, cam, cfg, device)
+    integrator.BOUNCES.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = _render(scene, meta, cam, cfg, device)
+    bounces = integrator.BOUNCES.bounces
 
     by_name = collections.defaultdict(lambda: [0, 0.0])  # name -> [launches, us]
     ranges = {r: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0} for r in bintrace.RANGES}
@@ -94,6 +100,7 @@ def main(argv=None) -> int:
             by_name[e.name][0] += 1
             by_name[e.name][1] += e.device_time_total
     total_us = sum(us for _, us in by_name.values())
+    launches = sum(n for n, _ in by_name.values())
     groups = collections.OrderedDict((g, 0.0) for g, _ in GROUPS)
     groups["other"] = 0.0
     for name, (_, us) in by_name.items():
@@ -105,9 +112,10 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(os.path.join(own.out, "trace.json"))
     print(json.dumps({
         "scene": args.scene, "n_tris": meta.n_tris, "size": list(cam.image_size), "spp": cfg.samples,
-        "max_depth": cfg.max_depth, "device": torch.cuda.get_device_name(device),
+        "max_depth": cfg.max_depth, "shade_kernel": cfg.shade_kernel, "device": torch.cuda.get_device_name(device),
         "unprofiled": plain, "profiled": profiled,
-        "kernel_launches": sum(n for n, _ in by_name.values()), "kernel_ms": total_us / 1e3,
+        "kernel_launches": launches, "bounces": bounces, "launches_per_bounce": launches / max(bounces, 1),
+        "kernel_ms": total_us / 1e3,
         "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
         "kernel_ms_by_group": groups, "bintrace_phases": ranges,
         "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.config import RenderConfig
+from yart_tpu_torch.kernels import shade as SK
+from yart_tpu_torch.kernels import shade_math as SM
 from yart_tpu_torch.ops import lut
 from yart_tpu_torch.ops.qmc import M32
 from yart_tpu_torch.ops.vecmath import (
@@ -45,6 +47,12 @@ from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 INF = 1e30
 RAY_EPS = 1e-3  # tMin (mis-integrator.cpp:26)
+SHADE_KERNELS = ("off", "xla", "pallas")
+# The JAX package's refusal (yart_tpu/render/integrator.py:239-245).
+PALLAS_REG_SPECULAR = (
+    "regularize_specular is wired into the XLA shade paths only; the Pallas "
+    "shade kernel's packed-row layout does not carry the force_reg lane input"
+)
 
 
 class Shading(NamedTuple):
@@ -133,6 +141,20 @@ class _State:
         return _State(**{f: getattr(self, f)[idx] for f in self._LANE_FIELDS}, depth=self.depth)
 
 
+@dataclasses.dataclass
+class BounceCount:
+    """Bounces run (`_bounce` calls, one per depth per compaction stage),
+    so a run can hold the fused path's launches to one per bounce."""
+
+    bounces: int = 0
+
+    def reset(self) -> None:
+        self.bounces = 0
+
+
+BOUNCES = BounceCount()
+
+
 class _Counters:
     """Ray count and per-depth active-lane counts, accumulated as device
     tensors so the loop syncs only on its exit test."""
@@ -147,15 +169,15 @@ def _check_supported(meta: SceneMeta, cfg: RenderConfig, differentiable: bool) -
         raise NotImplementedError(
             "differentiable rendering is not ported yet (ROADMAP.md A.8)"
         )
-    if cfg.shade_kernel != "off":
-        raise NotImplementedError(
-            f"shade_kernel={cfg.shade_kernel!r}: the fused shade path (B5/B6) is "
-            "not ported yet (ROADMAP.md A.11)"
-        )
+    if cfg.shade_kernel not in SHADE_KERNELS:
+        raise ValueError(f"shade_kernel={cfg.shade_kernel!r}: expected one of {SHADE_KERNELS}")
+    if cfg.shade_kernel == "pallas" and cfg.regularize_specular is not None:
+        raise NotImplementedError(PALLAS_REG_SPECULAR)
 
 
 def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters, mis: bool) -> _State:
     """One bounce of every lane in `st` (the body of li's loop)."""
+    BOUNCES.bounces += 1
     n = st.active.shape[0]
     depth = st.depth
     dim0 = 4 + depth * 8
@@ -191,6 +213,9 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     # ---- surface shading ----
     sh = shading_data(scene, meta, hit, st.o, st.d)
     mat = B.resolve_material(scene, meta, sh.mat, sh.uv)
+    if cfg.shade_kernel != "off":
+        return _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st, cnt, hit, sh,
+                                  mat, found, L, dim0, bounce_seed, mis)
     u = sampler.get2d(lane_state, dim0)
     uc = sampler.get1d(lane_state, dim0 + 2)
     uc2 = sampler.get1d(lane_state, dim0 + 3)
@@ -292,14 +317,101 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     )
 
 
+def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters,
+                       hit, sh: Shading, mat, found, L, dim0: int, bounce_seed, mis: bool) -> _State:
+    """The fused-shade bounce tail (JAX integrator.py:141-313): the whole
+    post-intersect bounce goes through kernels/shade_math.py, assembled in
+    plain PyTorch (`shade_kernel="xla"`) or as B6 (the sampler draws) and
+    B5 (the shade tail) (`"pallas"`; their twins on CPU tensors). It
+    differs from `_bounce`'s classic tail as the JAX shade body does: B6
+    draws u_rr on every bounce, roulette scales by 1/max(1-q, 1e-9) only
+    for the lanes it spares, and `spec_depth` grows from the acc_rough
+    delta."""
+    n = st.active.shape[0]
+    dev = L.device
+    gates = (meta.any_metallic, meta.any_transmissive, meta.any_clearcoat, meta.any_anisotropy)
+    any_lights = bool(meta.n_lights > 0 or meta.has_env)
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    draws = None
+    if cfg.shade_kernel == "pallas":
+        setup = SK.sampler_draw_setup(sampler, lane_state, dim0)
+        if setup is not None:
+            draws = SK.draws(setup, n)
+    if draws is None:
+        u = sampler.get2d(lane_state, dim0)
+        draws = dict(u0=u[:, 0], u1=u[:, 1],
+                     uc=sampler.get1d(lane_state, dim0 + 2), uc2=sampler.get1d(lane_state, dim0 + 3),
+                     u_rr=sampler.get1d(lane_state, dim0 + 7) if mis else zero)
+
+    # Emitted-MIS light terms of the hit light (the "uniform" sampler's
+    # 1 / n_total, or its power share).
+    if mis and meta.n_lights:
+        lidx = torch.clamp(sh.light, 0, meta.n_lights - 1).long()
+        pdf_area = 1.0 / torch.clamp_min(scene.light_area[lidx], 1e-20)
+        sel_p = lights.select_p_area(scene, meta, lidx, kind=cfg.light_sampler)
+    else:
+        pdf_area = sel_p = zero
+
+    inp = dict(
+        o=st.o, d=st.d, n=sh.n, p=sh.p, atten=st.atten, active=st.active, found=found,
+        specular_prev=st.specular, acc_rough=st.acc_rough, last_pdf=st.last_pdf, last_p=st.last_p,
+        depth0=st.depth == 0, rr_on=st.depth + 1 >= cfg.rr_start_depth, light_neg=sh.light < 0,
+        hit_back=sh.back, hit_t=hit.t, reg_threshold=float(cfg.regularize_threshold),
+        pdf_area=pdf_area, sel_p=sel_p, **{k: draws[k] for k in ("u0", "u1", "uc", "uc2", "u_rr")},
+        **mat._asdict(),
+    )
+    if mis and any_lights:
+        if "uc_l" in draws:
+            uc_l, u_l = draws["uc_l"], torch.stack([draws["ul0"], draws["ul1"]], dim=-1)
+        else:
+            uc_l, u_l = sampler.get1d(lane_state, dim0 + 4), sampler.get2d(lane_state, dim0 + 5)
+        ls = lights.sample_light(scene, meta, sh.p, uc_l, u_l, kind=cfg.light_sampler)
+        inp.update(ls_wi=ls.wi, ls_Li=ls.Li, ls_pdf=ls.pdf, ls_select_p=ls.select_p, ls_n=ls.n,
+                   ls_p=ls.p, ls_valid=ls.valid, ls_is_env=ls.is_env)
+    else:
+        # candidates() still takes the NEE direction into the local frame.
+        inp["ls_wi"] = torch.zeros_like(sh.p)
+
+    if cfg.shade_kernel == "pallas":
+        # B5 takes contiguous tensors (a traversal's t can be a column view).
+        inp = {k: v.contiguous() if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+        out = SK.shade(inp, gates, mis, any_lights, tables)
+    else:
+        force_reg = None
+        if cfg.regularize_specular is not None:
+            force_reg = st.spec_depth >= cfg.regularize_specular
+        out = SM.shade(inp, gates, mis, any_lights, tables, force_reg=force_reg)
+
+    L = L + out["L_emit"]
+    if mis and any_lights:
+        occ = intersect(scene, meta, sh.p, out["shadow_d"], out["shadow_tmax"], t_min=RAY_EPS, nee=True,
+                        alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667)
+        cnt.rays += out["nee_need"].sum().to(torch.float64)
+        ok = out["nee_need"] & ~occ.mask
+        L = L + torch.where(ok[..., None], out["contrib"] * occ.attenuation, 0.0)
+
+    return _State(
+        o=out["o"], d=out["d"], L=L, atten=out["atten"], active=out["active"],
+        specular=out["specular"], acc_rough=out["acc_rough"], last_pdf=out["last_pdf"],
+        last_p=out["last_p"],
+        # Lanes that go on took this bounce's scatter; its sampled roughness
+        # is the acc_rough delta.
+        spec_depth=st.spec_depth + (out["active"] & ((out["acc_rough"] - st.acc_rough) < 0.3)).to(torch.int32),
+        depth=st.depth + 1,
+    )
+
+
 def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: RenderConfig,
        mis: bool = True, return_live: bool = False, differentiable: bool = False):
     """Trace radiance for a wavefront of camera rays.
 
     Returns (L [N, 3], ray count []) — plus the [max_depth] per-depth
     active-lane counts when `return_live` (the compaction autotune probe).
-    `lane_state` comes from `sampler.init_lanes`. `differentiable=True` is
-    refused: the gradient path is a later slice.
+    `lane_state` comes from `sampler.init_lanes`. `cfg.shade_kernel`
+    picks the bounce tail: "off" (the classic body), "xla" or "pallas"
+    (the fused shade body). `differentiable=True` is refused: the
+    gradient path is a later slice.
     """
     _check_supported(meta, cfg, differentiable)
     n = o.shape[0]
