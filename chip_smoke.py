@@ -110,10 +110,27 @@ exits non-zero and prints no final "ok" line:
                within rtol/atol 2e-2: tests/test_instancing.py's bar);
                cornell-mat, atrium-ivy and roadster at 64x64, 2 spp, depth
                4 with shade_kernel="pallas" equal bitwise to "xla".
-The kernels line lists B1-B6 with their launches on the main paths (B1:
+  3l. legacy — this slice's main path, the round-based block trace
+               (intersect_blocktrace(fused=False): B7a select_clusters and
+               B7b test_clusters) on the bench scene (C = 128): B7a and B7b
+               bitwise against their twins at 262,144 incoherent and
+               coherent rays, at round 1 and at the first later round with
+               converged blocks, timed, with their bounds; the whole cast at
+               262,144 rays with every count set to 0 just before and read
+               just after (B7a and B7b once per round, no twin, no B2/B3),
+               converged within 512 rounds (the blocks the JAX default of 64
+               leaves active reported), against the fused path (masks
+               equal, t bitwise, tri equal but on ties, u/v/back where tri
+               agrees), both walls; the kernel path against the twin path,
+               bitwise with equal rounds, at 2^16 rays (closest, nee, a
+               floored re-cast) and the gated loop with fused=False on
+               atrium-ivy's 2^16 camera rays. No render of phases 4-4f
+               may launch B7a or B7b.
+The kernels line lists B1-B7b with their launches on the main paths (B1:
 cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
 earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
-with "pallas", atrium-ivy beside it), times and bounds; then the card as
+with "pallas", atrium-ivy beside it; B7a, B7b: the incoherent round-based
+cast of 3l, the coherent one beside it), times and bounds; then the card as
 nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -139,7 +156,11 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_MT = 40  # B1: one Moller-Trumbore ray-triangle test
 FLOPS_SLAB = 24  # B2 and B3's sweep: one conservative ray-box slab test with margins
-FLOPS_PLANE = 30  # B3: one plane + barycentric ray-triangle test
+FLOPS_PLANE = 30  # B3 and B7b: one plane + barycentric ray-triangle test
+# B7a: one ray-box slab test without margins (6 multiplies, 6 subtracts, 6
+# min/max per axis pair, 4 across axes, the t_min max, 3 compares and the
+# running minimum over the block's rays).
+FLOPS_SELECT = 27
 # B3 amask: the alpha-mask bit test (2 multiplies, 4 clamps, index, shift),
 # counted on the candidates that run it (B3's output column 7).
 FLOPS_AMASK = 6
@@ -465,9 +486,179 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
     return rec
 
 
-def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool):
+def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool, fused: bool = True):
     """intersect_blocktrace_gated, kernel path against twin path, bitwise
-    on every Hit field and on the per-cast active counts."""
+    on every Hit field and on the per-cast active counts (and, with
+    fused=False, on the rounds of the round-based casts)."""
+    import torch
+
+    from yart_tpu_torch.render import blocktrace
+
+    trace_k, trace_p = [], []
+    torch.cuda.synchronize()
+    blocktrace.LEGACY.reset()
+    t0 = time.perf_counter()
+    hk = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
+                                               trace=trace_k, fused=fused)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rounds_k = blocktrace.LEGACY.rounds
+    blocktrace.LEGACY.reset()
+    t0 = time.perf_counter()
+    with intersection_forced_to_plain():
+        hp = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
+                                                   trace=trace_p, fused=fused)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = [f for f in hk._fields if not bits_equal(getattr(hk, f), getattr(hp, f))]
+    if diff or trace_k != trace_p or rounds_k != blocktrace.LEGACY.rounds:
+        raise AssertionError(f"{name}: gated loop kernel path and twin path differ in {diff}; "
+                             f"casts {trace_k} vs {trace_p}; rounds {rounds_k} vs {blocktrace.LEGACY.rounds}")
+    rec = {"case": name, "nee": nee, "fused": fused, "n_rays": int(o.shape[0]), "bitwise_equal": True,
+           "casts": len(trace_k), "active_per_cast": trace_k, "hit_frac": float(hk.mask.float().mean()),
+           "kernel_path_ms": ms, "twin_path_s": plain_s}
+    if not fused:
+        rec["rounds"] = rounds_k
+    return rec
+
+
+def compare_legacy_kernels(name, scene, meta, o, d, later: bool):
+    """B7a and B7b against their twins on the same card tensors, bitwise, at
+    one round of the round-based path with its default k = 24 (round 1, or
+    with `later` the first round with both converged and active blocks, as
+    blocktrace.round_inputs captures it from the path); timed, with their
+    bounds from this call's data.
+    Returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import blocktrace as legacy
+    from yart_tpu_torch.render import blocktrace
+
+    t_min, c, k = 1e-3, meta.cluster_size, 24
+    rays, w_key, act, rnd = blocktrace.round_inputs(scene, meta, o, d, 100.0, k, later, t_min)
+    box, pack = scene.clus_box, scene.clus_pack
+    sel = legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min)
+    sel_p = legacy.select_clusters_plain(rays, box, w_key, act, k, t_min)
+    torch.cuda.synchronize()
+    diff = [f for f, a, b in zip(("ids", "bound_key", "n_live"), sel, sel_p) if not torch.equal(a, b)]
+    sel_err = max(float((a.long() - b.long()).abs().max()) for a, b in zip(sel, sel_p))
+    if diff:
+        raise AssertionError(f"{name}: B7a kernel and plain twin differ in {diff} (max abs {sel_err})")
+    slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
+    out = legacy.test_clusters_cuda(rays, pack, *slots, c, k, t_min)
+    out_p = legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min)
+    torch.cuda.synchronize()
+    hit = out[:, 4].view(torch.int32) >= 0
+    test_err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
+    if not bits_equal(out, out_p):
+        cols = [i for i in range(8) if not bits_equal(out[:, i].contiguous(), out_p[:, i].contiguous())]
+        raise AssertionError(f"{name}: B7b kernel and plain twin differ in columns {cols} "
+                             f"(max abs t/u/v over hits {test_err})")
+    n_blocks, cpad, n_clus = act.shape[0], box.shape[1], blocktrace.n_clus(meta)
+    live_blocks, live_slots = int(act.sum()), int(slots[0].sum())
+    counts = blocktrace.cluster_counts(scene, meta)
+    slot_clus = slots[2][slots[0] != 0].long()
+    used = torch.unique(slot_clus)
+    live_tris, used_tris = int(counts[slot_clus].sum()), int(counts[used].sum())
+    rec = {"case": name, "round": rnd, "k": k, "n_rays": int(o.shape[0]), "n_clusters": int(n_clus),
+           "cpad": int(cpad), "c": int(c), "bitwise_equal": True, "live_blocks": live_blocks,
+           "n_blocks": int(n_blocks), "live_slots": live_slots, "live_slot_tris": live_tris,
+           "blocks_overflowing_k": int((sel[1][act != 0] != legacy.KEY_DEAD).sum()),
+           "new_hits": int(hit.sum()), "select_max_abs_err": sel_err, "test_max_abs_err": test_err}
+    rec["select_ms"] = cuda_ms(lambda: legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min), reps=11)
+    rec["select_plain_ms"] = cuda_ms(lambda: legacy.select_clusters_plain(rays, box, w_key, act, k, t_min),
+                                     reps=3)
+    # Work: the active blocks' rays against the real boxes (the pad boxes
+    # past n_clus can give no key). Bytes: those rays, the real boxes, the
+    # window keys and flags, the outputs.
+    rec["select_bound_ms"], rec["select_bound_by"] = bound(
+        FLOPS_SELECT * live_blocks * legacy.BLOCK * n_clus,
+        nbytes(rays) * live_blocks // n_blocks + n_clus * box.shape[0] * 4 + nbytes(w_key, act, *sel))
+    rec["test_ms"] = cuda_ms(lambda: legacy.test_clusters_cuda(rays, pack, *slots, c, k, t_min), reps=11)
+    rec["test_plain_ms"] = cuda_ms(lambda: legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min), reps=1,
+                                   warmup_s=0.0, warmup_calls=1)
+    # Work: the block's rays against the real triangles of each live slot's
+    # cluster. Bytes: every ray in and out, the slot tables, pack rows 0-3
+    # of the real triangles of each cluster a live slot names.
+    rec["test_bound_ms"], rec["test_bound_by"] = bound(
+        FLOPS_PLANE * legacy.BLOCK * live_tris, nbytes(rays, *slots, out) + used_tris * 4 * 3 * 4)
+    return rec
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median host-clock milliseconds of fn() ending in a synchronize,
+    after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def legacy_cast(name, scene, meta, o, d, t_max):
+    """This slice's main path: one intersect_blocktrace(fused=False) cast
+    on the card with every count set to 0 just before and read just after
+    (B7a and B7b once per round, no twin, no B2 or B3), converged within
+    512 rounds, held to the fused path on the same rays: masks equal, t
+    bitwise on every lane, tri equal except where both triangles lie at
+    the same t, u/v/back equal where tri agrees. Both walls timed. Returns
+    (record, {kernel: launches})."""
+    import torch
+
+    from yart_tpu_torch.kernels import blocktrace as legacy
+    from yart_tpu_torch.kernels import fusedtrace, presort
+    from yart_tpu_torch.render import blocktrace
+
+    max_rounds = 512
+    trace = []
+    reset_counts()
+    h = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, fused=False, max_rounds=max_rounds, trace=trace)
+    torch.cuda.synchronize()
+    launches = {"select_clusters": legacy.COUNTS_SELECT.launches, "test_clusters": legacy.COUNTS_TEST.launches,
+                "plain_cuda": legacy.COUNTS_SELECT.plain_cuda + legacy.COUNTS_TEST.plain_cuda,
+                "presort_keys": presort.COUNTS.launches, "fused_trace": fusedtrace.COUNTS.launches,
+                "rounds": blocktrace.LEGACY.rounds}
+    if launches["select_clusters"] != len(trace) or launches["test_clusters"] != len(trace) \
+            or launches["plain_cuda"] or launches["presort_keys"] or launches["fused_trace"]:
+        raise AssertionError(f"{name}: the round-based cast did not run B7a and B7b once per round alone: "
+                             f"{launches}, {len(trace)} rounds")
+    if len(trace) >= max_rounds:
+        raise AssertionError(f"{name}: blocks still active after {max_rounds} rounds")
+    f = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max)
+    torch.cuda.synchronize()
+    hit, f_hit = h[4] >= 0, f[4] >= 0
+    if not torch.equal(hit, f_hit) or not bits_equal(h[0], f[0]):
+        raise AssertionError(f"{name}: round-based and fused casts differ in the mask or in t")
+    # Each path's t is its own triangle's t from the same plane test, so
+    # with t bit-equal on every lane a lane whose tri differs is a tie: both
+    # triangles lie at the same t (B7b keeps the earlier slot, B3 the lower
+    # triangle index).
+    same = h[4] == f[4]
+    tie = hit & ~same
+    for i, field in ((1, "u"), (2, "v"), (3, "back")):
+        if not torch.equal(h[i][same & hit], f[i][same & hit]):
+            raise AssertionError(f"{name}: {field} differs where tri agrees")
+    rec = {"case": name, "n_rays": int(o.shape[0]), "rounds": len(trace), "active_blocks_per_round": trace,
+           "unconverged_blocks_at_64_rounds": trace[64] if len(trace) > 64 else 0,
+           "launches": launches, "hit_frac": float(hit.float().mean()), "tri_ties": int(tie.sum()),
+           "slots_tested_per_ray": float(h[5].double().mean())}
+    rec["legacy_ms"] = wall_ms(lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, fused=False,
+                                                                      max_rounds=max_rounds))
+    rec["fused_ms"] = wall_ms(lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max))
+    rec["legacy_over_fused"] = rec["legacy_ms"] / rec["fused_ms"]
+    return rec, launches
+
+
+def compare_legacy_paths(name, scene, meta, o, d, t_max, nee: bool = False, floor=None):
+    """intersect_blocktrace(fused=False), kernel path against twin path,
+    bitwise on every output and on the active blocks of every round."""
     import torch
 
     from yart_tpu_torch.render import blocktrace
@@ -475,23 +666,24 @@ def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool):
     trace_k, trace_p = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hk = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
-                                               trace=trace_k)
+    hk = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, fused=False,
+                                         trace=trace_k)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     with intersection_forced_to_plain():
-        hp = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seeds,
-                                                   trace=trace_p)
+        hp = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, fused=False,
+                                             trace=trace_p)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    diff = [f for f in hk._fields if not bits_equal(getattr(hk, f), getattr(hp, f))]
+    fields = ("t", "u", "v", "back", "tri", "slots_tested", "tris_tested")
+    diff = [f for f, a, b in zip(fields, hk, hp) if not bits_equal(a, b)]
     if diff or trace_k != trace_p:
-        raise AssertionError(f"{name}: gated loop kernel path and twin path differ in {diff}; "
-                             f"casts {trace_k} vs {trace_p}")
-    return {"case": name, "nee": nee, "n_rays": int(o.shape[0]), "bitwise_equal": True,
-            "casts": len(trace_k), "active_per_cast": trace_k, "hit_frac": float(hk.mask.float().mean()),
-            "kernel_path_ms": ms, "twin_path_s": plain_s}
+        raise AssertionError(f"{name}: round-based kernel path and twin path differ in {diff}; "
+                             f"rounds {trace_k} vs {trace_p}")
+    return {"case": name, "nee": nee, "floor": floor is not None, "n_rays": int(o.shape[0]),
+            "bitwise_equal": True, "rounds": len(trace_k), "active_blocks_per_round": trace_k,
+            "hit_frac": float((hk[4] >= 0).float().mean()), "kernel_path_ms": ms, "twin_path_s": plain_s}, hk
 
 
 def b4_work(lay, c: int):
@@ -753,23 +945,29 @@ def pixel_lanes(side: int, spp: int, sampler, dev):
 
 @contextlib.contextmanager
 def intersection_forced_to_plain():
-    """Test-only switch for phase 5: route the render path's B1, B2 and B3
-    calls to the plain twins (on the same CUDA tensors) instead of the
-    kernels."""
+    """Test-only switch for phases 3e, 3i, 3l and 5: route the intersection
+    paths' B1, B2, B3, B4, B7a and B7b calls to the plain twins (on the
+    same CUDA tensors) instead of the kernels."""
+    from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
 
-    saved = brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs
+    saved = (brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs,
+             legacy.select_clusters, legacy.test_clusters)
     brute.brute_intersect = brute.brute_plain
     presort.presort_keys = presort.presort_plain
     fusedtrace.fused_trace = fusedtrace.fused_trace_plain
     clusterpairs.cluster_pairs = clusterpairs.cluster_pairs_plain
+    legacy.select_clusters = legacy.select_clusters_plain
+    legacy.test_clusters = legacy.test_clusters_plain
     try:
         yield
     finally:
-        brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs = saved
+        (brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace, clusterpairs.cluster_pairs,
+         legacy.select_clusters, legacy.test_clusters) = saved
 
 
 def reset_counts():
+    from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
     from yart_tpu_torch.render import bintrace, blocktrace, integrator
 
@@ -777,7 +975,10 @@ def reset_counts():
         m.COUNTS.reset()
     shade.COUNTS_SHADE.reset()
     shade.COUNTS_DRAWS.reset()
+    legacy.COUNTS_SELECT.reset()
+    legacy.COUNTS_TEST.reset()
     blocktrace.GATED.reset()
+    blocktrace.LEGACY.reset()
     integrator.BOUNCES.reset()
 
 
@@ -790,6 +991,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
 
     from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.io.image import write_png
+    from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
     from yart_tpu_torch.render import bintrace, blocktrace, integrator
     from yart_tpu_torch.render.renderer import Renderer
@@ -814,7 +1016,8 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
     wall = time.time() - t0
     launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
                 "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches,
-                "shade": shade.COUNTS_SHADE.launches, "draws": shade.COUNTS_DRAWS.launches}
+                "shade": shade.COUNTS_SHADE.launches, "draws": shade.COUNTS_DRAWS.launches,
+                "select_clusters": legacy.COUNTS_SELECT.launches, "test_clusters": legacy.COUNTS_TEST.launches}
     bounces = integrator.BOUNCES.bounces
     modes = dict(fusedtrace.COUNTS.modes)
     gated = {"calls": blocktrace.GATED.calls, "casts": blocktrace.GATED.casts,
@@ -824,10 +1027,13 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
             "collect_iters_per_round": sum(bt.iters) / max(len(bt.iters), 1),
             "collect_iters_max": max(bt.iters, default=0)}
     plain_cuda = (brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
-                  + clusterpairs.COUNTS.plain_cuda + shade.COUNTS_SHADE.plain_cuda + shade.COUNTS_DRAWS.plain_cuda)
+                  + clusterpairs.COUNTS.plain_cuda + shade.COUNTS_SHADE.plain_cuda + shade.COUNTS_DRAWS.plain_cuda
+                  + legacy.COUNTS_SELECT.plain_cuda + legacy.COUNTS_TEST.plain_cuda)
     peak = torch.cuda.max_memory_allocated(dev)
     if plain_cuda != 0:
         raise AssertionError(f"{name}: the plain twins ran {plain_cuda} times on CUDA tensors in the render")
+    if launches["select_clusters"] or launches["test_clusters"]:
+        raise AssertionError(f"{name}: a render took the round-based block trace (B7a / B7b): {launches}")
     hdr = res.hdr
     if not np.isfinite(hdr).all() or not hdr.mean() > 0.01:
         raise AssertionError(f"{name}: bad image: finite={np.isfinite(hdr).all()} mean={hdr.mean()}")
@@ -1257,6 +1463,42 @@ def main() -> int:
     emit({"phase": "kernel", **b5[-1]})
     del rnd
 
+    # ---- 3l. this slice's main path: the round-based block trace ---------
+    # intersect_blocktrace(fused=False) with B7a (select) and B7b (test) on
+    # the bench scene (C = 128) at 262,144 incoherent and coherent rays:
+    # each kernel against its twin at round 1 and at a later round; the
+    # whole cast with every count reset just before and read just after,
+    # against the fused path; its kernel path against its twin path at 2^16
+    # rays (closest, nee, a floored re-cast) and the gated loop with
+    # fused=False on atrium-ivy's 2^16 camera rays.
+    t0 = time.time()
+    b7, b7_cast, b7_launches = [], {}, {}
+    bench_lanes = 262144  # bench.py's lane count
+    for case, coherent in (("incoherent", False), ("coherent", True)):
+        lo, ld = (torch.from_numpy(a).to(dev) for a in make_rays(bench_lanes, coherent))
+        for later in (False, True):
+            b7.append(compare_legacy_kernels(f"bigscene_{case}_{'later' if later else 'round1'}", big, big_meta,
+                                             lo, ld, later))
+            emit({"phase": "kernel", **b7[-1]})
+        b7_cast[case], b7_launches[case] = legacy_cast(f"bigscene_{case}", big, big_meta, lo, ld,
+                                                       torch.full((bench_lanes,), 100.0, device=dev))
+        emit({"phase": "legacy", **b7_cast[case]})
+    po, pd = (torch.from_numpy(a).to(dev) for a in make_rays(1 << 16, False))
+    pt = torch.full((1 << 16,), 100.0, device=dev)
+    rec_l, hl = compare_legacy_paths("bigscene_closest_2^16", big, big_meta, po, pd, pt)
+    emit({"phase": "legacy", **rec_l})
+    emit({"phase": "legacy", **compare_legacy_paths("bigscene_nee_2^16", big, big_meta, po, pd,
+                                                    torch.full((1 << 16,), 8.0, device=dev), nee=True)[0]})
+    emit({"phase": "legacy", **compare_legacy_paths("bigscene_floor_2^16", big, big_meta, po, pd, pt,
+                                                    floor=hl[0])[0]})
+    lgo, lgd, lgseed = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=ivy_pos,
+                                                forward=ivy_fwd), dev, seeds=True)
+    emit({"phase": "gated", **compare_gated("atrium_ivy_camera_2^16_round_based", ivy, ivy_meta, lgo, lgd,
+                                            torch.full((lgo.shape[0],), 1e30, device=dev), lgseed, nee=False,
+                                            fused=False)})
+    emit({"phase": "legacy_total", "seconds": round(time.time() - t0, 3)})
+    del lo, ld, po, pd, pt, hl, lgo, lgd, lgseed
+
     # ---- 4. main paths: cornell-mat (B1) and spheres (B2 + B3) ----------
     rec, launches_cornell, off_cornell = render_main_path("cornell-mat", scene, meta, cornell_cam, args.spp, dev)
     emit(rec)
@@ -1430,6 +1672,26 @@ def main() -> int:
          "bound_ms": rec_j["bound_ms"], "bound_by": rec_j["bound_by"], "library_ms": None,
          "zsobol_odd_log2spp": {k: b6[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "hash": {k: b6[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "select_clusters", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/select_clusters.cu",
+         "replaces": "yart_tpu/kernels/pallas_blocktrace.py:174",
+         "launches": b7_launches["incoherent"]["select_clusters"],
+         "launches_by_path": {k: v["select_clusters"] for k, v in b7_launches.items()},
+         "max_abs_err": max(r["select_max_abs_err"] for r in b7),
+         "ms": b7[0]["select_ms"], "plain_ms": b7[0]["select_plain_ms"],
+         "bound_ms": b7[0]["select_bound_ms"], "bound_by": b7[0]["select_bound_by"], "library_ms": None,
+         **{f"{r['case']}": {k: r[f"select_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in b7[1:]}},
+        {"name": "test_clusters", "route": "cuda",
+         "source": "yart_tpu_torch/csrc/test_clusters.cu",
+         "replaces": "yart_tpu/kernels/pallas_blocktrace.py:294",
+         "launches": b7_launches["incoherent"]["test_clusters"],
+         "launches_by_path": {k: v["test_clusters"] for k, v in b7_launches.items()},
+         "max_abs_err": max(r["test_max_abs_err"] for r in b7),
+         "ms": b7[0]["test_ms"], "plain_ms": b7[0]["test_plain_ms"],
+         "bound_ms": b7[0]["test_bound_ms"], "bound_by": b7[0]["test_bound_by"], "library_ms": None,
+         **{f"{r['case']}": {k: r[f"test_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in b7[1:]}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

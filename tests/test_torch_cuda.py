@@ -1,11 +1,12 @@
-"""B1-B6 on the card: each Hopper kernel against its plain PyTorch twin
+"""B1-B7b on the card: each Hopper kernel against its plain PyTorch twin
 (B3 in its closest-hit, any-hit and alpha-mask modes, and in its instanced
 mode in each of them; B4 with dead blocks and empty rows; B5 with every
 lobe gate on, dead blocks and mis off; B6 for ZSobol at even and odd
-log2spp and hash),
-the gated re-cast loop's and bin-trace's kernel paths against their twin
-paths, torch.argmin's first-minimum rule on the card, and renders that go
-through them.
+log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 2 and
+24, a ragged lane count), the gated re-cast loop's (fused and
+round-based), bin-trace's and the round-based block trace's kernel paths
+against their twin paths, torch.argmin's first-minimum rule on the card,
+and renders that go through them.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from yart_tpu_torch.config import CameraConfig, RenderConfig
+from yart_tpu_torch.kernels import blocktrace as legacy
 from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
 from yart_tpu_torch.ops import lut, qmc
 from yart_tpu_torch.render import bintrace, blocktrace, integrator
@@ -494,3 +496,85 @@ def test_fused_render_on_card_goes_through_b5_b6(dev):
         assert launches == ((0, 0) if mode == "xla" else (integrator.BOUNCES.bounces,) * 2), (mode, launches)
         assert shade.COUNTS_SHADE.plain_cuda == shade.COUNTS_DRAWS.plain_cuda == 0
     assert np.array_equal(imgs["xla"].view(np.int32), imgs["pallas"].view(np.int32))
+
+
+@pytest.mark.parametrize("windowed", [False, True], ids=["round1", "windowed"])
+@pytest.mark.parametrize("k", [2, 24])
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_select_and_test_clusters_kernels_equal_plain(quad_soup, n_rays, k, windowed):
+    scene, meta = quad_soup
+    o, d = _trace_rays(n_rays, 13 * n_rays, scene.clus_box.device)
+    rays, w_key, act, _ = blocktrace.round_inputs(scene, meta, o, d, 100.0, k, windowed)
+    before = legacy.COUNTS_SELECT.launches, legacy.COUNTS_TEST.launches
+    sel = legacy.select_clusters(rays, scene.clus_box, w_key, act, k, 1e-3)
+    sel_p = legacy.select_clusters_plain(rays, scene.clus_box, w_key, act, k, 1e-3)
+    slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
+    out = legacy.test_clusters(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3)
+    out_p = legacy.test_clusters_plain(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3)
+    torch.cuda.synchronize()
+    assert (legacy.COUNTS_SELECT.launches, legacy.COUNTS_TEST.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(sel, sel_p):
+        assert torch.equal(a, b)
+    assert _bits_equal(out, out_p)
+    assert (out[:, 4].view(torch.int32) >= 0).any()
+    assert (sel[2][act == 0] == 0).all()
+
+
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("n_rays", [1000, 65536])
+def test_legacy_trace_kernel_path_equals_plain_path(quad_soup, n_rays, nee):
+    scene, meta = quad_soup
+    o, d = _trace_rays(n_rays, 17 * n_rays, scene.clus_box.device)
+    t_max = torch.full((n_rays,), 8.0 if nee else 100.0, device=o.device)
+    t_max[: n_rays // 8] = -1.0
+    floor = torch.zeros(n_rays, device=o.device)
+    floor[n_rays // 2 :] = 1.5
+    legacy.COUNTS_SELECT.reset()
+    legacy.COUNTS_TEST.reset()
+    trace_k, trace_p = [], []
+    k = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, fused=False, k=4,
+                                        max_rounds=512, trace=trace_k)
+    assert legacy.COUNTS_SELECT.launches == legacy.COUNTS_TEST.launches == len(trace_k) >= 2
+    assert legacy.COUNTS_SELECT.plain_cuda == legacy.COUNTS_TEST.plain_cuda == 0
+    saved = legacy.select_clusters, legacy.test_clusters
+    legacy.select_clusters, legacy.test_clusters = legacy.select_clusters_plain, legacy.test_clusters_plain
+    try:
+        p = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor, fused=False, k=4,
+                                            max_rounds=512, trace=trace_p)
+    finally:
+        legacy.select_clusters, legacy.test_clusters = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert trace_k == trace_p
+    hit = k[4] >= 0
+    assert 0.05 < hit.float().mean() < 0.95 and not hit[: n_rays // 8].any()
+    assert (k[0][hit & (floor > 0)] > 1.5).all()
+    fused = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee, floor=floor)
+    assert torch.equal(hit, fused[4] >= 0)
+    if not nee:
+        assert _bits_equal(k[0], fused[0])
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_gated_legacy_loop_kernel_path_equals_plain_path(ivy_soup, nee):
+    scene, meta, o, d, seed = ivy_soup
+    t_max = 6.0 if nee else 100.0
+    legacy.COUNTS_SELECT.reset()
+    trace_k, trace_p = [], []
+    k = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed, trace=trace_k,
+                                              fused=False)
+    assert legacy.COUNTS_SELECT.launches > 0 and legacy.COUNTS_SELECT.plain_cuda == 0
+    saved = legacy.select_clusters, legacy.test_clusters
+    legacy.select_clusters, legacy.test_clusters = legacy.select_clusters_plain, legacy.test_clusters_plain
+    try:
+        p = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed,
+                                                  trace=trace_p, fused=False)
+    finally:
+        legacy.select_clusters, legacy.test_clusters = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert trace_k == trace_p and len(trace_k) >= 3
+    fused = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed)
+    assert torch.equal(k.mask, fused.mask)

@@ -6,7 +6,7 @@ imports every module of the port, builds and renders tiny cornell-mat
 textured-box and instanced scenes through the renderer and the CLI
 (spheres through the block trace, the textured box through the gated
 brute, the instanced scene through B3's instanced mode), traces a few rays
-through bin-trace, parses the flagship scenes, and then checks that no
+through bin-trace and the round-based block trace (plain and gated), parses the flagship scenes, and then checks that no
 module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
 
 import os
@@ -58,6 +58,10 @@ from yart_tpu_torch.render.bintrace import intersect_bintrace
 o = torch.tensor([[0.0, 2.2, 5.5]]).repeat(64, 1)
 d = torch.nn.functional.normalize(torch.tensor([[0.0, -1.8, -6.1]]) + 0.01 * torch.randn(64, 3), dim=1)
 assert intersect_bintrace(scene, meta, o, d, 100.0).mask.any()
+# The round-based block trace (B7a's and B7b's twins), plain and gated.
+from yart_tpu_torch.render.blocktrace import intersect_blocktrace, intersect_blocktrace_gated
+assert (intersect_blocktrace(scene, meta, o, d, 100.0, fused=False)[4] >= 0).any()
+assert intersect_blocktrace_gated(scene, meta, o, d, 100.0, fused=False).mask.any()
 # The textured box (every texture class, alpha cutout, thin glass) through
 # the gated brute; the flagship scenes parse.
 from yart_tpu_torch.scene.procedural import textured_box_scene

@@ -30,6 +30,8 @@ LIBRARIES = {
     "cluster_pairs": ("cluster_pairs.cu",),  # B4, kernels/clusterpairs.py
     "shade": ("shade.cu",),  # B5, kernels/shade.py
     "draws": ("draws.cu",),  # B6, kernels/shade.py
+    "select_clusters": ("select_clusters.cu",),  # B7a, kernels/blocktrace.py
+    "test_clusters": ("test_clusters.cu",),  # B7b, kernels/blocktrace.py
 }
 BUILD_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "yart_tpu_torch")

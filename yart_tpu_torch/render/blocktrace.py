@@ -1,12 +1,14 @@
 """Block-trace: presorted block traversal for big scenes.
 
-Port of `yart_tpu/render/blocktrace.py`'s fused path:
-`intersect_blocktrace` (:217-349), `_fused_order` (:179-214), `_hit_gates`
-and `intersect_blocktrace_gated` (:422-658), for plain and instanced
-scenes. An instanced scene's traversal clusters are its (instance,
-prototype cluster) pairs (`_n_clus`, :96-100): B2 sweeps their world boxes
-in `clus_box` unchanged, and B3 runs in its instanced mode, mapping each
-ray into the prototype's object space per tested cluster.
+Port of `yart_tpu/render/blocktrace.py`: `intersect_blocktrace` (:217-419)
+with its fused path and its round-based path (`fused=False`),
+`_pad_sorted` (:128-176), `_fused_order` (:179-214), `_hit_gates` and
+`intersect_blocktrace_gated` (:422-658), for plain and instanced scenes
+(the round-based path for plain scenes only). An instanced scene's
+traversal clusters are its (instance, prototype cluster) pairs (`_n_clus`,
+:96-100): B2 sweeps their world boxes in `clus_box` unchanged, and B3 runs
+in its instanced mode, mapping each ray into the prototype's object space
+per tested cluster.
 
 One cast (`intersect_blocktrace`):
 1. the rays become one [N, 8] matrix (o, d, t_max, floor), padded to whole
@@ -52,6 +54,28 @@ Tail compaction: once the active count fits `cap = ceil(n // 6 / 128) *
 128` lanes, the survivors move (stable sort, active first) into a
 `cap`-lane set with its own presort, finish there, and scatter back.
 
+The round-based path (`fused=False`, the JAX package's original
+pipeline; only tests reach it there too). The rays are sorted by
+`coherence_key` (octant, origin Morton cell) with the lanes at t_max <= 0
+last, and padded to whole 128-ray blocks with copies of the last lane at
+t_max = -1. Every round, for the blocks still active:
+1. B7a (kernels/blocktrace.py `select_clusters`) keys every cluster box by
+   its least entry over the block's rays and picks the K lexicographically
+   smallest keys at or above the block's window key;
+2. B7b (`test_clusters`) tests the block's rays against those K clusters
+   in order, each ray from its best hit so far, and improved rays take the
+   new hit;
+3. the least key left over (`bound_key`) becomes the block's next window.
+   A block is done when nothing was left over, or when every ray's best t
+   is at or below that key's entry (the entry bits with the id cleared,
+   a lower bound on every untested cluster's entry); with `nee` a ray that
+   has a hit is done too.
+One host sync per round (the active count), at most `max_rounds` rounds;
+blocks still active then keep the hits found so far, as in the JAX
+package. `LEGACY` counts calls and rounds. B7b breaks bit-equal t by the
+earlier slot and the lower column, B3 by the lower triangle index, so the
+two paths may name different triangles at one t; t and the mask agree.
+
 CUDA tensors run the kernels, CPU tensors their plain twins.
 """
 
@@ -61,6 +85,7 @@ import dataclasses
 
 import torch
 
+from yart_tpu_torch.kernels import blocktrace as _bk
 from yart_tpu_torch.kernels import fusedtrace as _ft
 from yart_tpu_torch.kernels import presort as _ps
 from yart_tpu_torch.ops.qmc import alpha_draw
@@ -86,6 +111,22 @@ class GatedCounts:
 
 
 GATED = GatedCounts()
+
+
+@dataclasses.dataclass
+class LegacyCounts:
+    """Round-based (fused=False) calls and the rounds they took (host
+    counters, no sync)."""
+
+    calls: int = 0
+    rounds: int = 0
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.rounds = 0
+
+
+LEGACY = LegacyCounts()
 
 
 def n_clus(meta) -> int:
@@ -119,14 +160,20 @@ def cluster_counts(scene, meta) -> torch.Tensor:
     return counts.to(torch.int32)
 
 
+def lane_vectors(n: int, t_max, floor, dev):
+    """t_max and floor (None: zeros) broadcast to [n] float32 lanes."""
+    t_max_v = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,))
+    floor_v = (torch.zeros(n, dtype=torch.float32, device=dev) if floor is None
+               else torch.broadcast_to(torch.as_tensor(floor, dtype=torch.float32, device=dev), (n,)))
+    return t_max_v, floor_v
+
+
 def ray_matrix(o, d, t_max, floor=None) -> torch.Tensor:
     """The [Np, 8] ray matrix (o, d, t_max, floor) of o, d [N, 3], padded
     to whole 128-ray blocks with rows at t_max = -1."""
     n = o.shape[0]
     dev = o.device
-    t_max_v = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,))
-    floor_v = (torch.zeros(n, dtype=torch.float32, device=dev) if floor is None
-               else torch.broadcast_to(torch.as_tensor(floor, dtype=torch.float32, device=dev), (n,)))
+    t_max_v, floor_v = lane_vectors(n, t_max, floor, dev)
     rays = torch.cat([o, d, t_max_v[:, None], floor_v[:, None]], dim=1)
     pad = (-n) % BLOCK
     if pad:
@@ -157,12 +204,27 @@ def fused_order(scene, meta, o, d, t_max, floor, t_min: float):
 
 
 def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
-                         floor=None, order_info=None, amask: bool = False):
+                         floor=None, order_info=None, amask: bool = False, fused: bool = True,
+                         k: int = 24, max_rounds: int = 64, trace=None):
     """Closest hit (or, with `nee`, any hit) of rays o, d [N, 3] with t_max
-    [N] (or a scalar) through B2 + B3. `floor` [N] optionally restricts hits
-    to t > floor; `order_info` reuses an earlier `fused_order`; `amask`
-    runs B3's alpha-mask cull. Returns the raw per-ray columns
-    (t, u, v, back, tri, clusters tested, triangles tested) in lane order."""
+    [N] (or a scalar). `floor` [N] optionally restricts hits to t > floor.
+    `fused=True` runs B2 + B3; `order_info` reuses an earlier `fused_order`
+    and `amask` runs B3's alpha-mask cull. `fused=False` runs the
+    round-based path (B7a + B7b, `k` slots per block and round, at most
+    `max_rounds` rounds; `trace`, a list, receives the active block count
+    of every round). Returns the raw per-ray columns (t, u, v, back, tri,
+    clusters tested, triangles tested) in lane order; on the round-based
+    path the last two are the live slots the ray's blocks tested and C
+    times that (every slot tests all C columns)."""
+    if not fused:
+        if meta.n_instances:
+            raise ValueError("fused=False: the round-based select/test pipeline has no instanced support")
+        if amask:
+            raise ValueError("fused=False with amask=True: the alpha-mask cull is only wired into the fused "
+                             "kernel and would silently not cull")
+        if order_info is not None:
+            raise ValueError("fused=False with order_info: a presorted order serves the fused path only")
+        return _intersect_rounds(scene, meta, o, d, t_max, t_min, nee, floor, k, max_rounds, trace)
     n = o.shape[0]
     rays = ray_matrix(o, d, t_max, floor)
     if order_info is None:
@@ -183,6 +245,116 @@ def intersect_blocktrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: boo
     out = out[:n]
     return (out[:, 0], out[:, 1], out[:, 2], out[:, 3] > 0.5,
             out[:, 4].contiguous().view(torch.int32), out[:, 5], out[:, 6])
+
+
+def pad_sorted(scene, o, d, t_max, floor):
+    """The round-based path's ray order (`_pad_sorted` without `meta`): a
+    stable sort by `coherence_key` with the lanes at t_max <= 0 last, padded
+    to whole blocks with copies of lane n-1 at t_max = -1. Returns the
+    sorted (o, d, t_max, floor) and `inv`, which gathers sorted results back
+    to lane order."""
+    from yart_tpu_torch.render.intersect import coherence_key
+
+    n = o.shape[0]
+    key = coherence_key(scene, o, d) | ((t_max <= 0.0).long() << 25)
+    order = torch.argsort(key, stable=True)
+    inv = torch.argsort(order)
+    pad = (-n) % BLOCK
+    if pad:
+        order = torch.cat([order, torch.full((pad,), n - 1, dtype=order.dtype, device=order.device)])
+    t_s = t_max[order]
+    if pad:
+        t_s[n:] = -1.0
+    return o[order], d[order], t_s, floor[order], inv
+
+
+def round_slots(scene, ids, n_live, act):
+    """B7b's per-slot (live, first, ids) [n_blocks * K] from B7a's outputs
+    ids [n_blocks, K] and n_live and the active flags `act`. Dead slots
+    repeat the block's last live id (or cluster 0), as the TPU kernel's
+    DMA wants; B7b skips them."""
+    slot = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    dma = ids.gather(1, torch.minimum(slot, (n_live.long() - 1).clamp_min(0)[:, None])).clamp_min(0).reshape(-1)
+    live = ((slot < n_live[:, None]) & (act[:, None] != 0)).reshape(-1).to(torch.int32)
+    return live, scene.clus_first[dma.long()], dma
+
+
+def blocks_done(t, tri, bound_key, nee: bool):
+    """Per block, after a round: True when nothing was left over
+    (bound_key = KEY_DEAD) or every ray's best t [Np] is at or below the
+    left-over key's entry (with `nee`, or the ray has a hit, tri [Np] >= 0)."""
+    n_blocks = bound_key.shape[0]
+    no_drop = bound_key == _ps.KEY_DEAD
+    bound_e = torch.where(no_drop, 3.0e38, (bound_key & ~_ps.ID_MASK).view(torch.float32))
+    ray_done = t.view(n_blocks, BLOCK) <= bound_e[:, None]
+    if nee:
+        ray_done = ray_done | (tri >= 0).view(n_blocks, BLOCK)
+    return no_drop | ray_done.all(dim=1)
+
+
+def _intersect_rounds(scene, meta, o, d, t_max, t_min, nee, floor, k, max_rounds, trace):
+    """The round-based path of `intersect_blocktrace` (see the module
+    docstring); JAX :351-419."""
+    dev = o.device
+    c = meta.cluster_size
+    o_s, d_s, t_s, floor_s, inv = pad_sorted(scene, o, d, *lane_vectors(o.shape[0], t_max, floor, dev))
+    n_blocks = o_s.shape[0] // BLOCK
+    res = torch.zeros((o_s.shape[0], 8), dtype=torch.float32, device=dev)
+    res[:, 0] = t_s
+    res.view(torch.int32)[:, 4] = -1
+    w_key = torch.full((n_blocks,), -(1 << 31), dtype=torch.int32, device=dev)
+    act = torch.ones(n_blocks, dtype=torch.bool, device=dev)
+    tested = torch.zeros(n_blocks, dtype=torch.float32, device=dev)
+    LEGACY.calls += 1
+    for _ in range(max_rounds):
+        n_act = int(act.sum())
+        if n_act == 0:
+            break
+        if trace is not None:
+            trace.append(n_act)
+        LEGACY.rounds += 1
+        rays = torch.cat([o_s, d_s, res[:, 0:1], floor_s[:, None]], dim=1)
+        ids, w_key, n_live = _bk.select_clusters(rays, scene.clus_box, w_key, act.to(torch.int32), k, t_min)
+        live, first, dma = round_slots(scene, ids, n_live, act)
+        out = _bk.test_clusters(rays, scene.clus_pack, live, first, dma, c, k, t_min)
+        res = torch.where((out[:, 4].view(torch.int32) >= 0)[:, None], out, res)
+        tested += live.view(n_blocks, k).sum(dim=1)
+        act = act & ~blocks_done(res[:, 0], res[:, 4].view(torch.int32), w_key, nee)
+    res = res[inv]
+    n_ct = tested.repeat_interleave(BLOCK)[inv]
+    return (res[:, 0], res[:, 1], res[:, 2], res[:, 3] > 0.5, res[:, 4].contiguous().view(torch.int32),
+            n_ct, n_ct * c)
+
+
+class _Captured(Exception):
+    """Carries one round's B7a inputs out of `_intersect_rounds`."""
+
+
+def round_inputs(scene, meta, o, d, t_max, k: int = 24, windowed: bool = False, t_min: float = 1e-3):
+    """B7a's inputs (rays, w_key, act) and the round's number as one
+    `intersect_blocktrace(fused=False)` call hands them over: at round 1,
+    or with `windowed` at the first round that has both converged and
+    active blocks. Taken from the round loop itself (it wraps
+    `select_clusters` and stops the call there), so a check of B7a or B7b
+    sees exactly what the path feeds them. Raises ValueError when every
+    block converges in the same round."""
+    real = _bk.select_clusters
+    rounds = []
+
+    def capture(rays, box, w_key, act, k_, t_min_):
+        rounds.append(1)
+        if not windowed or not bool(act.all()):
+            raise _Captured(rays, w_key, act, len(rounds))
+        return real(rays, box, w_key, act, k_, t_min_)
+
+    _bk.select_clusters = capture
+    try:
+        _intersect_rounds(scene, meta, o, d, t_max, t_min, False, None, k, 1 << 16, None)
+    except _Captured as cap:
+        return cap.args
+    finally:
+        _bk.select_clusters = real
+    raise ValueError("every block converged in the same round: no windowed round")
 
 
 def hit_gates(scene, meta, u, v, tri, d, nee: bool, alpha_seed):
@@ -241,7 +413,7 @@ def hit_gates(scene, meta, u, v, tri, d, nee: bool, alpha_seed):
 
 
 def _run_casts(scene, meta, o, d, t_max, seed, state, order_info, t_min, nee, amask, stop_at,
-               trace):
+               trace, fused):
     """The re-cast loop over one lane set. `state` is (best: dict of hit
     fields, act, floor, cast). Stops when no lane is active, at MAX_CASTS,
     or (with `stop_at`) once the active count fits `stop_at` lanes. One
@@ -255,7 +427,8 @@ def _run_casts(scene, meta, o, d, t_max, seed, state, order_info, t_min, nee, am
             trace.append(n_act)
         tm = torch.where(act, t_max, -1.0)
         t, u, v, back, tri, _, _ = intersect_blocktrace(
-            scene, meta, o, d, tm, t_min, nee=False, floor=floor, order_info=order_info, amask=amask)
+            scene, meta, o, d, tm, t_min, nee=False, floor=floor, order_info=order_info, amask=amask,
+            fused=fused)
         hit = (tri >= 0) & act
         alpha_ok, transparent, factor = hit_gates(scene, meta, u, v, tri, d, nee, seed)
         passthru = hit & (transparent | ~alpha_ok)
@@ -273,19 +446,21 @@ def _run_casts(scene, meta, o, d, t_max, seed, state, order_info, t_min, nee, am
 
 
 def intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
-                               alpha_seed=None, trace=None):
+                               alpha_seed=None, trace=None, fused: bool = True):
     """Block trace with per-hit gates through the re-cast loop (see the
     module docstring). `alpha_seed` [N] holds u32 keys in int64 (zeros
     when None). `trace`, a list, receives the active count of every cast.
+    With `fused=False` every cast takes the round-based path, without the
+    alpha-mask cull, a shared presort or tail compaction (JAX :564-620).
     Returns a render/intersect.py `Hit`."""
     from yart_tpu_torch.render.intersect import Hit
 
     n = o.shape[0]
     dev = o.device
-    t_max_v = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,))
+    t_max_v, _ = lane_vectors(n, t_max, None, dev)
     seed = (torch.zeros(n, dtype=torch.int64, device=dev) if alpha_seed is None
             else torch.broadcast_to(alpha_seed, (n,)))
-    amask = bool(meta.any_alpha)
+    amask = bool(meta.any_alpha) and fused
     GATED.calls += 1
 
     best = dict(
@@ -297,12 +472,12 @@ def intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min: float = 1e-3, ne
         mask=torch.zeros(n, dtype=torch.bool, device=dev),
     )
     zeros = torch.zeros(n, dtype=torch.float32, device=dev)
-    order_info = fused_order(scene, meta, o, d, t_max_v, zeros, t_min)
+    order_info = fused_order(scene, meta, o, d, t_max_v, zeros, t_min) if fused else None
     cap = -(-(n // CAP_DIV) // BLOCK) * BLOCK
-    compact = BLOCK <= cap < n
+    compact = fused and BLOCK <= cap < n
     state = (best, torch.ones(n, dtype=torch.bool, device=dev), zeros, 0)
     best, act, floor, cast = _run_casts(scene, meta, o, d, t_max_v, seed, state, order_info, t_min,
-                                        nee, amask, cap if compact else None, trace)
+                                        nee, amask, cap if compact else None, trace, fused)
     if compact and cast < MAX_CASTS and bool(act.any()):
         # Tail compaction: the survivors finish in `cap` lanes (stable
         # sort: active lanes first, in lane order), with their own presort.
@@ -313,7 +488,7 @@ def intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min: float = 1e-3, ne
         sub = {k: val[idx] for k, val in best.items()}
         sub, _, _, _ = _run_casts(scene, meta, o_c, d_c, tmax_c, seed[idx],
                                   (sub, act_c, floor_c, cast), order_c, t_min, nee, amask, None,
-                                  trace)
+                                  trace, fused)
         for k, val in sub.items():
             best[k] = best[k].index_put((idx,), val)
     return Hit(best["t"], best["tri"], best["u"], best["v"], best["back_side"],

@@ -1,7 +1,8 @@
 """Wavefront ray-scene intersection.
 
-Port of `yart_tpu/render/intersect.py` `Hit`, `intersect_brute` and the
-dispatcher `intersect` (:937-1025). "Gates" are
+Port of `yart_tpu/render/intersect.py` `Hit`, `intersect_brute`, the
+ray-order key `coherence_key` (:584-612) and the dispatcher `intersect`
+(:937-1025). "Gates" are
 the per-hit tests a hit must pass: the stochastic alpha test
 (`meta.any_alpha`) and, for shadow rays, transparent surfaces
 (`nee and meta.any_transparent`). The dispatcher (:981-1011):
@@ -58,6 +59,28 @@ class Hit(NamedTuple):
 def _hit(t, u, v, back, tri) -> Hit:
     return Hit(t, tri, u, v, back, torch.ones((t.shape[0], 3), dtype=torch.float32, device=t.device),
                tri >= 0)
+
+
+def part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of int64 x with two zero bits between each
+    (the Morton helper `_part1by2`)."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def coherence_key(scene: CompiledScene, o, d) -> torch.Tensor:
+    """Per-ray sort key [N] int64 of 24 bits (`_coherence_key`): the
+    direction octant, then the Morton code of the origin's cell in a 128^3
+    grid over the scene's bounding sphere box."""
+    octant = (d[:, 0] < 0).long() | ((d[:, 1] < 0).long() << 1) | ((d[:, 2] < 0).long() << 2)
+    lo = scene.scene_center - scene.scene_radius
+    inv = 1.0 / torch.clamp_min(2.0 * scene.scene_radius, 1e-20)
+    cell = (torch.clamp((o - lo) * inv, 0.0, 1.0) * 127.0).long()
+    morton = part1by2(cell[:, 0]) | (part1by2(cell[:, 1]) << 1) | (part1by2(cell[:, 2]) << 2)
+    return (octant << 21) | morton
 
 
 def has_gates(meta: SceneMeta, nee: bool) -> bool:
