@@ -17,7 +17,9 @@ exits non-zero and prints no final "ok" line:
                132,480 triangles, clusters of 128, built by the port's own
                builder) with 262,144 incoherent and coherent rays (+ a
                block of retired lanes and a ragged N through the whole
-               block trace); median times from CUDA events.
+               block trace); median times from CUDA events, and B3's
+               two bounds (`b3_bounds`: over the work its inputs need,
+               and over a sweep of every box by every live ray).
   3c. kernel — B2 and B3 against their twins, bitwise, at the spheres
                render's shapes: 2^20 camera rays from the CLI's camera
                (closest hit), then shadow rays from their hits as any-hit
@@ -179,6 +181,8 @@ INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.p
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
 DENSE_SPP = 16  # samples per pixel of the dense atrium render (phase 4e)
+B3_KEYS = ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by", "b3_sweep_bound_ms")  # B3's timed records
+SUN = (0.45, 0.72, 0.3)  # the sun direction of the shadow-ray cases (unnormalised)
 
 
 def emit(obj) -> None:
@@ -320,15 +324,19 @@ def camera_rays(cam_cfg, dev, seeds: bool = False):
     return o.contiguous(), d.contiguous()
 
 
-def b3_work(args, out):
-    """(slab tests, flops, bytes) of one B3 call with `fused_trace`'s
-    arguments `args` and output `out`, counted from this call's data in
-    every mode alike: the plane tests it ran (column 6) and mask tests
-    (column 7), one ray transform per tested instance cluster (column 5) in
-    the instanced mode, and its own sweep of the cluster boxes. In the
-    sweep every live ray of a live block tests all n_clus boxes, except
-    that with `nee` a ray stops at its first hit and then counts only the
-    clusters it tested (a lower bound on its box tests)."""
+def b3_bounds(args, out, prefix: str = "b3_") -> dict:
+    """Both bounds of one B3 call with `fused_trace`'s arguments `args` and
+    output `out`, counted from this call's data in every mode alike.
+    `bound_ms` counts the work the inputs need, read from the output
+    columns the kernel must equal its twin's: the plane tests (column 6),
+    the mask tests (column 7), one ray transform per tested instance
+    cluster and one slab test per (ray, cluster it tested) (column 5), and
+    one box test per (live block, box). `sweep_bound_ms` counts, instead of
+    the last two, the sweep of a kernel with one thread a ray: every live
+    ray of a live block slab-tests all n_clus boxes (with `nee`, a ray
+    that hit counts the clusters it tested), as PERF.md's earlier B3
+    bounds do. The bytes are
+    each input read once and the output written once."""
     import torch
 
     from yart_tpu_torch.render import blocktrace
@@ -337,14 +345,79 @@ def b3_work(args, out):
     live = (rays[:, 6] > 0) & (blive.repeat_interleave(blocktrace.BLOCK) != 0)
     hit = out[:, 4].contiguous().view(torch.int32) >= 0
     tested = out[:, 5].double()
-    slab = float((live & ~hit).sum() if nee else live.sum()) * n_clus
+    sweep = float((live & ~hit).sum() if nee else live.sum()) * n_clus
     if nee:
-        slab += float(tested[live & hit].sum())
-    flops = (FLOPS_PLANE * float(out[:, 6].double().sum()) + FLOPS_AMASK * float(out[:, 7].double().sum())
-             + FLOPS_SLAB * slab)
+        sweep += float(tested[live & hit].sum())
+    slab = float(tested.sum()) + float(blive.sum()) * n_clus
+    flops = FLOPS_PLANE * float(out[:, 6].double().sum()) + FLOPS_AMASK * float(out[:, 7].double().sum())
     if inst is not None:
         flops += FLOPS_XFORM * float(tested.sum())
-    return slab, flops, nbytes(*args[:6], *(inst or ()), out)
+    nb = nbytes(*args[:6], *(inst or ()), out)
+    rec = {f"{prefix}slab_tests": slab, f"{prefix}sweep_slab_tests": sweep}
+    rec[f"{prefix}bound_ms"], rec[f"{prefix}bound_by"] = bound(flops + FLOPS_SLAB * slab, nb)
+    rec[f"{prefix}sweep_bound_ms"], rec[f"{prefix}sweep_bound_by"] = bound(flops + FLOPS_SLAB * sweep, nb)
+    return rec
+
+
+def blocktrace_case(scene, meta, o, d, t_max, nee: bool = False):
+    """The block trace's B2 and B3 inputs for rays o, d, t_max, as
+    `intersect_blocktrace` makes them (ray matrix, B2 kernel, schedule, one
+    gather): (rays, B2 rows, B3 arguments)."""
+    from yart_tpu_torch.kernels import presort
+    from yart_tpu_torch.render import blocktrace
+
+    rays = blocktrace.ray_matrix(o, d, t_max)
+    pk = presort.presort_cuda(rays, scene.clus_box, blocktrace.n_clus(meta), 1e-3)
+    order, blive = blocktrace.schedule(pk)
+    args = (rays[order].contiguous(), pk[order, 1 : 1 + presort.N_SLOTS].contiguous(), scene.clus_box,
+            scene.clus_pack, blocktrace.cluster_counts(scene, meta), blive, 1e-3, nee, False,
+            blocktrace.inst_tables(scene, meta))
+    return rays, pk, args
+
+
+def amask_cast1(scene, meta, o, d, seeds, order, blive0, out0):
+    """Cast 1 of the gated loop after an `amask` cast 0 whose sorted output
+    is `out0`: the lanes whose first hit the alpha gate passed through
+    re-cast with floor = that hit, in cast 0's order. Returns (sorted
+    rays, blive, cast 0's hit mask, the pass-through mask)."""
+    import torch
+
+    from yart_tpu_torch.render import blocktrace
+
+    n = o.shape[0]
+    t_max = torch.full((n,), 1e30, device=o.device)
+    res = torch.empty_like(out0)
+    res[order] = out0
+    res = res[:n]
+    tri = res[:, 4].contiguous().view(torch.int32)
+    hit = tri >= 0
+    ok, _, _ = blocktrace.hit_gates(scene, meta, res[:, 1], res[:, 2], tri, d, False, seeds)
+    passthru = hit & ~ok
+    rays1 = blocktrace.ray_matrix(o, d, torch.where(passthru, t_max, -1.0),
+                                  torch.where(passthru, res[:, 0], 0.0))[order].contiguous()
+    blive1 = ((rays1[:, 6] > 0.0).view(-1, blocktrace.BLOCK).any(dim=1) & (blive0 != 0)).to(torch.int32)
+    return rays1, blive1, hit, passthru
+
+
+def shadow_rays(o, d, t_hit, hit, sun=None, seed: int = 5):
+    """Shadow rays from the hits (t_hit, hit) of rays o, d, the misses
+    retired: toward `sun` with t_max 100 or, without it, in seeded random
+    directions on the camera's side with a random finite t_max (phases 3c,
+    3e, 3f)."""
+    import torch
+
+    dev = o.device
+    if sun is not None:
+        sun = torch.tensor(sun, device=dev)
+        sh_o = (o + torch.where(hit, t_hit, 0.0)[:, None] * d).contiguous()
+        return sh_o, (sun / sun.norm()).expand_as(d).contiguous(), torch.where(hit, 100.0, -1.0)
+    sh_o = (o + t_hit[:, None] * d).contiguous()  # a miss keeps its far origin, retired all the same
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sh_d = torch.randn(o.shape, generator=gen, device=dev)
+    sh_d = sh_d / sh_d.norm(dim=1, keepdim=True)
+    sh_d = torch.where((sh_d * d).sum(dim=1, keepdim=True) > 0, -sh_d, sh_d)  # back toward the camera side
+    sh_t = torch.where(hit, torch.rand(o.shape[0], generator=gen, device=dev) * 20.0 + 0.1, -1.0)
+    return sh_o, sh_d.contiguous(), sh_t
 
 
 def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = False):
@@ -357,19 +430,14 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
     from yart_tpu_torch.render import blocktrace
 
     t_min = 1e-3
-    rays = blocktrace.ray_matrix(o, d, t_max)
-    box, n_clus = scene.clus_box, blocktrace.n_clus(meta)
-    inst = blocktrace.inst_tables(scene, meta)
-    pk = presort.presort_cuda(rays, box, n_clus, t_min)
+    rays, pk, args = blocktrace_case(scene, meta, o, d, t_max, nee)
+    box, n_clus, blive, inst = scene.clus_box, blocktrace.n_clus(meta), args[5], args[9]
     pk_p = presort.presort_plain(rays, box, n_clus, t_min)
     torch.cuda.synchronize()
     b2_rows = int((pk != pk_p).any(dim=1).sum())
     b2_err = float((pk.long() - pk_p.long()).abs().max())
     if b2_rows:
         raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows (max abs {b2_err})")
-    order, blive = blocktrace.schedule(pk)
-    args = (rays[order].contiguous(), pk[order, 1 : 1 + presort.N_SLOTS].contiguous(), box,
-            scene.clus_pack, blocktrace.cluster_counts(scene, meta), blive, t_min, nee, False, inst)
     out = fusedtrace.fused_trace_cuda(*args)
     out_p = fusedtrace.fused_trace_plain(*args)
     torch.cuda.synchronize()
@@ -396,8 +464,7 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
         rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args), reps=11)
         rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args), reps=1,
                                      warmup_s=0.0, warmup_calls=1)
-        rec["slab_tests"], flops, nb = b3_work(args, out)
-        rec["b3_bound_ms"], rec["b3_bound_by"] = bound(flops, nb)
+        rec.update(b3_bounds(args, out))
         rec["pipeline_ms"] = cuda_ms(
             lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee), reps=11)
         rec["mrays_per_s"] = o.shape[0] / rec["pipeline_ms"] / 1e3
@@ -454,16 +521,7 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
         return args, out
 
     args0, out0 = cast("cast0", rays[order], blive0)
-    res = torch.empty_like(out0)
-    res[order] = out0
-    res = res[:n]
-    tri = res[:, 4].contiguous().view(torch.int32)
-    hit = tri >= 0
-    ok, _, _ = blocktrace.hit_gates(scene, meta, res[:, 1], res[:, 2], tri, d, False, seeds)
-    passthru = hit & ~ok
-    rays1 = blocktrace.ray_matrix(o, d, torch.where(passthru, t_max, -1.0),
-                                  torch.where(passthru, res[:, 0], 0.0))[order]
-    blive1 = ((rays1[:, 6] > 0.0).view(-1, blocktrace.BLOCK).any(dim=1) & (blive0 != 0)).to(torch.int32)
+    rays1, blive1, hit, passthru = amask_cast1(scene, meta, o, d, seeds, order, blive0, out0)
     args1, out1 = cast("cast1", rays1, blive1)
     floor_ok = out1[:, 4].contiguous().view(torch.int32) >= 0
     if not bool((out1[floor_ok, 0] > rays1[floor_ok, 7]).all()):
@@ -481,8 +539,8 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
     rec["b3_cast1_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args1), reps=11)
     rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args0), reps=1,
                                  warmup_s=0.0, warmup_calls=1)
-    rec["slab_tests"], flops, nb = b3_work(args0, out0)
-    rec["b3_bound_ms"], rec["b3_bound_by"] = bound(flops, nb)
+    rec.update(b3_bounds(args0, out0))
+    rec.update(b3_bounds(args1, out1, "b3_cast1_"))
     return rec
 
 
@@ -1259,13 +1317,8 @@ def main() -> int:
     rec_s = compare_blocktrace("spheres_camera", spheres, spheres_meta, so, sd, st, timed=True)
     emit({"phase": "kernel", **rec_s})
     t_hit, _, _, _, tri_hit, _, _ = blocktrace.intersect_blocktrace(spheres, spheres_meta, so, sd, st)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    sh_d = torch.randn(so.shape, generator=gen, device=dev)
-    sh_d = sh_d / sh_d.norm(dim=1, keepdim=True)
-    sh_d = torch.where((sh_d * sd).sum(dim=1, keepdim=True) > 0, -sh_d, sh_d)  # back toward the camera side
-    sh_o = (so + t_hit[:, None] * sd).contiguous()
-    sh_t = torch.where(tri_hit >= 0, torch.rand(so.shape[0], generator=gen, device=dev) * 20.0 + 0.1, -1.0)
-    rec_n = compare_blocktrace("spheres_shadow_nee", spheres, spheres_meta, sh_o, sh_d.contiguous(), sh_t,
+    sh_o, sh_d, sh_t = shadow_rays(so, sd, t_hit, tri_hit >= 0)
+    rec_n = compare_blocktrace("spheres_shadow_nee", spheres, spheres_meta, sh_o, sh_d, sh_t,
                                timed=False, nee=True)
     emit({"phase": "kernel", **rec_n})
     bt_recs = [recs["incoherent"], recs["coherent"], rec_r, rec_s, rec_n]
@@ -1296,10 +1349,7 @@ def main() -> int:
     rec_g = compare_gated("atrium_ivy_camera_2^16", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
     emit({"phase": "gated", **rec_g})
     gh = blocktrace.intersect_blocktrace_gated(ivy, ivy_meta, go, gd, g_tmax, alpha_seed=gseed)
-    sun = torch.tensor([0.45, 0.72, 0.3], device=dev)
-    sh_d = (sun / sun.norm()).expand_as(gd).contiguous()
-    sh_o = (go + torch.where(gh.mask, gh.t, 0.0)[:, None] * gd).contiguous()
-    sh_t = torch.where(gh.mask, 100.0, -1.0)
+    sh_o, sh_d, sh_t = shadow_rays(go, gd, gh.t, gh.mask, SUN)
     rec_gs = compare_gated("atrium_ivy_shadow_2^16", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
                            nee=True)
     emit({"phase": "gated", **rec_gs})
@@ -1327,10 +1377,7 @@ def main() -> int:
     rec_ic = compare_blocktrace("atrium_inst_camera", inst, inst_meta, ao, ad, at, timed=True)
     emit({"phase": "kernel", **rec_ic})
     a_hit = blocktrace.intersect_blocktrace(inst, inst_meta, ao, ad, at)
-    sun = torch.tensor([0.45, 0.72, 0.3], device=dev)
-    sun_d = (sun / sun.norm()).expand_as(ad).contiguous()
-    sun_o = (ao + torch.where(a_hit[4] >= 0, a_hit[0], 0.0)[:, None] * ad).contiguous()
-    sun_t = torch.where(a_hit[4] >= 0, 100.0, -1.0)
+    sun_o, sun_d, sun_t = shadow_rays(ao, ad, a_hit[0], a_hit[4] >= 0, SUN)
     rec_in = compare_blocktrace("atrium_inst_sun_shadow_nee", inst, inst_meta, sun_o, sun_d, sun_t,
                                 timed=True, nee=True)
     emit({"phase": "kernel", **rec_in})
@@ -1642,8 +1689,12 @@ def main() -> int:
                             + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),
          "ms": rec_ic["b3_ms"], "plain_ms": rec_ic["b3_plain_ms"],
          "bound_ms": rec_ic["b3_bound_ms"], "bound_by": rec_ic["b3_bound_by"], "library_ms": None,
-         "instanced_nee": {k: rec_in[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")},
-         "amask_atrium_ivy": {k: rec_i[k] for k in ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by")}},
+         "sweep_bound_ms": rec_ic["b3_sweep_bound_ms"],
+         "ptxas": build.ptxas_report("fused_trace"),
+         "instanced_nee": {k: rec_in[k] for k in B3_KEYS},
+         "amask_atrium_ivy": {k: rec_i[k] for k in B3_KEYS + ("b3_cast1_ms", "b3_cast1_bound_ms",
+                                                                "b3_cast1_sweep_bound_ms")},
+         **{r["case"]: {k: r[k] for k in B3_KEYS} for r in (recs["incoherent"], recs["coherent"], rec_s)}},
         {"name": "cluster_pairs", "route": "cuda",
          "source": "yart_tpu_torch/csrc/cluster_pairs.cu",
          "replaces": "yart_tpu/kernels/pallas_cluster.py:200",

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from test_bintrace import _compile, _random_mesh, _rays
+from test_torch_cuda import tie_rays, tie_soup
 from yart_tpu.kernels.pallas_fusedtrace import presort_keys_pallas
 from yart_tpu.render import blocktrace as JBT
 from yart_tpu.render.intersect import intersect_brute as j_brute
@@ -159,3 +160,45 @@ def test_dispatcher_routes_big_scenes_to_blocktrace(case, monkeypatch):
     TI.intersect(ts, tm, T(o), T(d), t_max)
     assert calls == [True]  # 1400 triangles: B1
     assert presort.COUNTS.plain_cuda == fusedtrace.COUNTS.plain_cuda == 0
+
+
+def test_tie_fixture_has_bit_equal_ties():
+    """The card tests' tie fixture (tests/test_torch_cuda.py `tie_soup`,
+    clusters of 64), built by the JAX builder and carried over: on rays
+    through its stack the plane test gives bit-equal t in different lanes,
+    different 32-column rounds and two clusters, so the card's tie cases
+    are not vacuous. The port's twin names the lowest copy and agrees with
+    the brute-force oracle (tests/test_blocktrace.py's bar)."""
+    pos, tri = tie_soup()
+    js, jm = _compile(pos, tri, cluster_size=64)
+    ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm), device="cpu")
+    o, d = tie_rays(1024)
+    port = _port(ts, tm, o, d, 100.0)
+    _check(port, _as_np(j_brute(js, jm, jnp.asarray(o), jnp.asarray(d), 100.0)), 2e-5, 1e-3)
+    # Every column's plane-test t (the twin's arithmetic), cluster by cluster.
+    pack, counts = ts.clus_pack, TBT.cluster_counts(ts, tm).tolist()
+    c = pack.shape[2] // 3
+    ot, dt = T(o), T(d)
+    ts_, ids, cols = [], [], []
+    for k, cnt in enumerate(counts):
+        rows = torch.cat([pack[k, :, 0:cnt], pack[k, :, c : c + cnt], pack[k, :, 2 * c : 2 * c + cnt]], dim=1)
+        ro = ot[:, 0:1] * rows[0][None] + ot[:, 1:2] * rows[1][None] + ot[:, 2:3] * rows[2][None]
+        rd = dt[:, 0:1] * rows[0][None] + dt[:, 1:2] * rows[1][None] + dt[:, 2:3] * rows[2][None]
+        t = (rows[3, :cnt][None] - ro[:, :cnt]) / rd[:, :cnt]
+        u = ro[:, cnt : 2 * cnt] + t * rd[:, cnt : 2 * cnt] - rows[3, cnt : 2 * cnt][None]
+        v = ro[:, 2 * cnt :] + t * rd[:, 2 * cnt :] - rows[3, 2 * cnt :][None]
+        ok = (rd[:, :cnt].abs() >= 1e-12) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t > 1e-3)
+        ts_.append(torch.where(ok, t, float("inf")))
+        first = int(pack[k, 4, 0].view(torch.int32))
+        ids.append(torch.arange(first, first + cnt))
+        cols.append(torch.stack([torch.full((cnt,), k), torch.arange(cnt)], dim=1))
+    t_all, ids, cols = torch.cat(ts_, dim=1), torch.cat(ids), torch.cat(cols)
+    tmin = t_all.min(dim=1, keepdim=True).values
+    tied = (t_all == tmin) & torch.isfinite(tmin)
+    many = tied.sum(dim=1) >= 2
+    assert many.sum() >= 250  # the rays through the stack (the others meet the soup or nothing)
+    for r in torch.nonzero(many)[:, 0][:50].tolist():
+        kc = cols[tied[r]]
+        assert kc[:, 0].unique().numel() == 2  # two clusters
+        assert (kc[:, 1] % 32).unique().numel() >= 2 and (kc[:, 1] // 32).unique().numel() == 2  # lanes, rounds
+        assert port["tri"][r] == int(ids[tied[r]].min()) and port["t"][r] == float(tmin[r, 0])

@@ -1,6 +1,9 @@
 """B1-B7b on the card: each Hopper kernel against its plain PyTorch twin
 (B3 in its closest-hit, any-hit and alpha-mask modes, and in its instanced
-mode in each of them; B4 with dead blocks and empty rows; B5 with every
+mode in each of them, and at the edges of its block-cooperative design:
+bit-equal t ties across lanes, rounds and clusters, one live ray a block,
+short clusters, several tiles with `nee`, mask-test counts, several
+instances a block, NaN and dead rays; B4 with dead blocks and empty rows; B5 with every
 lobe gate on, dead blocks and mis off; B6 for ZSobol at even and odd
 log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 2 and
 24, a ragged lane count), the gated re-cast loop's (fused and
@@ -342,6 +345,218 @@ def test_gated_instanced_loop_kernel_path_equals_plain_path(inst_leaves, nee):
     for a, b in zip(k, p):
         assert _bits_equal(a, b)
     assert trace_k == trace_p and len(trace_k) >= 2
+
+
+def tie_soup(seed: int = 3, n_soup: int = 500, n_dup: int = 100):
+    """(pos [V, 3] float32, tri [T, 3]): `n_soup` small random triangles in
+    a box below the plane z = 0 and `n_dup` copies of one large triangle in
+    that plane. In
+    clusters of 64 the copies fill two clusters of 50 columns, so a ray
+    through the stack meets bit-equal t in different lanes, different
+    32-column rounds and two clusters (tests/test_torch_blocktrace.py
+    checks that on the CPU)."""
+    rng = np.random.default_rng(seed)
+    soup = rng.uniform((-4, -4, -4), (4, 4, -1), (n_soup, 1, 3)) + rng.normal(0, 0.3, (n_soup, 3, 3))
+    pos = np.concatenate([soup.reshape(-1, 3), np.tile(TIE_TRIANGLE, (n_dup, 1))]).astype(np.float32)
+    return pos, np.arange(pos.shape[0]).reshape(-1, 3)
+
+
+TIE_TRIANGLE = np.asarray([[-3.0, -3.0, 0.0], [3.0, -3.0, 0.0], [0.0, 3.0, 0.0]], np.float32)
+
+
+def tie_rays(n: int, seed: int = 4):
+    """Rays o, d [n, 3] float32 from z = 8 down to the plane of tie_soup's
+    stack, most through the stack and some past its edges."""
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-4, 4, (n, 2)), np.full((n, 1), 8.0)], 1)
+    d = np.concatenate([rng.uniform(-3.5, 3.5, (n, 2)), np.zeros((n, 1))], 1) - o
+    return o.astype(np.float32), (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def tie_scene():
+    """tie_soup built by the port in clusters of 64, and its stack's
+    triangle ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    pos, tri = tie_soup()
+    b = SceneBuilder()
+    b.add_mesh(pos, tri, b.add_material())
+    scene, meta = b.compile(device="cuda", cluster_size=64)
+    big = torch.from_numpy(TIE_TRIANGLE.reshape(1, 9)).cuda()
+    stack = torch.nonzero((scene.tri_pack[:, :9] == big).all(dim=1))[:, 0].to(torch.int32)
+    assert stack.numel() == 100
+    return scene, meta, stack
+
+
+@pytest.fixture(scope="module")
+def quad_soup_c16():
+    """quad_soup's 6000 triangles in clusters of 16: 375 clusters, three
+    tiles of B3's ascending walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(5)
+    q = 3000
+    corners = rng.uniform(-4, 4, (q, 1, 3)) + rng.normal(0, 0.3, (q, 4, 3))
+    b = SceneBuilder()
+    idx = np.asarray([[0, 1, 2], [0, 2, 3]])
+    b.add_mesh(corners.reshape(-1, 3), (idx[None] + 4 * np.arange(q)[:, None, None]).reshape(-1, 3),
+               b.add_material())
+    scene, meta = b.compile(device="cuda", cluster_size=16)
+    assert meta.n_clusters > 256
+    return scene, meta
+
+
+def _live_lanes(n: int, lanes: str, t_max: float, dev):
+    """t_max [n]: every lane live ("all"), one lane of each 128-lane block
+    ("one"), or a seeded tenth of them ("mixed"); the others dead (-1)."""
+    t = torch.full((n,), t_max, device=dev)
+    if lanes == "all":
+        return t
+    if lanes == "one":
+        keep = (torch.arange(n, device=dev) % blocktrace.BLOCK) == 37
+    else:
+        keep = torch.from_numpy(np.random.default_rng(n).random(n) < 0.1).to(dev)
+    return torch.where(keep, t, -1.0)
+
+
+def _b3_kernel_equals_plain(scene, meta, o, d, t_max, floor=None, nee=False, amask=False, sort=True,
+                            counts=None):
+    """B3 on the block trace's inputs for o, d, t_max: B2's slots, and the
+    two-key sort with its `blive` flags or, with sort=False, the lanes in
+    their own order with every block that has a live lane flagged. The
+    kernel against its twin, bitwise on all 8 columns; returns
+    (B3 arguments, kernel output)."""
+    rays = blocktrace.ray_matrix(o, d, t_max, floor)
+    pk = presort.presort_keys(rays, scene.clus_box, blocktrace.n_clus(meta), 1e-3)
+    if sort:
+        order, blive = blocktrace.schedule(pk)
+    else:
+        order = torch.arange(rays.shape[0], device=rays.device)
+        blive = (rays[:, 6] > 0).view(-1, blocktrace.BLOCK).any(dim=1).to(torch.int32)
+    args = (rays[order].contiguous(), pk[order, 1 : 1 + presort.N_SLOTS].contiguous(), scene.clus_box,
+            scene.clus_pack, blocktrace.cluster_counts(scene, meta) if counts is None else counts, blive,
+            1e-3, nee, amask, blocktrace.inst_tables(scene, meta))
+    before = fusedtrace.COUNTS.launches
+    k = fusedtrace.fused_trace(*args)
+    assert fusedtrace.COUNTS.launches == before + 1
+    p = fusedtrace.fused_trace_plain(*args)
+    torch.cuda.synchronize()
+    diff = [i for i in range(8) if not _bits_equal(k[:, i].contiguous(), p[:, i].contiguous())]
+    assert not diff, f"B3 kernel and twin differ in columns {diff}"
+    return args, k
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("lanes", ["all", "one", "mixed"])
+def test_fused_trace_ties_equal_plain(tie_scene, lanes, sort):
+    """Bit-equal t in different lanes, 32-column rounds and clusters, with
+    many rays entering a cluster, a single one (a live block with one live
+    ray) and a mix: the lowest copy of the stack wins every tie."""
+    scene, meta, stack = tie_scene
+    dev = scene.clus_pack.device
+    n = 16384
+    o, d = (torch.from_numpy(a).to(dev) for a in tie_rays(n))
+    t_max = _live_lanes(n, lanes, 100.0, dev)
+    _, k = _b3_kernel_equals_plain(scene, meta, o, d, t_max, sort=sort)
+    tri = k[:, 4].contiguous().view(torch.int32)
+    on_stack = torch.isin(tri, stack)
+    assert int(on_stack.sum()) >= 0.25 * int((t_max > 0).sum())  # a third of the rays end on the stack
+    assert (tri[on_stack] == stack.min()).all()
+
+
+@pytest.mark.parametrize("cnt", [1, 33])
+def test_fused_trace_short_clusters_equal_plain(tie_scene, cnt):
+    """Clusters cut to their first `cnt` columns (B3 takes the counts as
+    given): one column, and one past a warp's 32."""
+    scene, meta, _ = tie_scene
+    dev = scene.clus_pack.device
+    n = 16384
+    o, d = (torch.from_numpy(a).to(dev) for a in tie_rays(n, seed=cnt))
+    counts = torch.clamp(blocktrace.cluster_counts(scene, meta), max=cnt)
+    for lanes in ("all", "one"):
+        _, k = _b3_kernel_equals_plain(scene, meta, o, d, _live_lanes(n, lanes, 100.0, dev), counts=counts)
+        assert (k[:, 4].contiguous().view(torch.int32) >= 0).any()
+        assert (k[:, 6] <= cnt * k[:, 5]).all()
+
+
+@pytest.mark.parametrize("lanes", ["all", "one", "mixed"])
+@pytest.mark.parametrize("nee", [False, True])
+def test_fused_trace_tiles_and_nee_equal_plain(quad_soup_c16, nee, lanes):
+    """375 clusters (three tiles of the ascending walk), closest hit and
+    shadow rays (nee) with a finite t_max: rays stop at the first cluster
+    that gives them a hit, inside a tile, and a block whose live rays have
+    all stopped leaves the walk."""
+    scene, meta = quad_soup_c16
+    n = 65536
+    o, d = _trace_rays(n, 11, scene.clus_box.device)
+    floor = torch.zeros(n, device=o.device)
+    floor[n // 2 :] = 0.5
+    _, k = _b3_kernel_equals_plain(scene, meta, o, d, _live_lanes(n, lanes, 6.0 if nee else 100.0, o.device),
+                                   floor=floor, nee=nee, sort=lanes == "all")
+    hit = k[:, 4].contiguous().view(torch.int32) >= 0
+    assert hit.any() and (~hit & (k[:, 5] > 1)).any()
+    if nee:  # some rays stopped before the walk's last entered cluster
+        assert (hit & (k[:, 5] > 1)).any()
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("lanes", ["all", "one", "mixed"])
+def test_fused_trace_amask_counts_equal_plain(ivy_soup, lanes, sort):
+    """`amask` mask-test counts (column 7) when a cluster's accepted
+    candidates lie in different lanes and rounds (the warp prefix-min), for
+    many, single and mixed entering rays."""
+    scene, meta, o, d, _ = ivy_soup
+    n = o.shape[0]
+    _, k = _b3_kernel_equals_plain(scene, meta, o, d, _live_lanes(n, lanes, 100.0, o.device), amask=True,
+                                   sort=sort)
+    assert (k[:, 7] >= 2).any() and (k[:, 7] <= k[:, 6]).all()
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("mode", ["instanced", "instanced+nee", "instanced+amask"])
+def test_fused_trace_instances_in_one_block_equal_plain(inst_leaves, mode, sort):
+    """Rays of one block in different instances (in their own order, a
+    block's rays are scattered over the scene): each entering ray is mapped
+    by its cluster's instance."""
+    scene, meta, o, d, _ = inst_leaves
+    n = o.shape[0]
+    nee = "nee" in mode
+    _, k = _b3_kernel_equals_plain(scene, meta, o, d, torch.full((n,), 4.0 if nee else 100.0, device=o.device),
+                                   nee=nee, amask="amask" in mode, sort=sort)
+    tri = k[:, 4].contiguous().view(torch.int32)
+    hit = tri >= 0
+    inst = scene.tri_aux[tri.clamp(min=0).long(), 1]
+    lo = torch.where(hit, inst, 1 << 30).view(-1, blocktrace.BLOCK).min(dim=1).values
+    hi = torch.where(hit, inst, -1).view(-1, blocktrace.BLOCK).max(dim=1).values
+    assert (hi > lo).any()
+
+
+def test_fused_trace_nan_and_dead_rays_equal_plain(tie_scene):
+    """Inside live blocks: rays with a NaN direction component, a NaN
+    floor, t_max = -1, a direction along an axis (1/d = 1e20) and one with
+    an infinite component (1/d = 0). The kernel's bundle leaves out only
+    rays that enter nothing; those write the miss row."""
+    scene, meta, _ = tie_scene
+    dev = scene.clus_pack.device
+    n = 4096
+    o, d = tie_rays(n, seed=9)
+    d[5::64, 1] = np.nan
+    d[7::64] = (0.0, 0.0, -1.0)
+    d[9::128, 0] = np.inf
+    t_max = np.full(n, 100.0, np.float32)
+    t_max[11::3] = -1.0
+    floor = np.zeros(n, np.float32)
+    floor[13::64] = np.nan
+    o, d, t_max, floor = (torch.from_numpy(a).to(dev) for a in (o, d, t_max, floor))
+    _, k = _b3_kernel_equals_plain(scene, meta, o, d, t_max, floor=floor, sort=False)
+    dead = torch.zeros(n, dtype=torch.bool, device=dev)
+    for start, step in ((5, 64), (11, 3), (13, 64)):
+        dead[start::step] = True
+    miss = k[:n][dead]
+    assert (miss[:, 4].contiguous().view(torch.int32) == -1).all() and (miss[:, 5:] == 0).all()
+    assert _bits_equal(miss[:, 0].contiguous(), t_max[dead])
+    assert (k[7:n:64, 4].contiguous().view(torch.int32) >= 0).any()
 
 
 def test_argmin_takes_the_first_minimum_on_cuda(dev):

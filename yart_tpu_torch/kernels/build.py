@@ -127,7 +127,12 @@ def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads"}} of library
     `name` from the `-Xptxas -v` lines its build kept (empty if it was
     built elsewhere)."""
-    txt = os.path.join(os.path.dirname(library_path(name, LIBRARIES[name])), "ptxas.txt")
+    return parse_ptxas(os.path.join(os.path.dirname(library_path(name, LIBRARIES[name])), "ptxas.txt"))
+
+
+def parse_ptxas(txt: str) -> dict:
+    """The registers and spill bytes per kernel of a kept `-Xptxas -v`
+    report at path `txt` (empty if there is none)."""
     if not os.path.exists(txt):
         return {}
     out, kernel = {}, None

@@ -70,6 +70,7 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -82,8 +83,8 @@ BLOCK = 128  # rays per `blive` flag and per kernel thread block
 COUNTS = Counts()
 
 
-def _library():
-    lib, _ = load("fused_trace")
+def bind(lib):
+    """The launcher `fused_trace_launch` of a loaded B3 library, typed."""
     fn = lib.fused_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -97,6 +98,13 @@ def _library():
         ctypes.c_void_p,  # stream
     ]
     return fn
+
+
+@functools.cache
+def _library():
+    """The package kernel's launcher, loaded once a process: `load` hashes
+    the sources, ~0.15 ms a call on the card's host."""
+    return bind(load("fused_trace")[0])
 
 
 def _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst=None):
@@ -282,6 +290,18 @@ def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min:
                      nee: bool = False, amask: bool = False, inst=None):
     """Launch the Hopper kernel on the current stream; raises on any input
     it does not take or if the launch is refused."""
+    out = launch(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask, inst)
+    COUNTS.launches += 1
+    mode = mode_name(nee, amask, inst is not None)
+    COUNTS.modes[mode] = COUNTS.modes.get(mode, 0) + 1
+    return out
+
+
+def launch(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: float,
+           nee: bool = False, amask: bool = False, inst=None, fn=None):
+    """One launch of the launcher `fn` (`bind` of a B3 library; None: the
+    package's kernel) on the current stream, without counting it; raises as
+    `fused_trace_cuda`."""
     tables = _check(rays, slots, clus_box, clus_pack, clus_count, blive, inst)
     if not rays.is_cuda:
         raise ValueError("fused_trace_cuda needs CUDA tensors")
@@ -291,7 +311,7 @@ def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min:
     n = rays.shape[0]
     if n >= 2 ** 31 // 8:
         raise ValueError(f"{n} rays overflow the kernel's int indexing")
-    fn = _library()
+    fn = fn or _library()
     out = torch.empty((n, 8), dtype=torch.float32, device=rays.device)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -303,9 +323,6 @@ def fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min:
                  stream)
     if err != 0:
         raise RuntimeError(f"fused_trace launch failed: cudaError {err}")
-    COUNTS.launches += 1
-    mode = mode_name(nee, amask, inst is not None)
-    COUNTS.modes[mode] = COUNTS.modes.get(mode, 0) + 1
     return out
 
 
