@@ -31,8 +31,12 @@ exits non-zero and prints no final "ok" line:
                is 2^20 camera rays from the CLI's camera, cast 1 re-casts
                the lanes whose first hit the alpha gate passed through,
                with floor = that hit, reusing cast 0's order and slots as
-               the gated loop does. B2 on these rays against its twin too.
-               This case gives the kernels line its B2 and B3 times.
+               the gated loop does. B2 on these rays against its twin too,
+               and on rays leaving their hits in random directions, in
+               lane order (a later bounce's rays, which a block's cull
+               cannot thin). Each timed B2 record has two bounds
+               (`b2_bounds`: over the work its inputs need, and over a
+               sweep of every box by every live ray).
   3e. gated  — the gated re-cast loop (intersect_blocktrace_gated), kernel
                path against twin path bitwise, on 2^16 atrium-ivy camera
                rays and on shadow rays from their hits (nee), with the
@@ -76,8 +80,11 @@ exits non-zero and prints no final "ok" line:
                camera rays on the dense atrium (atrium(density=3): 1,094,508
                triangles, 12,079 clusters) and of 262,144 incoherent rays on
                the bench scene at C = 16 (11,866 clusters), both built here
-               on the host first (their seconds are reported); times, bound,
-               live pairs and blocks, rounds and collect iterations.
+               on the host first (their seconds are reported); times, bound
+               and no-FMA floor, tiles and live pairs, rounds and collect
+               iterations; B4 must touch no row that is not a live pair
+               (rows touched == live pairs; the parent layout's padded rows
+               are reported beside).
   3i. bintrace — intersect_bintrace, kernel path against twin path, bitwise
                on every Hit field and on rounds and collect iterations, at
                2^16 dense-atrium camera rays and their sun shadow rays (nee).
@@ -177,11 +184,21 @@ PEAK_INT32 = 132 * 64 * 1.98e9
 # NEE f and pdf of up to four lobes ~400, the update and roulette ~60;
 # a transcendental counted once).
 FLOPS_SHADE = 900
+# B4 as the bitwise contract builds it (--fmad=false): per (pair, column) 37
+# float instructions issued alone (six 3-term dot products: 18 multiplies,
+# 12 adds; t's subtract; u and v a multiply, an add and a subtract each)
+# and ~8 for the IEEE division (reciprocal, refinement, quotient, its
+# correction and range check), at one instruction a lane a clock: 128
+# lanes x 132 SMs x 1.98 GHz. The reachable floor beside B4's bound.
+INSTR_PLANE_NOFMA = 45
+PEAK_FP32_INSTR = 132 * 128 * 1.98e9
 INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
 DENSE_SPP = 16  # samples per pixel of the dense atrium render (phase 4e)
 B3_KEYS = ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by", "b3_sweep_bound_ms")  # B3's timed records
+B2_KEYS = ("b2_ms", "b2_plain_ms", "b2_bound_ms", "b2_bound_by", "b2_sweep_bound_ms")  # B2's timed records
+B4_ROWS = ("tiles", "live_pairs", "rows_touched", "parent_layout_rows")  # B4's layout records
 SUN = (0.45, 0.72, 0.3)  # the sun direction of the shadow-ray cases (unnormalised)
 
 
@@ -359,6 +376,62 @@ def b3_bounds(args, out, prefix: str = "b3_") -> dict:
     return rec
 
 
+def b2_bounds(rays, n_clus: int, pk, prefix: str = "b2_") -> dict:
+    """Both bounds of one B2 call on `rays` with output `pk`. `bound_ms`
+    counts the work the inputs need: one box test per (128-lane block with
+    a live ray, box) and one slab test per (ray, box it enters), the sum of
+    output column 5. `sweep_bound_ms` counts a slab test per (live ray,
+    box), the sweep of the earlier one-thread-a-ray kernel. The bytes are the rays, the boxes
+    and the output, each once."""
+    import torch
+
+    live = rays[:, 6] > 0
+    blocks = int(torch.unique(torch.nonzero(live)[:, 0] // 128).numel())
+    entered = float(pk[:, 5].double().sum())
+    nb = nbytes(rays, pk) + 24 * n_clus
+    rec = {f"{prefix}block_box_tests": blocks * n_clus, f"{prefix}entered": entered}
+    rec[f"{prefix}bound_ms"], rec[f"{prefix}bound_by"] = bound(FLOPS_SLAB * (blocks * n_clus + entered), nb)
+    rec[f"{prefix}sweep_bound_ms"], rec[f"{prefix}sweep_bound_by"] = bound(
+        FLOPS_SLAB * float(live.sum()) * n_clus, nb)
+    return rec
+
+
+def b2_timed(rays, box, n_clus: int, t_min: float, pk) -> dict:
+    """B2's kernel and twin times on one call's inputs, with its bounds."""
+    from yart_tpu_torch.kernels import presort
+
+    rec = {"b2_ms": cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11),
+           "b2_plain_ms": cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)}
+    rec.update(b2_bounds(rays, n_clus, pk))
+    return rec
+
+
+def compare_presort(name, scene, meta, o, d, t_max) -> dict:
+    """B2 alone against its twin, bitwise, on rays in lane order, as the
+    block trace calls it; timed, with both bounds. Raises on any
+    difference; returns the phase record."""
+    import torch
+
+    from yart_tpu_torch.kernels import presort
+    from yart_tpu_torch.render import blocktrace
+
+    t_min = 1e-3
+    rays = blocktrace.ray_matrix(o, d, t_max)
+    box, n_clus = scene.clus_box, blocktrace.n_clus(meta)
+    pk = presort.presort_cuda(rays, box, n_clus, t_min)
+    pk_p = presort.presort_plain(rays, box, n_clus, t_min)
+    torch.cuda.synchronize()
+    rows = int((pk != pk_p).any(dim=1).sum())
+    if rows:
+        raise AssertionError(f"{name}: B2 kernel and plain twin differ on {rows} rows")
+    live = int((rays[:, 6] > 0).sum())
+    rec = {"case": name, "n_rays": int(o.shape[0]), "n_clusters": int(n_clus), "live_rays": live,
+           "bitwise_equal": True, "b2_rows_differ": 0, "b2_max_abs_err": 0.0,
+           "entered_mean": float(pk[:, 5].double().sum() / max(live, 1))}
+    rec.update(b2_timed(rays, box, n_clus, t_min, pk))
+    return rec
+
+
 def blocktrace_case(scene, meta, o, d, t_max, nee: bool = False):
     """The block trace's B2 and B3 inputs for rays o, d, t_max, as
     `intersect_blocktrace` makes them (ray matrix, B2 kernel, schedule, one
@@ -457,10 +530,7 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
            "tris_tested": float(out[:, 6].double().sum()),
            "entered_mean": float(pk[:, 5].double().sum() / max(live, 1))}
     if timed:
-        rec["b2_ms"] = cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11)
-        rec["b2_plain_ms"] = cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)
-        rec["b2_bound_ms"], rec["b2_bound_by"] = bound(
-            FLOPS_SLAB * live * n_clus, nbytes(rays, box, pk))
+        rec.update(b2_timed(rays, box, n_clus, t_min, pk))
         rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args), reps=11)
         rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args), reps=1,
                                      warmup_s=0.0, warmup_calls=1)
@@ -531,9 +601,7 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
                max_abs_err=max(c["max_abs_err"] for c in casts))
     if not timed:
         return rec
-    rec["b2_ms"] = cuda_ms(lambda: presort.presort_cuda(rays, box, n_clus, t_min), reps=11)
-    rec["b2_plain_ms"] = cuda_ms(lambda: presort.presort_plain(rays, box, n_clus, t_min), reps=3)
-    rec["b2_bound_ms"], rec["b2_bound_by"] = bound(FLOPS_SLAB * n * n_clus, nbytes(rays, box, pk))
+    rec.update(b2_timed(rays, box, n_clus, t_min, pk))
     rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0), reps=11)
     rec["b3_closest_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0[:8], False, inst), reps=11)
     rec["b3_cast1_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args1), reps=11)
@@ -744,25 +812,55 @@ def compare_legacy_paths(name, scene, meta, o, d, t_max, nee: bool = False, floo
             "hit_frac": float((hk[4] >= 0).float().mean()), "kernel_path_ms": ms, "twin_path_s": plain_s}, hk
 
 
-def b4_work(lay, c: int):
-    """(flops, bytes) of one B4 call on layout `lay`, from its data: every
-    live pair tests the C columns of its cluster; each live pair row is
-    read and its hit written once, and each live block reads its
-    cluster's [4, 3C] rows once (the block table 12 bytes a block)."""
-    live_pairs, live_blocks = lay.pair.numel(), int(lay.block_live.sum())
-    return (FLOPS_PLANE * live_pairs * c,
-            live_pairs * (32 + 17) + live_blocks * 4 * 3 * c * 4 + lay.block_cid.numel() * 12)
+def b4_tests(lay, clus_count) -> float:
+    """The (pair, column) tests of one B4 call on layout `lay`: each live
+    pair against its cluster's triangles (`clus_count`; the cluster's other
+    columns are zero and never valid, so no test of them is needed)."""
+    return float((lay.tiles[:, 3].double() * clus_count[lay.tiles[:, 0].long()].double()).sum())
+
+
+def b4_work(lay, c: int, clus_count):
+    """(flops, bytes) of one B4 call on layout `lay`, from its data: the
+    plane tests of `b4_tests`; each live pair row read and its hit written
+    once, each cluster with pairs has its triangles' [4, 3] columns read
+    once, and the tile table and counts once."""
+    import torch
+
+    cids = torch.unique(lay.tiles[:, 0]).long()
+    return (FLOPS_PLANE * b4_tests(lay, clus_count),
+            lay.pair.numel() * (32 + 17) + float(clus_count[cids].double().sum()) * 4 * 3 * 4
+            + lay.tiles.numel() * 4 + cids.numel() * 4)
+
+
+def b4_floor_ms(lay, clus_count) -> float:
+    """B4's reachable floor under --fmad=false (INSTR_PLANE_NOFMA a test)."""
+    return b4_tests(lay, clus_count) * INSTR_PLANE_NOFMA / PEAK_FP32_INSTR * 1e3
+
+
+def b4_rows(lay) -> dict:
+    """The layout's tiles, live pairs and the rows B4 touches (reads,
+    tests and writes: its tiles' rows), beside the rows the parent's
+    layout had (each cluster's pairs in whole blocks of 1024)."""
+    import torch
+
+    cnt = torch.zeros(int(lay.tiles[:, 0].max()) + 1 if lay.tiles.numel() else 1, dtype=torch.int64,
+                      device=lay.tiles.device)
+    cnt.index_add_(0, lay.tiles[:, 0].long(), lay.tiles[:, 3].long())
+    return {"tiles": int(lay.tiles.shape[0]), "live_pairs": int(lay.pair.numel()),
+            "rows_touched": int(lay.tiles[:, 3].sum()), "layout_rows": int(lay.x.shape[0]),
+            "parent_layout_rows": int(((cnt + 1023) // 1024).sum()) * 1024}
 
 
 def compare_pairs(name, scene, meta, o, d, t_max):
     """B4 kernel vs its plain twin on the same card tensors, bitwise on t,
     u, v, back and tri, at bin-trace's round-1 shapes for these rays (the
     collect phase, then the pair layout); timed. Raises on any bit
-    difference; returns the phase record."""
+    difference, or if B4 touches a row that is not a live pair; returns
+    the phase record."""
     import torch
 
-    from yart_tpu_torch.kernels import clusterpairs
-    from yart_tpu_torch.render import bintrace
+    from yart_tpu_torch.kernels import build, clusterpairs
+    from yart_tpu_torch.render import bintrace, blocktrace
 
     t_min, n, k = 1e-3, o.shape[0], meta.bintrace_k
     t0 = time.perf_counter()
@@ -772,11 +870,17 @@ def compare_pairs(name, scene, meta, o, d, t_max):
     lay = bintrace.pair_layout(scene, meta, slots, n_col, o, d, t_max)
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t0
-    args = (scene.clus_pack, lay.block_cid, lay.block_first, lay.block_live, lay.x, meta.cluster_size, t_min)
+    rows = b4_rows(lay)
+    if not rows["rows_touched"] == rows["live_pairs"] == rows["layout_rows"]:
+        raise AssertionError(f"{name}: B4 touches rows that are not live pairs: {rows}")
+    counts = blocktrace.cluster_counts(scene, meta)
+    args = (scene.clus_pack, counts, lay.tiles, lay.x, meta.cluster_size, t_min)
     out = clusterpairs.cluster_pairs_cuda(*args)
     out_p = clusterpairs.cluster_pairs_plain(*args)
     torch.cuda.synchronize()
     fields = ("t", "u", "v", "back", "tri")
+    if any(a.shape[0] != rows["live_pairs"] for a in out):
+        raise AssertionError(f"{name}: B4 wrote {out[0].shape[0]} rows for {rows['live_pairs']} live pairs")
     hit = out[4] >= 0
     err = max(float((a[hit] - b[hit]).abs().max()) if hit.any() else 0.0 for a, b in zip(out[:3], out_p[:3]))
     diff = [f for f, a, b in zip(fields, out, out_p) if not bits_equal(a, b)]
@@ -785,15 +889,17 @@ def compare_pairs(name, scene, meta, o, d, t_max):
     bintrace.COUNTS.reset()
     bintrace.intersect_bintrace(scene, meta, o, d, t_max)
     rec = {"case": name, "n_rays": n, "n_tris": int(meta.n_tris), "n_clusters": int(meta.n_clusters),
-           "cluster_size": int(meta.cluster_size), "bitwise_equal": True, "max_abs_err": err,
-           "live_pairs": int(lay.pair.numel()), "blocks": int(lay.block_cid.numel()),
-           "live_blocks": int(lay.block_live.sum()), "pair_hit_frac": float(hit[lay.pos].float().mean()),
+           "cluster_size": int(meta.cluster_size), "bitwise_equal": True, "max_abs_err": err, **rows,
+           "pair_hit_frac": float(hit.float().mean()),
            "collect_iters_round1": bintrace.COUNTS.iters[0], "rounds": bintrace.COUNTS.rounds,
-           "collect_iters_per_round": bintrace.COUNTS.iters, "round1_collect_and_layout_s": layout_s}
-    rec["ms"] = cuda_ms(lambda: clusterpairs.cluster_pairs_cuda(*args), reps=11)
+           "collect_iters_per_round": bintrace.COUNTS.iters, "round1_collect_and_layout_s": layout_s,
+           "occupancy_blocks_per_sm": build.occupancy("cluster_pairs", meta.cluster_size)}
+    rec["ms"] = cuda_ms(lambda: clusterpairs.launch(*args), reps=11)  # the kernel, not the tile check
     rec["plain_ms"] = cuda_ms(lambda: clusterpairs.cluster_pairs_plain(*args), reps=1, warmup_s=0.0,
                               warmup_calls=1)
-    rec["bound_ms"], rec["bound_by"] = bound(*b4_work(lay, meta.cluster_size))
+    rec["pair_column_tests"] = b4_tests(lay, counts)
+    rec["bound_ms"], rec["bound_by"] = bound(*b4_work(lay, meta.cluster_size, counts))
+    rec["nofma_floor_ms"] = b4_floor_ms(lay, counts)
     return rec
 
 
@@ -1341,6 +1447,13 @@ def main() -> int:
                                               forward=ivy_fwd), dev, seeds=True)
     rec_i = compare_amask("atrium_ivy_camera", ivy, ivy_meta, io, idr, iseed)
     emit({"phase": "kernel", **rec_i})
+    # B2 on rays leaving those hits in random directions, in lane order, as
+    # a render's later bounces send them: the case a block's cull cannot thin.
+    i_hit = blocktrace.intersect_blocktrace(ivy, ivy_meta, io, idr, torch.full((io.shape[0],), 1e30, device=dev))
+    rec_ir = compare_presort("atrium_ivy_random_directions", ivy, ivy_meta,
+                             *shadow_rays(io, idr, i_hit[0], i_hit[4] >= 0))
+    emit({"phase": "kernel", **rec_ir})
+    del i_hit
 
     # ---- 3e. the gated re-cast loop: kernel path vs twin path ------------
     go, gd, gseed = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=ivy_pos,
@@ -1673,10 +1786,13 @@ def main() -> int:
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
                               "atrium-ivy": launches_ivy["presort_keys"],
                               "atrium-inst": launches_inst["presort_keys"]},
-         "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]),
+         "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
          "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
          "bound_ms": rec_ic["b2_bound_ms"], "bound_by": rec_ic["b2_bound_by"], "library_ms": None,
-         "atrium_ivy": {k: rec_i[k] for k in ("b2_ms", "b2_plain_ms", "b2_bound_ms", "b2_bound_by")}},
+         "sweep_bound_ms": rec_ic["b2_sweep_bound_ms"],
+         "ptxas": build.ptxas_report("presort_keys"),
+         "occupancy_blocks_per_sm": build.occupancy("presort_keys"),
+         **{r["case"]: {k: r[k] for k in B2_KEYS} for r in (rec_i, rec_ir, rec_in, recs["incoherent"], rec_s)}},
         {"name": "fused_trace", "route": "cuda",
          "source": "yart_tpu_torch/csrc/fused_trace.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:1128",
@@ -1702,7 +1818,11 @@ def main() -> int:
          "max_abs_err": max(rec_h["max_abs_err"], rec_hb["max_abs_err"]),
          "ms": rec_h["ms"], "plain_ms": rec_h["plain_ms"],
          "bound_ms": rec_h["bound_ms"], "bound_by": rec_h["bound_by"], "library_ms": None,
-         "bench_bigscene_c16": {k: rec_hb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         "nofma_floor_ms": rec_h["nofma_floor_ms"], "ptxas": build.ptxas_report("cluster_pairs"),
+         "occupancy_blocks_per_sm": rec_h["occupancy_blocks_per_sm"],
+         **{k: rec_h[k] for k in B4_ROWS},
+         "bench_bigscene_c16": {k: rec_hb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "nofma_floor_ms")
+                                + B4_ROWS}},
         {"name": "shade", "route": "cuda",
          "source": "yart_tpu_torch/csrc/shade.cu",
          "replaces": "yart_tpu/kernels/pallas_shade.py:168",

@@ -11,9 +11,12 @@ Checks and tolerances:
   whose root is a leaf;
 - the collect loop's vectorised stages of Batcher's network permute as the
   JAX module's list of 19 compare-exchanges does, ties included;
-- B4's twin `cluster_pairs_plain` against `cluster_pairs_ref`, bitwise on
-  t, u and v (and tri, and back on hits), with dead blocks, short clusters
-  and empty pair rows; against `cluster_pairs_pallas(interpret=True)` at
+- B4's twin `cluster_pairs_plain` on the port's tile layout against
+  `cluster_pairs_ref` on the same pairs in the JAX blocks (padded with
+  empty rows, a dead block), per pair, bitwise on t and tri (and u, v and
+  back on hits), with short clusters, clusters of 1, TILE and TILE + 1
+  pairs and pairs that cannot hit; against
+  `cluster_pairs_pallas(interpret=True)` at
   the JAX package's own bar between those two (tests/test_bintrace.py:
   84-124): tri on >= 99.9% of pairs, t within rtol/atol 1e-5, u and v
   within 1e-5 where tri agrees, back equal there (interpret mode contracts the
@@ -49,7 +52,7 @@ import yart_tpu.native
 from test_bintrace import _random_mesh
 from yart_tpu.config import CameraConfig as JCam
 from yart_tpu.config import RenderConfig as JCfg
-from yart_tpu.kernels.pallas_cluster import cluster_pairs_pallas, cluster_pairs_ref
+from yart_tpu.kernels.pallas_cluster import B_PAIRS, cluster_pairs_pallas, cluster_pairs_ref
 from yart_tpu.render import bintrace as JBT
 from yart_tpu.render.renderer import Renderer as JRenderer
 from yart_tpu.scene import bvh as JB
@@ -182,34 +185,54 @@ def test_sort8_stages_equal_the_network():
 
 
 def test_pair_twin_equals_jax(soup):
+    """The same seeded pairs laid out both ways: compactly, one row a pair
+    in the port's tiles (clusters of 1, TILE, TILE + 1 and 3 TILE + 5
+    pairs), and in the JAX kernels' blocks of B_PAIRS rows padded with
+    empty rows, with a dead block; compared per pair."""
     js, jm, ts, tm = soup
     rng = np.random.default_rng(1)
-    n_blocks = 6
-    p = n_blocks * clusterpairs.B_PAIRS
-    o, d = _rays(rng, p)
-    x = np.concatenate([o, d, np.full((p, 1), 100.0, np.float32), np.zeros((p, 1), np.float32)], axis=1)
-    x[::7] = 0.0  # empty pair rows (tmax 0), as the padding of a partial block
+    tile = clusterpairs.TILE
+    sizes = [1, tile, tile + 1, 3 * tile + 5, 129]
+    cids = rng.choice(jm.n_clusters, size=len(sizes), replace=False).astype(np.int32)
     counts = np.diff(np.append(np.sort(np.asarray(js.clus_first)), jm.n_tris))
     assert counts.min() < jm.cluster_size  # short clusters: zero padding columns
-    cid = rng.integers(0, jm.n_clusters, size=n_blocks).astype(np.int32)
-    first = np.asarray(js.clus_first)[cid]
-    live = np.asarray([1, 1, 0, 1, 1, 0], np.int32)  # two dead blocks
+    n_pairs = sum(sizes)
+    o, d = _rays(rng, n_pairs)
+    tmax = np.full((n_pairs, 1), 100.0, np.float32)
+    tmax[::7] = 0.0  # live pairs that cannot hit (tmax <= t_min)
+    x = np.concatenate([o, d, tmax, np.zeros((n_pairs, 1), np.float32)], axis=1)
+    pair_cid = np.repeat(cids, sizes)
+    tiles = TBT.tile_table(T(pair_cid), ts.clus_first, tile)
+    assert tiles[:, 3].max() == tile and int(tiles[:, 3].sum()) == n_pairs
     args = (jm.cluster_size, 1e-3)
-    got = [a.numpy() for a in clusterpairs.cluster_pairs(T(ts.clus_pack), T(cid), T(first), T(live), T(x), *args)]
+    counts = blocktrace.cluster_counts(ts, tm)
+    assert counts.min() < jm.cluster_size  # B4 tests each cluster's triangles, not its zero columns
+    got = [a.numpy() for a in clusterpairs.cluster_pairs(T(ts.clus_pack), counts, tiles, T(x), *args)]
     hit = got[4] >= 0
     assert 0.01 < hit.mean() < 0.5
-    dead = np.repeat(live == 0, clusterpairs.B_PAIRS)
-    assert not hit[dead].any() and (got[0][~hit] == np.float32(3e38)).all()
+    assert (got[0][~hit] == np.float32(3e38)).all()
     assert (got[1][~hit] == 0).all() and (got[2][~hit] == 0).all() and not got[3][~hit].any()
 
-    jargs = (js.clus_pack, jnp.asarray(cid), jnp.asarray(first), jnp.asarray(live), jnp.asarray(x))
-    ref = [np.asarray(a) for a in cluster_pairs_ref(*jargs, *args)]
+    # The JAX layout: a block of B_PAIRS rows per cluster, the rest empty
+    # rows (tmax 0), and one dead block.
+    n_blocks = len(sizes) + 1
+    xp = np.zeros((n_blocks * B_PAIRS, 8), np.float32)
+    pos = np.concatenate([b * B_PAIRS + np.arange(n) for b, n in enumerate(sizes)])
+    xp[pos] = x
+    xp[len(sizes) * B_PAIRS :] = np.concatenate([*_rays(rng, B_PAIRS), x[:B_PAIRS, 6:]], axis=1)
+    cid = np.append(cids, cids[0]).astype(np.int32)
+    live = np.append(np.ones(len(sizes), np.int32), 0).astype(np.int32)
+    first = np.asarray(js.clus_first)[cid]
+    jargs = (js.clus_pack, jnp.asarray(cid), jnp.asarray(first), jnp.asarray(live), jnp.asarray(xp))
+    ref = [np.asarray(a)[pos] for a in cluster_pairs_ref(*jargs, *args)]
     _eq(got[4], ref[4], "tri")
     _eq(got[0], ref[0], "t")
     for i, name in ((1, "u"), (2, "v"), (3, "back")):  # JAX leaves column 0's values on a miss
         _eq(got[i][hit], ref[i][hit], name)
 
     pal = [np.asarray(a) for a in cluster_pairs_pallas(*jargs, *args, interpret=True)]
+    assert (pal[4][len(sizes) * B_PAIRS :] == -1).all()  # the dead block
+    pal = [a[pos] for a in pal]
     same = got[4] == pal[4]
     assert same.mean() >= 0.999
     np.testing.assert_allclose(got[0], pal[0], rtol=1e-5, atol=1e-5)

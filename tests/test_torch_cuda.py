@@ -136,6 +136,94 @@ def test_presort_kernel_equals_plain(quad_soup, n_rays):
     assert (k[: n_rays // 8, 0] == presort.SKEY_NOTHING).all()
 
 
+def _boxes(rng, n_clus, dev, degenerate=False):
+    """clus_box [8, cpad] of n_clus seeded boxes in [-4, 4]^3 (cpad the
+    next multiple of 128, the pad columns NaN, which B2 must not read)."""
+    cpad = -(-n_clus // 128) * 128
+    lo = rng.uniform(-4, 4, (3, n_clus))
+    hi = lo if degenerate else lo + rng.uniform(0.05, 0.6, (3, n_clus))
+    box = np.full((8, cpad), np.nan, np.float32)
+    box[0:3, :n_clus], box[3:6, :n_clus] = lo, hi
+    return torch.from_numpy(box).to(dev)
+
+
+def _b2_kernel_equals_plain(rays, box, n_clus):
+    before = presort.COUNTS.launches
+    k = presort.presort_keys(rays.contiguous(), box, n_clus, 1e-3)
+    assert presort.COUNTS.launches == before + 1
+    p = presort.presort_plain(rays.contiguous(), box, n_clus, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p), f"B2 kernel and twin differ on {int((k != p).any(dim=1).sum())} rows"
+    return k
+
+
+def _b2_rays(rng, n, kind, dev):
+    """[n, 8] rays in lane order: "camera" (one origin, directions sweeping
+    a small frustum row by row, as a render's camera rays) or "random"
+    (origins near each other in lane order, directions uniform, as a later
+    bounce's)."""
+    if kind == "camera":
+        side = int(np.ceil(np.sqrt(n)))
+        u, v = np.meshgrid(np.linspace(-0.4, 0.4, side), np.linspace(-0.4, 0.4, side))
+        d = np.stack([u.ravel(), v.ravel(), -np.ones(side * side)], 1)[:n]
+        o = np.tile([[0.3, 0.2, 7.0]], (n, 1))
+    else:
+        o = np.cumsum(rng.normal(0, 0.02, (n, 3)), axis=0) % 8.0 - 4.0
+        d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.full((n, 1), 30.0)
+    return torch.from_numpy(np.concatenate([o, d, t, np.zeros((n, 1))], 1).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n_clus", [1, 127, 128, 129, 8192])
+def test_presort_cluster_counts_equal_plain(dev, n_clus):
+    """Box counts around B2's tile of 128 and the 8192-cluster cap, with
+    camera and random-direction rays."""
+    rng = np.random.default_rng(n_clus)
+    box = _boxes(rng, n_clus, dev)
+    for kind in ("camera", "random"):
+        k = _b2_kernel_equals_plain(_b2_rays(rng, 16384, kind, dev), box, n_clus)
+        assert (k[:, 5] > 0).any()
+
+
+@pytest.mark.parametrize("case", ["ragged_1", "ragged_129", "ragged_1000", "one_live_lane", "dead_blocks",
+                                  "zero_directions", "tiny_directions", "nan_directions", "on_faces",
+                                  "degenerate_boxes", "camera", "random"])
+def test_presort_edges_equal_plain(dev, case):
+    """B2 at the edges of its block cull: ragged N; blocks with one live
+    lane and with none; direction components of +-0, +-1e-21 (the 1e-20
+    safe path) and NaN; origins on box faces (slab values +-0, boxes at
+    -0.0); degenerate boxes (lo = hi); coherent camera and random rays."""
+    rng = np.random.default_rng(len(case))
+    n_clus = 700
+    box = _boxes(rng, n_clus, dev, degenerate=case == "degenerate_boxes")
+    n = {"ragged_1": 1, "ragged_129": 129, "ragged_1000": 1000}.get(case, 8192)
+    rays = _b2_rays(rng, n, "camera" if case in ("camera", "one_live_lane", "dead_blocks") else "random", dev)
+    lane = torch.arange(n, device=dev)
+    if case == "one_live_lane":
+        rays[lane % 128 != 37, 6] = -1.0
+    elif case == "dead_blocks":
+        rays[(lane // 128) % 3 == 1, 6] = -1.0
+        rays[lane % 5 == 0, 6] = 0.0
+    elif case in ("zero_directions", "tiny_directions", "nan_directions"):
+        val = {"zero_directions": 0.0, "tiny_directions": 1e-21, "nan_directions": float("nan")}[case]
+        for a in range(3):
+            rays[a::4, 3 + a] = val
+            rays[a + 1::8, 3 + a] = -val
+    elif case == "on_faces":
+        j = torch.from_numpy(rng.integers(0, n_clus, n)).to(dev)
+        for a in range(3):
+            rays[:, a] = torch.where(lane % 3 == a, box[a, j], box[a + 3, j])
+        box[0:3, : n_clus // 4] = -0.0  # boxes at -0.0 against origins at +0.0 (slab values -0)
+        rays[::7, 0:3] = 0.0
+        rays[1::7, 3:6] = torch.tensor([0.0, -0.0, 1.0], device=dev)
+    k = _b2_kernel_equals_plain(rays, box, n_clus)
+    if case == "one_live_lane":
+        assert (k[lane % 128 != 37, 5] == 0).all() and (k[lane % 128 == 37, 5] > 0).any()
+    if case == "dead_blocks":
+        assert (k[(lane // 128) % 3 == 1, 0] == presort.SKEY_NOTHING).all()
+
+
 @pytest.mark.parametrize("nee", [False, True])
 @pytest.mark.parametrize("n_rays", [1000, 65536])
 def test_fused_trace_kernel_equals_plain(quad_soup, n_rays, nee):
@@ -568,30 +656,131 @@ def test_argmin_takes_the_first_minimum_on_cuda(dev):
     assert int(torch.argmin(torch.full((1000,), 3e38, device=dev))) == 0
 
 
-@pytest.mark.parametrize("n_blocks", [1, 7, 300])
-def test_cluster_pairs_kernel_equals_plain(quad_soup, n_blocks):
-    scene, meta = quad_soup
-    dev = scene.clus_pack.device
-    rng = np.random.default_rng(n_blocks)
-    p = n_blocks * clusterpairs.B_PAIRS
-    o, d = _trace_rays(p, 3 * n_blocks, dev)
-    tmax = torch.full((p, 1), 100.0, device=dev)
-    x = torch.cat([o, d, tmax, torch.zeros_like(tmax)], dim=1)
-    x[::5] = 0.0  # empty rows, as in a cluster's last block
-    cid = torch.from_numpy(rng.integers(0, meta.n_clusters, n_blocks).astype(np.int32)).to(dev)
-    live = torch.from_numpy((rng.uniform(size=n_blocks) < 0.8).astype(np.int32)).to(dev)
-    live[0] = 1
-    args = (scene.clus_pack, cid, scene.clus_first[cid.long()], live, x.contiguous(), meta.cluster_size, 1e-3)
+def _pairs(rng, sizes, n_clusters, dev, tmax=100.0):
+    """B4's compact layout for seeded pairs: clusters of the given sizes
+    (random cluster ids in ascending order, distinct where there are enough
+    clusters; a repeated id joins its runs), one random ray a pair.
+    Returns (each row's cluster id [L] int32, the rows x [L, 8])."""
+    cids = np.sort(rng.choice(n_clusters, size=len(sizes), replace=len(sizes) > n_clusters))
+    n = int(sum(sizes))
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    x = np.concatenate([o, d, np.full((n, 1), tmax, np.float32), np.zeros((n, 1), np.float32)], axis=1)
+    cid = torch.from_numpy(np.repeat(cids, sizes).astype(np.int32)).to(dev)
+    return cid, torch.from_numpy(x).to(dev)
+
+
+def _b4_kernel_equals_plain(scene, meta, cid, x, tile=clusterpairs.TILE, counts=None):
+    """B4 on pair rows x sorted by cluster `cid`, in tiles of `tile`, each
+    against its cluster's triangles (or the first `counts` columns): the
+    kernel against its twin, bitwise on t, u, v, back and tri; returns the
+    kernel's outputs."""
+    tiles = bintrace.tile_table(cid, scene.clus_first, tile)
+    counts = blocktrace.cluster_counts(scene, meta) if counts is None else counts
+    args = (scene.clus_pack, counts, tiles, x.contiguous(), meta.cluster_size, 1e-3)
     before = clusterpairs.COUNTS.launches
     k = clusterpairs.cluster_pairs(*args)
     assert clusterpairs.COUNTS.launches == before + 1
-    pl = clusterpairs.cluster_pairs_plain(*args)
+    p = clusterpairs.cluster_pairs_plain(*args)
     torch.cuda.synchronize()
-    for a, b in zip(k, pl):
-        assert _bits_equal(a, b)
+    diff = [f for f, a, b in zip(("t", "u", "v", "back", "tri"), k, p) if not _bits_equal(a, b)]
+    assert not diff, f"B4 kernel and twin differ in {diff}"
+    assert all(a.shape[0] == x.shape[0] for a in k)
     hit = k[4] >= 0
-    dead = (live == 0).repeat_interleave(clusterpairs.B_PAIRS)
-    assert hit.any() and not hit[dead].any() and (k[0][~hit] == 3e38).all() and not k[3][~hit].any()
+    assert (k[0][~hit] == 3e38).all() and not k[3][~hit].any() and (k[1][~hit] == 0).all()
+    return k
+
+
+@pytest.mark.parametrize("n_blocks", [1, 7, 300])
+def test_cluster_pairs_kernel_equals_plain(quad_soup, n_blocks):
+    """n_blocks clusters of seeded random sizes (1 to 700 pairs), every
+    fifth pair with tmax 0 (it cannot hit)."""
+    scene, meta = quad_soup
+    dev = scene.clus_pack.device
+    rng = np.random.default_rng(n_blocks)
+    cid, x = _pairs(rng, rng.integers(1, 700, n_blocks), meta.n_clusters, dev)
+    x[::5, 6] = 0.0
+    k = _b4_kernel_equals_plain(scene, meta, cid, x)
+    assert (k[4] >= 0).any() and not (k[4][::5] >= 0).any()
+
+
+@pytest.mark.parametrize("size", [1, clusterpairs.TILE - 1, clusterpairs.TILE, clusterpairs.TILE + 1,
+                                  3 * clusterpairs.TILE + 5])
+def test_cluster_pairs_tile_edges_equal_plain(quad_soup, size):
+    """Clusters of 1, T - 1, T, T + 1 and 3T + 5 pairs: full, partial and
+    one-pair tiles and warps, in tiles of T and of 128."""
+    scene, meta = quad_soup
+    dev = scene.clus_pack.device
+    cid, x = _pairs(np.random.default_rng(size), [size] * 3, meta.n_clusters, dev)
+    for tile in (clusterpairs.TILE, 128):
+        _b4_kernel_equals_plain(scene, meta, cid, x, tile)
+
+
+@pytest.mark.parametrize("cnt", [1, 33])
+def test_cluster_pairs_short_clusters_equal_plain(tie_scene, cnt):
+    """Clusters cut to their first `cnt` columns (B4 takes the counts as
+    given): one column, and one past a warp's 32."""
+    scene, meta, _ = tie_scene
+    dev = scene.clus_pack.device
+    counts = torch.clamp(blocktrace.cluster_counts(scene, meta), max=cnt)
+    n = 4096
+    o, d = (torch.from_numpy(a).to(dev) for a in tie_rays(n, seed=cnt))
+    cid = torch.arange(meta.n_clusters, dtype=torch.int32, device=dev).repeat_interleave(n // 8)
+    ray = torch.arange(cid.numel(), device=dev) % n
+    x = torch.cat([o[ray], d[ray], torch.full((ray.numel(), 1), 100.0, device=dev),
+                   torch.zeros((ray.numel(), 1), device=dev)], dim=1)
+    k = _b4_kernel_equals_plain(scene, meta, cid, x, counts=counts)
+    hit = k[4] >= 0
+    assert hit.any() and ((k[4][hit] - scene.clus_first[cid[hit].long()]) < cnt).all()
+
+
+def test_cluster_pairs_edge_rays_equal_plain(quad_soup):
+    """Pairs with tmax <= t_min (0, t_min itself, -1), NaN direction and
+    origin components, and directions along the axes."""
+    scene, meta = quad_soup
+    dev = scene.clus_pack.device
+    cid, x = _pairs(np.random.default_rng(21), [300, 257, 64, 1], meta.n_clusters, dev)
+    x[0::11, 6] = 0.0
+    x[1::11, 6] = 1e-3
+    x[2::11, 6] = -1.0
+    x[3::13, 4] = float("nan")
+    x[4::17, 0] = float("nan")
+    for a, step in ((3, 7), (4, 9), (5, 10)):
+        axis = torch.zeros(3, device=dev)
+        axis[a - 3] = -1.0 if a == 4 else 1.0
+        x[a::step, 3:6] = axis
+    k = _b4_kernel_equals_plain(scene, meta, cid, x)
+    for start in (0, 1, 2):
+        assert not (k[4][start::11] >= 0).any()
+    assert (k[4] >= 0).any()
+
+
+def test_cluster_pairs_ties_equal_plain(tie_scene):
+    """Rays through tie_soup's stack against its two clusters of copies:
+    bit-equal t in many columns, the lowest column wins."""
+    scene, meta, stack = tie_scene
+    dev = scene.clus_pack.device
+    n = 2048
+    o, d = (torch.from_numpy(a).to(dev) for a in tie_rays(n, seed=5))
+    cids = torch.unique(torch.searchsorted(scene.clus_first.contiguous(), stack, right=True) - 1).to(torch.int32)
+    assert cids.numel() == 2
+    cid = cids.repeat_interleave(n)
+    ray = torch.arange(n, device=dev).repeat(2)
+    x = torch.cat([o[ray], d[ray], torch.full((2 * n, 1), 100.0, device=dev), torch.zeros((2 * n, 1), device=dev)], 1)
+    k = _b4_kernel_equals_plain(scene, meta, cid, x)
+    on_stack = torch.isin(k[4], stack)  # a ray that misses the stack may hit a soup triangle of the cluster
+    assert on_stack.float().mean() > 0.1
+    owner = torch.searchsorted(scene.clus_first.contiguous(), stack, right=True) - 1
+    lowest = torch.stack([stack[owner == c].min() for c in cids])  # each cluster's first copy
+    assert (k[4][on_stack] == lowest[(cid == cids[1]).long()][on_stack]).all()
+
+
+def test_cluster_pairs_one_live_pair(quad_soup):
+    """A round with a single live pair: one tile of one row."""
+    scene, meta = quad_soup
+    cid, x = _pairs(np.random.default_rng(2), [1], meta.n_clusters, scene.clus_pack.device)
+    _b4_kernel_equals_plain(scene, meta, cid, x)
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -793,3 +982,58 @@ def test_gated_legacy_loop_kernel_path_equals_plain_path(ivy_soup, nee):
     assert trace_k == trace_p and len(trace_k) >= 3
     fused = blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed)
     assert torch.equal(k.mask, fused.mask)
+
+
+LAUNCHERS = [  # (module, launcher function, library): every kernel wrapper's binding
+    (brute, "_library", "brute_intersect"),
+    (presort, "_library", "presort_keys"),
+    (fusedtrace, "_library", "fused_trace"),
+    (clusterpairs, "_library", "cluster_pairs"),
+    (shade, "_draws_fn", "draws"),
+    (shade, "_shade_fn", "shade"),
+    (legacy, "_select_fn", "select_clusters"),
+    (legacy, "_test_fn", "test_clusters"),
+]
+
+
+@pytest.mark.parametrize("mod, fn, lib", LAUNCHERS, ids=[f"{m.__name__.split('.')[-1]}.{f}" for m, f, _ in LAUNCHERS])
+def test_launcher_loads_its_library_once(quad_soup, monkeypatch, mod, fn, lib):
+    """Each wrapper's launcher calls build.load once across two launches of
+    its kernel (load hashes the sources on every call)."""
+    scene, meta = quad_soup
+    dev = scene.clus_pack.device
+    calls = []
+    real = mod.load
+    monkeypatch.setattr(mod, "load", lambda name: (calls.append(name), real(name))[1])
+    getattr(mod, fn).cache_clear()
+    o, d = _trace_rays(1000, 3, dev)
+    t_max = torch.full((1000,), 100.0, device=dev)
+    rays = blocktrace.ray_matrix(o, d, t_max)
+    if lib == "brute_intersect":
+        run = lambda: brute.brute_intersect(scene.tri_pack, o, d, t_max, 36, 1e-3)
+    elif lib == "presort_keys":
+        run = lambda: presort.presort_keys(rays, scene.clus_box, meta.n_clusters, 1e-3)
+    elif lib == "fused_trace":
+        run = lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max)
+    elif lib == "cluster_pairs":
+        run = lambda: bintrace.intersect_bintrace(scene, meta, o, d, t_max, k=4)
+    elif lib == "draws":
+        sampler = qmc.ZSobolSampler(16, (64, 64), device=dev)
+        state = sampler.init_lanes(*(torch.arange(1000, device=dev) % 64 for _ in range(2)),
+                                   torch.zeros(1000, dtype=torch.int64, device=dev))
+        run = lambda: shade.draws(shade.sampler_draw_setup(sampler, state, 4), 1000)
+    elif lib == "shade":
+        inp, tables = _shade_lanes(1000, 1, dev), lut.load_tables(dev)
+        run = lambda: shade.shade(inp, (True,) * 4, True, True, tables)
+    else:
+        rin, w_key, act, _ = blocktrace.round_inputs(scene, meta, o, d, 100.0, 4, False)
+        sel = legacy.select_clusters(rin, scene.clus_box, w_key, act, 4, 1e-3)
+        slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
+        run = (lambda: legacy.select_clusters(rin, scene.clus_box, w_key, act, 4, 1e-3)) if lib == "select_clusters" \
+            else (lambda: legacy.test_clusters(rin, scene.clus_pack, *slots, meta.cluster_size, 4, 1e-3))
+        calls.clear()
+        getattr(mod, fn).cache_clear()
+    run()
+    run()
+    torch.cuda.synchronize()
+    assert calls.count(lib) == 1, calls

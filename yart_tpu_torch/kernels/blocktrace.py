@@ -61,6 +61,7 @@ calls on CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -77,6 +78,7 @@ COUNTS_SELECT = Counts()
 COUNTS_TEST = Counts()
 
 
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
 def _select_fn():
     lib, _ = load("select_clusters")
     fn = lib.select_clusters_launch
@@ -92,6 +94,7 @@ def _select_fn():
     return fn
 
 
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
 def _test_fn():
     lib, _ = load("test_clusters")
     fn = lib.test_clusters_launch

@@ -18,6 +18,7 @@ run can show which path it took.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +31,7 @@ PLAIN_BUDGET = 1 << 22  # rays x triangles per plain-twin chunk
 COUNTS = Counts()
 
 
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
 def _library():
     lib, _ = load("brute_intersect")
     fn = lib.brute_intersect_launch

@@ -123,6 +123,16 @@ def build_all() -> dict:
         return dict(zip(LIBRARIES, pool.map(lambda name: load(name)[1], LIBRARIES)))
 
 
+def occupancy(name: str, *args: int) -> int:
+    """Resident blocks per SM of library `name`'s kernel, from its
+    `<name>_occupancy(int...)` function (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+    B2 takes no argument, B4 its cluster size)."""
+    fn = getattr(load(name)[0], f"{name}_occupancy")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * len(args)
+    return int(fn(*args))
+
+
 def ptxas_report(name: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads"}} of library
     `name` from the `-Xptxas -v` lines its build kept (empty if it was

@@ -19,6 +19,7 @@ calls on CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -88,6 +89,7 @@ class _DrawArgs(ctypes.Structure):
     ]
 
 
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
 def _draws_fn():
     lib, _ = load("draws")
     fn = lib.draws_launch
@@ -165,6 +167,7 @@ class _ShadeArgs(ctypes.Structure):
     ]
 
 
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
 def _shade_fn():
     lib, _ = load("shade")
     fn = lib.shade_launch

@@ -19,6 +19,7 @@ prints one JSON line:
 - kernel milliseconds grouped as the port's kernels B1-B6 (by their CUDA
   function names), sorting, and the rest (PyTorch's own kernels), with
   the 12 kernels of most device time;
+- the peak device memory of the profiled render (scene tables included);
 - bin-trace's phases (`render/bintrace.py`), from their profiler ranges:
   the collect loop (plain PyTorch) and the pair phase (layout, B4, the
   per-ray reduction), each with its calls, host milliseconds and the device
@@ -62,6 +63,47 @@ def _render(scene, meta, cam, cfg, device):
     return {"wall_s": wall, "rays": res.total_rays, "mrays_per_s": res.total_rays / wall / 1e6}
 
 
+def _tally(prof, range_names):
+    """({CUDA kernel name: [launches, us]}, {range: {calls, host_ms,
+    device_ms}}) from the profiler's raw events. Torch's own event tree
+    (`prof.events()`) takes over ten minutes for the dense atrium's ~1.4 M
+    launches; this pass is linear. A kernel counts toward the range whose
+    span holds its launch on the host: the CUDA runtime or driver call with
+    its correlation id, else the start of the op it is linked to. Runtime
+    calls number their correlation ids apart from ops and ranges, so the
+    two are kept in separate tables."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    launch_at, op_start, spans, kernels = {}, {}, {r: [] for r in range_names}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.name() in spans:
+                spans[e.name()].append((e.start_ns(), e.end_ns()))
+            if e.name().startswith("cu"):  # a CUDA runtime or driver call (cudaLaunchKernel, ...)
+                launch_at[e.correlation_id()] = e.start_ns()
+            elif e.linked_correlation_id() == 0:  # an op or a range
+                op_start[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == DeviceType.CUDA and e.name() not in spans:  # a range's device copy is no kernel
+            by_name[e.name()][0] += 1
+            by_name[e.name()][1] += e.duration_ns() / 1e3
+            t = launch_at.get(e.correlation_id())
+            kernels.append((t if t is not None else op_start.get(e.linked_correlation_id()), e.duration_ns()))
+    ranges = {}
+    for r, sp in spans.items():
+        sp.sort()
+        starts = [a for a, _ in sp]
+        device_ns = 0
+        for t, ns in kernels:
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= sp[i][1]:
+                device_ns += ns
+        ranges[r] = {"calls": len(sp), "host_ms": sum(b - a for a, b in sp) / 1e6, "device_ms": device_ns / 1e6}
+    return by_name, ranges
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="directory for the chrome trace")
@@ -69,7 +111,6 @@ def main(argv=None) -> int:
     own, rest = ap.parse_known_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from yart_tpu_torch import cli
@@ -84,21 +125,13 @@ def main(argv=None) -> int:
 
     plain = _render(scene, meta, cam, cfg, device)
     integrator.BOUNCES.reset()
+    torch.cuda.reset_peak_memory_stats(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = _render(scene, meta, cam, cfg, device)
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     bounces = integrator.BOUNCES.bounces
 
-    by_name = collections.defaultdict(lambda: [0, 0.0])  # name -> [launches, us]
-    ranges = {r: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0} for r in bintrace.RANGES}
-    for e in prof.events():
-        if e.name in ranges:  # a phase range (its device-side copy is no kernel)
-            if e.device_type == DeviceType.CPU:
-                ranges[e.name]["calls"] += 1
-                ranges[e.name]["host_ms"] += e.cpu_time_total / 1e3
-                ranges[e.name]["device_ms"] += e.device_time_total / 1e3
-        elif e.device_type == DeviceType.CUDA:
-            by_name[e.name][0] += 1
-            by_name[e.name][1] += e.device_time_total
+    by_name, ranges = _tally(prof, bintrace.RANGES)
     total_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     groups = collections.OrderedDict((g, 0.0) for g, _ in GROUPS)
@@ -117,7 +150,7 @@ def main(argv=None) -> int:
         "kernel_launches": launches, "bounces": bounces, "launches_per_bounce": launches / max(bounces, 1),
         "kernel_ms": total_us / 1e3,
         "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
-        "kernel_ms_by_group": groups, "bintrace_phases": ranges,
+        "kernel_ms_by_group": groups, "bintrace_phases": ranges, "peak_gib_profiled": peak_gib,
         "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],
     }), flush=True)
     return 0

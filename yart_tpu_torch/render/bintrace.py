@@ -7,9 +7,9 @@ Port of `yart_tpu/render/bintrace.py` (`collect_clusters` :81-223,
   phase 1  `collect_clusters` walks the coarse BVH8 over the triangle
            clusters (`scene.coarse_pack`, scene/clusters.py) and collects
            per ray the ids of up to K clusters whose boxes it enters.
-  phase 2  `pairs_phase` sorts the (ray, cluster) pairs by cluster, lays
-           each cluster's pairs out in blocks of 1024, tests every block
-           against its cluster's triangles (kernel B4,
+  phase 2  `pairs_phase` sorts the (ray, cluster) pairs by cluster, one
+           row a pair, cuts each cluster's rows into tiles of up to 256,
+           tests every tile against its cluster's triangles (kernel B4,
            kernels/clusterpairs.py) and keeps each ray's closest hit.
 
 Rounds and the continuation window (the JAX module's docstring has the
@@ -26,9 +26,9 @@ CHECK_EVERY iterations only, and then moves the still-active lanes into a
 smaller working set when fewer than half remain; lanes are independent, so
 neither changes a result as long as the iterations stay within the JAX
 loop's cap, `max_iters = G * 9 + 64`. Phase 2's layout is plain PyTorch
-too; it lays out only the live pairs, in exactly as many blocks as they
-need (the JAX code pads to a static upper bound, which changes no pair's
-result).
+too; it lays out only the live pairs, one row each (the JAX code pads each
+cluster to blocks of 1024 rows and the blocks to a static upper bound,
+which changes no pair's result).
 
 `COUNTS` records rounds per call and collect iterations per round (host
 counters; the iteration count rounds up to CHECK_EVERY).
@@ -42,13 +42,13 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.kernels import clusterpairs as _cp
+from yart_tpu_torch.render.blocktrace import cluster_counts
 
 # Python values, never module-level tensors (they would fix a device at
 # import).
 F32_MAX = _cp.F32_MAX
 _BIG = F32_MAX  # no dropped candidate (np.float32(3e38) in the JAX module)
 _NOID = 1 << 30
-B_PAIRS = _cp.B_PAIRS
 CHECK_EVERY = 8  # collect iterations between host checks of any(active)
 MAX_ROUNDS = 64  # the JAX function's default `max_rounds`
 
@@ -246,25 +246,43 @@ def _collect_step(st, boxes_all, enc_all, max_leaf, k, stack_depth, t_min):
 
 
 class PairLayout(NamedTuple):
-    """Phase 2's block layout of one round's live pairs (B4's inputs)."""
+    """Phase 2's layout of one round's live pairs (B4's inputs): one row a
+    live pair, sorted by cluster and stably by (ray, slot) within one, cut
+    into tiles of at most TILE rows that share a cluster. No row is
+    padding."""
 
-    x: torch.Tensor  # [n_blocks * B_PAIRS, 8] pair rows: o3, d3, tmax, pad
-    block_cid: torch.Tensor  # [n_blocks] int32 the cluster of each block
-    block_first: torch.Tensor  # [n_blocks] int32 its first triangle
-    block_live: torch.Tensor  # [n_blocks] int32, 1: the block holds a live pair
-    pair: torch.Tensor  # [L] the live pairs' flat (ray, slot) index
-    pos: torch.Tensor  # [L] each live pair's row in x
+    x: torch.Tensor  # [L, 8] pair rows: o3, d3, tmax, 0
+    tiles: torch.Tensor  # [n_tiles, 4] int32: cluster, its first triangle, first row, row count
+    pair: torch.Tensor  # [L] each row's flat (ray, slot) index
+
+
+def tile_table(cid_sorted, clus_first, tile: int):
+    """[n_tiles, 4] int32 (cluster, first triangle, first row, count) for
+    pair rows sorted by cluster id `cid_sorted` [L]: each cluster's run of
+    rows in tiles of `tile`, its last tile partial, covering the rows in
+    order."""
+    dev = cid_sorted.device
+    if cid_sorted.numel() == 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    cids, cnt = torch.unique_consecutive(cid_sorted, return_counts=True)
+    start = torch.cumsum(cnt, 0) - cnt
+    per = (cnt + tile - 1) // tile
+    n_tiles = int(per.sum())
+    run = torch.repeat_interleave(torch.arange(cids.numel(), device=dev), per, output_size=n_tiles)
+    j = torch.arange(n_tiles, device=dev) - (torch.cumsum(per, 0) - per)[run]
+    cid = cids[run].long()
+    return torch.stack([cid, clus_first[cid].long(), start[run] + j * tile,
+                        torch.clamp(cnt[run] - j * tile, max=tile)], dim=1).to(torch.int32)
 
 
 def pair_layout(scene, meta, slots, n_col, o, d, t_cur) -> PairLayout:
     """Sort the live (ray, slot) pairs by cluster (stably, so a cluster's
-    pairs keep ascending ray order) and give cluster c's i-th pair row
-    blk_off[c] * B_PAIRS + i: its pairs fill whole blocks, the last one
-    padded with zero rows (tmax 0 < t_min rejects them). Every block is
-    live; the JAX code pads to a static upper bound of blocks instead."""
+    pairs keep ascending (ray, slot) order), one row each, and cut each
+    cluster's rows into tiles of TILE (`tile_table`). The JAX code pads
+    every cluster to blocks of 1024 rows and their count to a static upper
+    bound instead; that changes no pair's result."""
     n, k = slots.shape
     dev = slots.device
-    n_clus = meta.n_clusters
     pair_cid = slots.reshape(-1)
     slot_j = torch.arange(k, dtype=torch.int32, device=dev).repeat(n)
     live = (slot_j < n_col.repeat_interleave(k)) & (pair_cid >= 0)
@@ -272,30 +290,15 @@ def pair_layout(scene, meta, slots, n_col, o, d, t_cur) -> PairLayout:
     cid_s, order = torch.sort(pair_cid[pair], stable=True)
     pair = pair[order]
     ray = pair // k
-    cid_l = cid_s.long()
-    cnt = torch.bincount(cid_l, minlength=n_clus)[:n_clus]
-    start = torch.cumsum(cnt, 0) - cnt
-    blocks_per = (cnt + B_PAIRS - 1) // B_PAIRS
-    blk_end = torch.cumsum(blocks_per, 0)
-    n_blocks = int(blk_end[-1]) if n_clus else 0
-    rank = torch.arange(pair.numel(), device=dev) - start[cid_l]
-    blk = (blk_end - blocks_per)[cid_l] + rank // B_PAIRS
-    pos = blk * B_PAIRS + rank % B_PAIRS
-    x = torch.zeros((n_blocks * B_PAIRS, 8), dtype=torch.float32, device=dev)
-    x[pos, 0:3] = o[ray]
-    x[pos, 3:6] = d[ray]
-    x[pos, 6] = t_cur[ray]
-    block_cid = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
-    block_cid[blk] = cid_s
-    block_live = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
-    block_live[blk] = 1
-    return PairLayout(x, block_cid, scene.clus_first[block_cid.long()], block_live, pair, pos)
+    x = torch.cat([o[ray], d[ray], t_cur[ray, None], torch.zeros_like(t_cur[ray, None])], dim=1)
+    return PairLayout(x, tile_table(cid_s, scene.clus_first, _cp.TILE), pair)
 
 
-def pairs_phase(scene, meta, slots, n_col, o, d, t_cur, t_min):
-    """Phase 2: lay the live pairs out in blocks (`pair_layout`), test them
-    (B4), and reduce per ray. Returns (t, u, v, back, tri, got) per ray,
-    with t == t_cur and tri == -1 where this round found nothing closer."""
+def pairs_phase(scene, meta, slots, n_col, o, d, t_cur, t_min, clus_count):
+    """Phase 2: lay the live pairs out (`pair_layout`), test them (B4, each
+    against its cluster's clus_count triangles), and reduce per ray.
+    Returns (t, u, v, back, tri, got) per ray, with t == t_cur and tri ==
+    -1 where this round found nothing closer."""
     n, k = slots.shape
     dev = slots.device
     lay = pair_layout(scene, meta, slots, n_col, o, d, t_cur)
@@ -303,12 +306,12 @@ def pairs_phase(scene, meta, slots, n_col, o, d, t_cur, t_min):
         none = torch.zeros(n, dtype=torch.bool, device=dev)
         return (t_cur, torch.zeros_like(t_cur), torch.zeros_like(t_cur), none,
                 torch.full((n,), -1, dtype=torch.int32, device=dev), none)
-    t_p, u_p, v_p, back_p, tri_p = _cp.cluster_pairs(
-        scene.clus_pack, lay.block_cid, lay.block_first, lay.block_live, lay.x, meta.cluster_size, t_min)
+    t_p, u_p, v_p, back_p, tri_p = _cp.cluster_pairs(scene.clus_pack, clus_count, lay.tiles, lay.x,
+                                                      meta.cluster_size, t_min)
 
     def back_to_slots(a, fill):
         out = torch.full((n * k,), fill, dtype=a.dtype, device=dev)
-        out[lay.pair] = a[lay.pos]
+        out[lay.pair] = a
         return out.view(n, k)
 
     rt = back_to_slots(t_p, F32_MAX)
@@ -346,13 +349,14 @@ def intersect_bintrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool 
     w_e = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
     w_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
     done = t <= t_min
+    clus_count = cluster_counts(scene, meta)
     rnd = 0
     COUNTS.calls += 1
     while rnd < MAX_ROUNDS and bool((~done).any()):
         with torch.profiler.record_function(RANGES[0]):
             slots, n_col, bound_e, bound_id = collect_clusters(scene, meta, o, d, t, t_min, w_e, w_id, ~done, k)
         with torch.profiler.record_function(RANGES[1]):
-            t2, u2, v2, b2, tri2, got = pairs_phase(scene, meta, slots, n_col, o, d, t, t_min)
+            t2, u2, v2, b2, tri2, got = pairs_phase(scene, meta, slots, n_col, o, d, t, t_min, clus_count)
         upd = got & ~done
         t = torch.where(upd, t2, t)
         tri = torch.where(upd, tri2, tri)
