@@ -10,8 +10,12 @@ exits non-zero and prints no final "ok" line:
   3. kernel  — B1 (brute-force intersection) against its plain PyTorch twin
                on the card, bitwise, at cornell-mat's triangles with 2^20
                camera rays and at a seeded 4096-triangle soup with 2^20
-               random rays (+ a ragged N and retired t_max = -1 lanes);
-               median times from CUDA events.
+               random rays (+ a ragged N and retired t_max = -1 lanes),
+               and at its edges (`b1_cases`: T = 0, 1, 255, 256, 257 and
+               4096 at 2^16 + 77 rays, equal-t ties, NaN and zero
+               directions, det at +-1e-12); median times of the launch
+               alone from CUDA events (the wrapper's once beside them),
+               with the bound and the no-FMA floor.
   3b. kernel — B2 (presort) and B3 (fused trace) against their twins,
                bitwise, on the bench's big scene (60 seeded spheres,
                132,480 triangles, clusters of 128, built by the port's own
@@ -46,15 +50,21 @@ exits non-zero and prints no final "ok" line:
                2^20 lanes of a 512x512 render's first chunk at bounce 0
                and 3 (dim0 = 4, 28): ZSobol at 16 spp (even log2spp) and 8
                spp (odd: the pow2_samples branch), hash; a ragged 1000;
-               timed, with its bound (INT32 operations).
+               timed (the launch alone; the wrapper's once beside it),
+               with its bound (INT32 operations).
   3k. kernel — B5 (the fused shade tail) against its twin
                (shade_math.shade), bitwise on every output and lane, on
                the lanes of a real depth-1 bounce of cornell-mat and
                atrium-ivy (2^20) and of roadster (2^16; metallic,
                transmissive and clearcoat gates on; built here), on 2^20
                random lanes with all four gates on (also with mis off and
-               with no lights) and on 2^16 with whole dead blocks; timed,
-               with its bound (bytes).
+               with no lights), on 2^16 with whole dead blocks, and at the
+               edges of its tiles (`b5_cases`: tiles of one lobe, the four
+               lobes interleaved lane by lane, dead tiles, n = 1, 127, 129
+               and 2^20 + 77, inputs with a storage offset); each record
+               with its lobe mix (lanes per lobe, mixed warps before and
+               after grouping); timed (the launch alone; the wrapper's
+               once beside it), with its bound (bytes).
   4. render  — the earlier main paths: Renderer on cuda, cornell-mat
                512x512, 16 spp (`--spp`), max depth 30, ZSobol, GMoN, AgX, in the
                CLI's waves; B1's launch count must be > 0 and the plain twin
@@ -176,9 +186,6 @@ FLOPS_AMASK = 6
 # B3 instanced: the ray's transform into the prototype's object space per
 # tested (ray, instance cluster): 9 multiplies + 9 adds for o, 9 + 6 for d.
 FLOPS_XFORM = 33
-# Hopper's INT32 rate: 64 INT32 lanes per SM per clock, 132 SMs at 1.98 GHz
-# (NVIDIA's Hopper white paper; the FP32 peak above is 128 lanes x 2 flops).
-PEAK_INT32 = 132 * 64 * 1.98e9
 # B5: float operations per live lane, a lower count from shade.cu (frames
 # and VNDF sampling ~150, one lobe's sample ~120, 13 LUT lerps ~200, the
 # NEE f and pdf of up to four lobes ~400, the update and roulette ~60;
@@ -192,6 +199,11 @@ FLOPS_SHADE = 900
 # lanes x 132 SMs x 1.98 GHz. The reachable floor beside B4's bound.
 INSTR_PLANE_NOFMA = 45
 PEAK_FP32_INSTR = 132 * 128 * 1.98e9
+# B1 likewise, per (ray, triangle) Moller-Trumbore test: pvec 9 (6
+# multiplies, 3 subtracts), det 5, the two |det| tests and the select 3,
+# the IEEE reciprocal ~8, b 3, u 6, qvec 9, v 6, t 6, the six range tests
+# with u + v 7 and their combination 2, the five-way update 5.
+INSTR_MT_NOFMA = 69
 INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
@@ -199,6 +211,8 @@ DENSE_SPP = 16  # samples per pixel of the dense atrium render (phase 4e)
 B3_KEYS = ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by", "b3_sweep_bound_ms")  # B3's timed records
 B2_KEYS = ("b2_ms", "b2_plain_ms", "b2_bound_ms", "b2_bound_by", "b2_sweep_bound_ms")  # B2's timed records
 B4_ROWS = ("tiles", "live_pairs", "rows_touched", "parent_layout_rows")  # B4's layout records
+B1_KEYS = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "nofma_floor_ms")  # B1's timed records
+B5_KEYS = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")  # B5's timed records
 SUN = (0.45, 0.72, 0.3)  # the sun direction of the shadow-ray cases (unnormalised)
 
 
@@ -256,9 +270,23 @@ def bits_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def compare_brute(name, tri_pack, o, d, t_max, n_tris):
+def b1_work(tri_pack, o, d, t_max, n_tris, out):
+    """(flops, bytes) of a B1 call: one test per (live ray, triangle);
+    each input read once and each output written once."""
+    live = int((t_max > 1e-3).sum())
+    return FLOPS_MT * live * n_tris, nbytes(tri_pack[:n_tris], o, d, t_max, *out)
+
+
+def b1_floor_ms(t_max, n_tris) -> float:
+    """B1's no-FMA issue floor: INSTR_MT_NOFMA instructions a (live ray,
+    triangle) test at the card's FP32 issue rate."""
+    return int((t_max > 1e-3).sum()) * n_tris * INSTR_MT_NOFMA / PEAK_FP32_INSTR * 1e3
+
+
+def compare_brute(name, tri_pack, o, d, t_max, n_tris, timed: bool = False):
     """Kernel vs plain twin on the same card tensors; raises on any bit
-    difference. Returns the phase record."""
+    difference. Timed: the launch alone (`brute.prepare`) and, once, the
+    whole wrapper. Returns the phase record."""
     import torch
 
     from yart_tpu_torch.kernels import brute
@@ -275,13 +303,87 @@ def compare_brute(name, tri_pack, o, d, t_max, n_tris):
         raise AssertionError(f"{name}: kernel and plain twin differ in {diff} (max abs {err})")
     rec = {"case": name, "n_rays": int(o.shape[0]), "n_tris": int(n_tris),
            "hit_frac": float(hit.float().mean()), "bitwise_equal": True, "max_abs_err": err}
-    if o.shape[0] >= 1 << 20:
-        rec["ms"] = cuda_ms(lambda: brute.brute_cuda(tri_pack, o, d, t_max, n_tris, 1e-3), reps=21)
+    if timed:
+        rec["ms"] = cuda_ms(brute.prepare(tri_pack, o, d, t_max, n_tris, 1e-3), reps=21)
+        rec["wrapper_ms"] = cuda_ms(lambda: brute.brute_cuda(tri_pack, o, d, t_max, n_tris, 1e-3), reps=21)
         rec["plain_ms"] = cuda_ms(lambda: brute.brute_plain(tri_pack, o, d, t_max, n_tris, 1e-3), reps=3)
-        live = int((t_max > 1e-3).sum())
-        rec["bound_ms"], rec["bound_by"] = bound(
-            FLOPS_MT * live * n_tris, nbytes(tri_pack[:n_tris], o, d, t_max, *k))
+        rec["bound_ms"], rec["bound_by"] = bound(*b1_work(tri_pack, o, d, t_max, n_tris, k))
+        rec["nofma_floor_ms"] = b1_floor_ms(t_max, n_tris)
     return rec
+
+
+def b1_soup(rng, n_tris: int, n_rays: int, dev, spread: float = 0.15):
+    """A seeded soup of `n_tris` triangles around [-2, 2]^3 and `n_rays`
+    rays from [-3, 3]^3 towards [-1.5, 1.5]^3: (tri_pack, o, d, t_max)."""
+    import numpy as np
+    import torch
+
+    centers = rng.uniform(-2, 2, (max(n_tris, 1), 1, 3))
+    soup = np.zeros((max(n_tris, 1), 12), np.float32)
+    soup[:, :9] = (centers + rng.normal(0, spread, (max(n_tris, 1), 3, 3))).reshape(-1, 9)
+    ro = rng.uniform(-3, 3, (n_rays, 3)).astype(np.float32)
+    rd = rng.uniform(-1.5, 1.5, (n_rays, 3)).astype(np.float32) - ro
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    tm = np.full(n_rays, 1e30, np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (soup, ro, rd, tm)]
+
+
+def b1_cases(dev, cornell=None):
+    """(name, (tri_pack, o, d, t_max, n_tris), timed) of phase 3: B1 at
+    cornell-mat's 36 triangles with 2^20 camera rays (`cornell`: its
+    compiled (scene, meta), else built here) and at a seeded 4096-triangle
+    soup with 2^20 random rays (a block retired, t_max = -1) and a ragged
+    1000 of them, all timed but the last; then the edges of the kernel's
+    tiles and resident set at 2^16 + 77 rays (not a multiple of a tile):
+    T = 0, 1, 255, 256, 257 and 4096; triangles repeated at several
+    indices (equal t: the lowest index wins); NaN and zero directions; and
+    det at exactly +-1e-12 and just inside it."""
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.config import CameraConfig
+    from yart_tpu_torch.kernels import brute
+    from yart_tpu_torch.scene.procedural import cornell_box
+
+    scene, meta = cornell or cornell_box(extra_materials=True).compile(dev)
+    o, d = camera_rays(CameraConfig(image_size=(1024, 1024), focal_length=28.0,
+                                    position=(0, 1.0, 3.4), forward=(0, 0, -1)), dev)
+    yield "cornell_mat_camera", (scene.tri_pack, o, d, torch.full((o.shape[0],), 1e30, device=dev), meta.n_tris), True
+    rng = np.random.default_rng(1234)
+    soup, ro, rd, tm = b1_soup(rng, brute.MAX_TRIS, 1 << 20, dev)
+    tm[: 1 << 16] = -1.0  # a block of retired lanes
+    yield "soup_4096", (soup, ro, rd, tm, brute.MAX_TRIS), True
+    yield "soup_4096_ragged_1000", (soup, ro[-1000:], rd[-1000:], tm[-1000:], brute.MAX_TRIS), False
+
+    n = (1 << 16) + 77
+    for n_tris in (0, 1, 255, 256, 257, brute.MAX_TRIS):
+        tri, eo, ed, et = b1_soup(np.random.default_rng(n_tris), n_tris, n, dev, spread=0.3)
+        et[: n // 10] = -1.0
+        yield f"edge_T{n_tris}_n{n}", (tri, eo, ed, et, n_tris), False
+    tri, eo, ed, et = b1_soup(np.random.default_rng(7), 300, n, dev, spread=0.3)
+    tri = torch.cat([tri[:100], tri[:100], tri[100:]])  # triangles 0-99 again at 100-199
+    yield "edge_ties_repeated_triangles", (tri.contiguous(), eo, ed, et, tri.shape[0]), False
+    ed = ed.clone()
+    ed[::7] = float("nan")
+    ed[3::7] = 0.0
+    ed[5::7, 1] = float("nan")
+    yield "edge_nan_and_zero_directions", (tri.contiguous(), eo, ed, et, tri.shape[0]), False
+    # det = e1 . (d x e2) with d = +z, e2 = +y is -e1.x: triangles whose e1.x
+    # is +-1e-12 (float32) and the float next to it inside, each hit head-on.
+    ex = np.float32(1e-12)
+    e1x = np.array([ex, -ex, np.nextafter(ex, np.float32(0)), -np.nextafter(ex, np.float32(0))], np.float32)
+    dt = np.zeros((4, 12), np.float32)  # p0 = (0, 2j, 0)
+    dt[:, 1] = [0.0, 2.0, 4.0, 6.0]
+    dt[:, 3] = e1x  # p1 = p0 + (e1x, 0, 1)
+    dt[:, 4] = dt[:, 1]
+    dt[:, 5] = 1.0
+    dt[:, 7] = dt[:, 1] + 1.0  # p2 = p0 + (0, 1, 0)
+    do = np.zeros((4 * 64, 3), np.float32)
+    do[:, 1] = np.repeat(dt[:, 1], 64) + np.tile(np.linspace(-0.2, 1.2, 64, dtype=np.float32), 4)
+    do[:, 2] = -1.0
+    dd = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (4 * 64, 1))
+    yield "edge_det_1e-12", tuple(torch.from_numpy(a).to(dev) for a in (dt, do, dd)) + (
+        torch.full((4 * 64,), 1e30, device=dev), 4), False
 
 
 def big_scene(dev, cluster_size: int = 128):
@@ -929,19 +1031,40 @@ def compare_bintrace(name, scene, meta, o, d, t_max, nee: bool):
             "kernel_path_s": sk, "twin_path_s": sp}
 
 
-def b6_ops(setup) -> int:
-    """B6's 32-bit integer instructions per lane, counted from the kernel's
-    source for this call's sampler: a 64-bit multiply as 3 IMADs, a 64-bit
-    shift or xor as 2, `% 24` of a u64 as a 10-instruction multiply-high;
-    per base-4 digit ~43 (one mix_bits64 of ~18), the odd-log2spp branch
-    ~25, a FastOwen scramble with its bit reversals and the u32 -> float ~19,
-    5 per Sobol' matrix column. Hash: 15 per draw."""
+def b6_instructions(setup) -> int:
+    """SASS instructions one B6 lane issues for this call's sampler, read
+    off the sm_90a build (`python -m yart_tpu_torch.compare_kernels
+    --kernel b6 yart_tpu_torch/csrc/draws.cu --sass DIR`, nvcc 12.8; 1,984
+    instructions, no local memory). ZSobol: six base-4 digit loops (the
+    two 2D draws' 173 instructions per 4 unrolled digits, 46 per remainder
+    digit; the four 1D draws' 167 and 44) over n_base4_digits - (log2spp &
+    1) digits; the odd-log2spp tail (23) after each; the two 2D draws'
+    Sobol' column loops (27 per 4 unrolled columns, 10 per remainder
+    column); 303 instructions outside the loops (the scrambles, floats,
+    stores), and each loop's entry when it runs (28 for the six unrolled
+    digit loops, 13 for their remainders, 4 and 6 for the column loops').
+    Hash: 165. The integers split ~38% IMAD (the FMA pipe), ~56% SHF /
+    LOP3 / IADD3 (the ALU pipe), the rest uniform, constant and branch
+    instructions."""
     if setup.kind == "hash":
-        return 8 * 15
+        return 165
     s = setup.sampler
     last = s.log2spp & 1
-    index = 43 * (s.n_base4_digits - last) + (25 if last else 0)
-    return 6 * index + 4 * 19 + 2 * (2 * 19 + 5 * len(s._matrix1))
+    q, r = divmod(s.n_base4_digits - last, 4)
+    qc, rc = divmod(len(s._matrix1), 4)
+    return (303 + 28 * (q > 0) + 13 * (r > 0) + 4 * (qc > 0) + 6 * (rc > 0) + 6 * 23 * last
+            + 2 * (173 * q + 46 * r) + 4 * (167 * q + 44 * r) + 2 * (27 * qc + 10 * rc))
+
+
+def b6_bound(setup, n: int) -> dict:
+    """B6's bound over n lanes: its SASS instructions at the card's issue
+    rate (4 warp instructions a clock an SM: PEAK_FP32_INSTR lane
+    instructions a second, whichever pipes they use), or its bytes (8 in,
+    32 out a lane)."""
+    instr = b6_instructions(setup)
+    t_ops, t_bytes = instr * n / PEAK_FP32_INSTR * 1e3, (8 + 8 * 4) * n / PEAK_BYTES * 1e3
+    return {"instructions_per_lane": instr, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def compare_draws(name, sampler, state, dim0: int, timed: bool = False):
@@ -967,12 +1090,10 @@ def compare_draws(name, sampler, state, dim0: int, timed: bool = False):
     if setup.kind == "zsobol":
         rec.update(log2spp=sampler.log2spp, n_base4_digits=sampler.n_base4_digits)
     if timed:
-        rec["ms"] = cuda_ms(lambda: shade.draws_cuda(setup, n), reps=21)
+        rec["ms"] = cuda_ms(shade.prepare_draws(setup, n), reps=21)
+        rec["wrapper_ms"] = cuda_ms(lambda: shade.draws_cuda(setup, n), reps=21)
         rec["plain_ms"] = cuda_ms(lambda: shade.draws_plain(setup, n), reps=3)
-        ops = b6_ops(setup) * n
-        t_ops, t_bytes = ops / PEAK_INT32 * 1e3, (8 + 8 * 4) * n / PEAK_BYTES * 1e3
-        rec.update(int_ops_per_lane=b6_ops(setup), bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rec.update(b6_bound(setup, n))
     return rec
 
 
@@ -991,11 +1112,27 @@ def b5_bytes(inp, mis: bool, any_lights: bool, tables) -> int:
     return live * per_live + (n - live) * per_dead + n * out + nbytes(*(tables[k] for k in shade.LUT_KEYS))
 
 
+def b5_record(inp, gates, mis: bool, any_lights: bool, tables) -> dict:
+    """A B5 case's size, its bound and its lobe mix: the lanes of each
+    picked lobe (and dead), and the warps that hold more than one of them
+    in lane order and after the kernel's grouping (`shade.mixed_warps`)."""
+    from yart_tpu_torch.kernels import shade
+
+    n = int(inp["active"].shape[0])
+    live = int((inp["active"] | inp["found"]).sum())
+    rec = {"n": n, "live": live, "gates": list(gates), "mis": mis, "any_lights": any_lights}
+    rec["bound_ms"], rec["bound_by"] = bound(FLOPS_SHADE * live, b5_bytes(inp, mis, any_lights, tables))
+    rec["lobe_mix"] = shade.mixed_warps(shade.lobe_keys(inp, gates, tables))
+    return rec
+
+
 def compare_shade(name, inp, gates, mis: bool, any_lights: bool, tables, timed: bool = False):
     """B5 against its twin (shade_math.shade) on the same card tensors,
     bitwise on every output and every lane (dead lanes included: the
     kernel writes their pass-through state, the twin zeroes their contrib
-    and shadow_d). Raises on any bit difference; returns the phase record."""
+    and shadow_d). Raises on any bit difference; returns the phase record.
+    Timed: the launch alone (`shade.prepare_shade`) and, once, the whole
+    wrapper."""
     import torch
 
     from yart_tpu_torch.kernels import shade
@@ -1014,15 +1151,98 @@ def compare_shade(name, inp, gates, mis: bool, any_lights: bool, tables, timed: 
     err = max(float((k[key] - p[key]).abs().max()) for key in k if k[key].dtype == torch.float32)
     if diff:
         raise AssertionError(f"{name}: B5 and its twin differ: {diff} (max abs {err})")
-    n = int(inp["active"].shape[0])
-    live = int((inp["active"] | inp["found"]).sum())
-    rec = {"case": name, "n": n, "live": live, "gates": list(gates), "mis": mis, "any_lights": any_lights,
+    rec = {"case": name, **b5_record(inp, gates, mis, any_lights, tables),
            "nee_need": int(k["nee_need"].sum()), "bitwise_equal": True, "max_abs_err": err}
     if timed:
-        rec["ms"] = cuda_ms(lambda: shade.shade_cuda(inp, gates, mis, any_lights, tables), reps=21)
+        rec["ms"] = cuda_ms(shade.prepare_shade(inp, gates, mis, any_lights, tables), reps=21)
+        rec["wrapper_ms"] = cuda_ms(lambda: shade.shade_cuda(inp, gates, mis, any_lights, tables), reps=21)
         rec["plain_ms"] = cuda_ms(lambda: shade.shade_plain(inp, gates, mis, any_lights, tables), reps=3)
-        rec["bound_ms"], rec["bound_by"] = bound(FLOPS_SHADE * live, b5_bytes(inp, mis, any_lights, tables))
     return rec
+
+
+def lobe_lanes(n: int, seed: int, dev, lobes):
+    """Random lanes (`random_shade_lanes`) whose materials force each lane's
+    lobe pick under all four gates: lane i picks lobes[i % len(lobes)]
+    ("coat": clearcoat 1, uc2 0; "metal": metallic 1; "dielectric":
+    transmission 1; "glossy": neither), every lane active and found."""
+    import torch
+
+    inp = random_shade_lanes(n, seed, dev)
+    n = inp["active"].shape[0]
+    kind = torch.arange(n, device=dev) % len(lobes)
+    one, zero = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    pick = {name: kind == i for i, name in enumerate(lobes)}
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    inp["clearcoat"] = torch.where(pick.get("coat", none), one, zero)
+    inp["uc2"] = torch.where(pick.get("coat", none), zero, inp["uc2"])
+    inp["metallic"] = torch.where(pick.get("metal", none), one, zero)
+    inp["transmission"] = torch.where(pick.get("dielectric", none), one, zero)
+    inp["active"] = torch.ones(n, dtype=torch.bool, device=dev)
+    inp["found"] = inp["active"].clone()
+    return inp
+
+
+def b5_cases(dev, scenes=None, twin: bool = False):
+    """(name, (inp, gates, mis, any_lights, tables), timed) of phase 3k:
+    real depth-1 bounces of cornell-mat and atrium-ivy at 2^20 lanes and of
+    roadster at 2^16 (`scenes`: {name: (scene, meta)} of the three, each
+    built here where missing; `twin`: capture them with the plain twin, not
+    the kernel), 2^20 random all-gates lanes (also with mis off
+    and with no lights), whole dead blocks; then the edges of the kernel's
+    tiles: every lane of a tile on one lobe, the four lobes interleaved
+    lane by lane, every other tile dead, n = 1, 127, 129 and 2^20 + 77, and
+    every input a view with a storage offset (not 16-byte aligned)."""
+    import torch
+
+    from yart_tpu_torch.cli import CAMERAS
+    from yart_tpu_torch.config import CameraConfig
+    from yart_tpu_torch.ops import lut
+    from yart_tpu_torch.scene.procedural import cornell_box
+    from yart_tpu_torch.scene.showcase import atrium, roadster
+
+    scenes = scenes or {}
+    cornell = scenes.get("cornell-mat") or cornell_box(extra_materials=True).compile(dev)
+    cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
+                               position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
+    yield "cornell-mat_bounce1_2^20", capture_shade_call(*cornell, cornell_cam, 4, dev, twin=twin), True
+    ivy = scenes.get("atrium-ivy") or atrium(ivy=True).compile(dev)
+    ivy_pos, ivy_target = CAMERAS["atrium-ivy"]
+    ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos,
+                           forward=tuple(t - p for p, t in zip(ivy_pos, ivy_target)), exposure=3.0)
+    yield "atrium-ivy_bounce1_2^20", capture_shade_call(*ivy, ivy_cam, 4, dev, twin=twin), True
+    road, road_meta = scenes.get("roadster") or roadster().compile(dev)
+    road_gates = (road_meta.any_metallic, road_meta.any_transmissive, road_meta.any_clearcoat,
+                  road_meta.any_anisotropy)
+    if not all(road_gates[:3]):
+        raise AssertionError(f"roadster's metallic, transmissive and clearcoat gates are not all on: {road_gates}")
+    road_pos, road_target = CAMERAS["roadster"]
+    road_cam = CameraConfig(image_size=(256, 256), focal_length=35.0, position=road_pos,
+                            forward=tuple(t - p for p, t in zip(road_pos, road_target)), exposure=1.0)
+    yield "roadster_bounce1_2^16", capture_shade_call(road, road_meta, road_cam, 1, dev, twin=twin), True
+    del road
+    tables = lut.load_tables(dev)
+    all_gates = (True, True, True, True)
+    rnd = random_shade_lanes(1 << 20, 3, dev)
+    yield "random_all_gates_2^20", (rnd, all_gates, True, True, tables), True
+    yield "random_all_gates_mis_off", (rnd, all_gates, False, True, tables), True
+    yield "random_all_gates_no_lights", (rnd, all_gates, True, False, tables), True
+    del rnd
+    yield "random_dead_blocks_2^16", (random_shade_lanes(1 << 16, 4, dev, dead_blocks=True), all_gates, True, True,
+                                      tables), False
+    yield "one_lobe_metal_2^16", (lobe_lanes(1 << 16, 5, dev, ("metal",)), all_gates, True, True, tables), False
+    yield "lobes_interleaved_2^16", (lobe_lanes(1 << 16, 6, dev, ("coat", "metal", "dielectric", "glossy")),
+                                     all_gates, True, True, tables), False
+    dead = random_shade_lanes(1 << 16, 7, dev)
+    tile_dead = (torch.arange(1 << 16, device=dev) // 128) % 2 == 0
+    dead["active"] = dead["active"] & ~tile_dead
+    dead["found"] = dead["found"] & ~tile_dead
+    yield "dead_tiles_2^16", (dead, all_gates, True, True, tables), False
+    for n in (1, 127, 129, (1 << 20) + 77):
+        yield f"n_{n}", (random_shade_lanes(n, 8 + n % 7, dev), all_gates, True, True, tables), False
+    for off in (1, 3):
+        whole = random_shade_lanes(1000 + off, 20 + off, dev)
+        view = {k: v[off:] if isinstance(v, torch.Tensor) else v for k, v in whole.items()}
+        yield f"storage_offset_{off}_lanes", (view, all_gates, True, True, tables), False
 
 
 def random_shade_lanes(n: int, seed: int, dev, dead_blocks: bool = False):
@@ -1070,10 +1290,11 @@ def random_shade_lanes(n: int, seed: int, dev, dead_blocks: bool = False):
     return inp
 
 
-def capture_shade_call(scene, meta, cam_cfg, spp: int, dev, call: int = 1):
+def capture_shade_call(scene, meta, cam_cfg, spp: int, dev, call: int = 1, twin: bool = False):
     """The inputs of B5's call number `call` (0 = bounce 0; the first wave
     runs its first bounces at full width) in a render with
-    shade_kernel="pallas": (inp, gates, mis, any_lights, tables)."""
+    shade_kernel="pallas": (inp, gates, mis, any_lights, tables). With
+    `twin` the render's shade calls run B5's plain twin."""
     from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.kernels import shade
     from yart_tpu_torch.render.renderer import Renderer
@@ -1084,7 +1305,7 @@ def capture_shade_call(scene, meta, cam_cfg, spp: int, dev, call: int = 1):
     def record(inp, gates, mis, any_lights, tables):
         if len(got) <= call:
             got.append((dict(inp), gates, mis, any_lights, tables))
-        return orig(inp, gates, mis, any_lights, tables)
+        return (shade.shade_plain if twin else orig)(inp, gates, mis, any_lights, tables)
 
     cfg = RenderConfig(samples=spp, max_depth=call + 1, first_wave_samples=spp, max_wave_samples=spp,
                        shade_kernel="pallas", tonemap="none", estimator="mean")
@@ -1094,6 +1315,23 @@ def capture_shade_call(scene, meta, cam_cfg, spp: int, dev, call: int = 1):
     finally:
         shade.shade = orig
     return got[call]
+
+
+def b6_cases(dev):
+    """(name, (sampler, lane states, dim0), timed) of phase 3j: the lane
+    states of a 512x512 render's first chunk (4 samples a pixel: 2^20
+    lanes) at bounce dimensions 4 and 28, ZSobol at 16 spp (even log2spp)
+    and 8 spp (odd: the pow2_samples branch), a ragged 1000, and hash."""
+    from yart_tpu_torch.ops import qmc
+
+    for spp in (16, 8):
+        zs = qmc.ZSobolSampler(spp, (512, 512), device=dev)
+        lanes = pixel_lanes(512, 4, zs, dev)
+        for d0 in (4, 28):
+            yield f"zsobol_{spp}spp_dim{d0}_2^20", (zs, lanes, d0), d0 == 4
+        yield f"zsobol_{spp}spp_ragged_1000", (zs, lanes[:1000].contiguous(), 12), False
+    hs = qmc.HashSampler(16, (512, 512), device=dev)
+    yield "hash_dim4_2^20", (hs, pixel_lanes(512, 4, hs, dev), 4), True
 
 
 def pixel_lanes(side: int, spp: int, sampler, dev):
@@ -1365,31 +1603,16 @@ def main() -> int:
     # ---- 3. B1 vs plain twin --------------------------------------------
     scene, meta = cornell_box(extra_materials=True).compile(dev)
     side = 1024  # 2^20 camera rays, one per pixel: one chunk of the render
-    o, d = camera_rays(CameraConfig(image_size=(side, side), focal_length=28.0,
-                                    position=(0, 1.0, 3.4), forward=(0, 0, -1)), dev)
-    t_max = torch.full((o.shape[0],), 1e30, device=dev)
-    rec_a = compare_brute("cornell_mat_camera", scene.tri_pack, o, d, t_max, meta.n_tris)
-    emit({"phase": "kernel", **rec_a})
-
-    rng = np.random.default_rng(1234)
-    n_soup = brute.MAX_TRIS
-    centers = rng.uniform(-2, 2, (n_soup, 1, 3))
-    soup = np.zeros((n_soup, 12), np.float32)
-    soup[:, :9] = (centers + rng.normal(0, 0.15, (n_soup, 3, 3))).reshape(n_soup, 9)
-    soup_t = torch.from_numpy(soup).to(dev)
-    n_rays = 1 << 20
-    ro = rng.uniform(-3, 3, (n_rays, 3)).astype(np.float32)
-    rd = rng.uniform(-1.5, 1.5, (n_rays, 3)).astype(np.float32) - ro
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    tm = np.full(n_rays, 1e30, np.float32)
-    tm[: 1 << 16] = -1.0  # a block of retired lanes
-    ro_t, rd_t, tm_t = (torch.from_numpy(a).to(dev) for a in (ro, rd, tm))
-    rec_b = compare_brute("soup_4096", soup_t, ro_t, rd_t, tm_t, n_soup)
-    if bool((brute.brute_cuda(soup_t, ro_t[: 1 << 16], rd_t[: 1 << 16], tm_t[: 1 << 16], n_soup, 1e-3)[4] >= 0).any()):
-        raise AssertionError("a t_max = -1 lane reported a hit")
-    emit({"phase": "kernel", **rec_b})
-    rec_c = compare_brute("soup_4096_ragged_1000", soup_t, ro_t[-1000:], rd_t[-1000:], tm_t[-1000:], n_soup)
-    emit({"phase": "kernel", **rec_c})
+    b1 = []
+    for name, b1_args, timed in b1_cases(dev, (scene, meta)):
+        b1.append(compare_brute(name, *b1_args, timed=timed))
+        emit({"phase": "kernel", **b1[-1]})
+        if name == "soup_4096":
+            soup_t, ro_t, rd_t, tm_t, n_soup = b1_args
+            if bool((brute.brute_cuda(soup_t, ro_t[: 1 << 16], rd_t[: 1 << 16], tm_t[: 1 << 16], n_soup,
+                                      1e-3)[4] >= 0).any()):
+                raise AssertionError("a t_max = -1 lane reported a hit")
+    rec_a = b1[0]
 
     # ---- 3b. B2 + B3 vs plain twins on the bench's big scene ------------
     t0 = time.time()
@@ -1567,61 +1790,33 @@ def main() -> int:
     # 2^20 lanes), at bounce 0 and 3, ZSobol at 16 spp (even log2spp) and
     # 8 spp (odd: the pow2_samples branch), hash; and a ragged 1000.
     b6 = []
-    for spp_j in (16, 8):
-        zs = qmc.ZSobolSampler(spp_j, (512, 512), device=dev)
-        lanes = pixel_lanes(512, 4, zs, dev)
-        for d0 in (4, 28):
-            b6.append(compare_draws(f"zsobol_{spp_j}spp_dim{d0}_2^20", zs, lanes, d0, timed=d0 == 4))
-            emit({"phase": "kernel", **b6[-1]})
-        b6.append(compare_draws(f"zsobol_{spp_j}spp_ragged_1000", zs, lanes[:1000].contiguous(), 12))
+    for name, (smp, lanes, d0), timed in b6_cases(dev):
+        b6.append(compare_draws(name, smp, lanes, d0, timed=timed))
         emit({"phase": "kernel", **b6[-1]})
-    hs = qmc.HashSampler(16, (512, 512), device=dev)
-    b6.append(compare_draws("hash_dim4_2^20", hs, pixel_lanes(512, 4, hs, dev), 4, timed=True))
-    emit({"phase": "kernel", **b6[-1]})
     rec_j = b6[0]
 
     # ---- 3k. B5 (the fused shade tail) against its twin -----------------
     # The lanes of a real bounce (depth 1) of cornell-mat and atrium-ivy at
     # 2^20 lanes and of roadster (metallic, transmissive and clearcoat
     # gates on) at 2^16; 2^20 random lanes with all four gates on, also
-    # with mis and any_lights off; a set with whole dead blocks.
+    # with mis and any_lights off; a set with whole dead blocks; the edges
+    # of the kernel's tiles (`b5_cases`).
     cornell_cam = CameraConfig(image_size=(512, 512), focal_length=35.0,
                                position=(0, 1.0, 3.4), forward=(0, 0, -3.4))
     ivy_cam = CameraConfig(image_size=(512, 512), focal_length=35.0, position=ivy_pos, forward=ivy_fwd,
                            exposure=3.0)
-    b5 = [compare_shade("cornell-mat_bounce1_2^20", *capture_shade_call(scene, meta, cornell_cam, 4, dev),
-                        timed=True)]
-    emit({"phase": "kernel", **b5[-1]})
-    b5.append(compare_shade("atrium-ivy_bounce1_2^20", *capture_shade_call(ivy, ivy_meta, ivy_cam, 4, dev),
-                            timed=True))
-    emit({"phase": "kernel", **b5[-1]})
     t0 = time.time()
     road, road_meta = roadster().compile(dev)
-    road_gates = (road_meta.any_metallic, road_meta.any_transmissive, road_meta.any_clearcoat,
-                  road_meta.any_anisotropy)
-    emit({"phase": "scene", "scene": "roadster", "n_tris": road_meta.n_tris, "gates": list(road_gates),
-          "build_s": round(time.time() - t0, 3)})
-    if not all(road_gates[:3]):
-        raise AssertionError(f"roadster's metallic, transmissive and clearcoat gates are not all on: {road_gates}")
+    emit({"phase": "scene", "scene": "roadster", "n_tris": road_meta.n_tris,
+          "gates": [road_meta.any_metallic, road_meta.any_transmissive, road_meta.any_clearcoat,
+                    road_meta.any_anisotropy], "build_s": round(time.time() - t0, 3)})
     road_pos, road_target = CAMERAS["roadster"]
     road_fwd = tuple(t - p for p, t in zip(road_pos, road_target))
-    road_cam = CameraConfig(image_size=(256, 256), focal_length=35.0, position=road_pos, forward=road_fwd,
-                            exposure=1.0)
-    b5.append(compare_shade("roadster_bounce1_2^16", *capture_shade_call(road, road_meta, road_cam, 1, dev)))
-    emit({"phase": "kernel", **b5[-1]})
-    tables = lut.load_tables(dev)
-    rnd = random_shade_lanes(1 << 20, 3, dev)
-    all_gates = (True, True, True, True)
-    b5.append(compare_shade("random_all_gates_2^20", rnd, all_gates, True, True, tables, timed=True))
-    emit({"phase": "kernel", **b5[-1]})
-    b5.append(compare_shade("random_all_gates_mis_off", rnd, all_gates, False, True, tables))
-    emit({"phase": "kernel", **b5[-1]})
-    b5.append(compare_shade("random_all_gates_no_lights", rnd, all_gates, True, False, tables))
-    emit({"phase": "kernel", **b5[-1]})
-    b5.append(compare_shade("random_dead_blocks_2^16", random_shade_lanes(1 << 16, 4, dev, dead_blocks=True),
-                            all_gates, True, True, tables))
-    emit({"phase": "kernel", **b5[-1]})
-    del rnd
+    b5 = []
+    for name, b5_args, timed in b5_cases(dev, {"cornell-mat": (scene, meta), "atrium-ivy": (ivy, ivy_meta),
+                                               "roadster": (road, road_meta)}):
+        b5.append(compare_shade(name, *b5_args, timed=timed))
+        emit({"phase": "kernel", **b5[-1]})
 
     # ---- 3l. this slice's main path: the round-based block trace ---------
     # intersect_blocktrace(fused=False) with B7a (select) and B7b (test) on
@@ -1776,9 +1971,12 @@ def main() -> int:
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
          "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
          "launches": launches_cornell["brute_intersect"],
-         "max_abs_err": max(rec_a["max_abs_err"], rec_b["max_abs_err"], rec_c["max_abs_err"]),
+         "max_abs_err": max(r["max_abs_err"] for r in b1),
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
-         "bound_ms": rec_a["bound_ms"], "bound_by": rec_a["bound_by"], "library_ms": None},
+         "bound_ms": rec_a["bound_ms"], "bound_by": rec_a["bound_by"], "library_ms": None,
+         "wrapper_ms": rec_a["wrapper_ms"], "nofma_floor_ms": rec_a["nofma_floor_ms"],
+         "ptxas": build.ptxas_report("brute_intersect"),
+         "soup_4096": {k: b1[1][k] for k in B1_KEYS}},
         {"name": "presort_keys", "route": "cuda",
          "source": "yart_tpu_torch/csrc/presort_keys.cu",
          "replaces": "yart_tpu/kernels/pallas_fusedtrace.py:999",
@@ -1831,8 +2029,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in b5),
          "ms": b5[0]["ms"], "plain_ms": b5[0]["plain_ms"],
          "bound_ms": b5[0]["bound_ms"], "bound_by": b5[0]["bound_by"], "library_ms": None,
-         "atrium_ivy": {k: b5[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "random_all_gates": {k: b5[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+         "wrapper_ms": b5[0]["wrapper_ms"], "ptxas": build.ptxas_report("shade"),
+         "occupancy_blocks_per_sm": build.occupancy("shade"),
+         **{r["case"]: {k: r[k] for k in B5_KEYS} for r in b5 if "ms" in r and r is not b5[0]}},
         {"name": "draws", "route": "cuda",
          "source": "yart_tpu_torch/csrc/draws.cu",
          "replaces": "yart_tpu/kernels/pallas_shade.py:283",
@@ -1841,6 +2040,7 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in b6),
          "ms": rec_j["ms"], "plain_ms": rec_j["plain_ms"],
          "bound_ms": rec_j["bound_ms"], "bound_by": rec_j["bound_by"], "library_ms": None,
+         "wrapper_ms": rec_j["wrapper_ms"],
          "zsobol_odd_log2spp": {k: b6[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "hash": {k: b6[-1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "select_clusters", "route": "cuda",

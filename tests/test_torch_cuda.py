@@ -3,8 +3,13 @@
 mode in each of them, and at the edges of its block-cooperative design:
 bit-equal t ties across lanes, rounds and clusters, one live ray a block,
 short clusters, several tiles with `nee`, mask-test counts, several
-instances a block, NaN and dead rays; B4 with dead blocks and empty rows; B5 with every
-lobe gate on, dead blocks and mis off; B6 for ZSobol at even and odd
+instances a block, NaN and dead rays; B1 at the edges of its resident
+triangle set (T = 0 to 4096), ties, NaN and zero directions, det at
++-1e-12 and unaligned rays; B4 with dead blocks and empty rows; B5 with
+every lobe gate on, dead blocks and mis off, at the edges of its
+lobe-grouped tiles (one lobe, interleaved lobes, dead tiles, ragged lane
+counts, inputs with a storage offset) and in each flag instance, within one
+wave of blocks and beyond it; B6 for ZSobol at even and odd
 log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 2 and
 24, a ragged lane count), the gated re-cast loop's (fused and
 round-based), bin-trace's and the round-based block trace's kernel paths
@@ -78,6 +83,77 @@ def test_kernel_rejects_bad_inputs(dev):
         brute.brute_cuda(tri, o.half(), d, t_max, 8, 1e-3)
     with pytest.raises(ValueError, match="is on"):
         brute.brute_cuda(tri.cpu(), o, d, t_max, 8, 1e-3)
+
+
+def _b1_equal(tri, o, d, t_max, n_tris):
+    """B1 against its twin, bitwise on every output; returns the kernel's."""
+    k = brute.brute_intersect(tri, o, d, t_max, n_tris, 1e-3)
+    p = brute.brute_plain(tri, o, d, t_max, n_tris, 1e-3)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "u", "v", "back", "tri"), k, p):
+        assert _bits_equal(a, b), name
+    return k
+
+
+@pytest.mark.parametrize("n_tris", [0, 1, 255, 256, 257, 4096, 6000])
+def test_brute_triangle_set_sizes_equal_plain(dev, n_tris):
+    """The triangle set at its edges (none, one, around 256, the 1024 that
+    stay resident, 4096 and 6000 streamed in chunks) at 2^16 + 77 rays, not
+    a multiple of a tile (256 threads x 1, 2 or 4 rays), and at fewer rays
+    than a tile an SM (blocks of 64); every tenth ray retired."""
+    n = (1 << 16) + 77
+    tri, o, d, t_max = _soup(np.random.default_rng(n_tris + 5), max(n_tris, 1), n, dev)
+    t_max[::10] = -1.0
+    for m in (n, 5000, 300):
+        k = _b1_equal(tri, o[:m], d[:m], t_max[:m], n_tris)
+        assert not (k[4][::10] >= 0).any()
+        if n_tris == 0 or n_tris >= 255:  # one triangle may be missed by every ray
+            assert bool((k[4] >= 0).any()) == (n_tris > 0)
+
+
+def test_brute_ties_nan_and_zero_directions_equal_plain(dev):
+    """Triangles 0-99 repeated at 100-199 (equal t: the lowest index
+    wins), then NaN and zero directions among the rays."""
+    n = (1 << 16) + 77
+    tri, o, d, t_max = _soup(np.random.default_rng(21), 300, n, dev)
+    tri = torch.cat([tri[:100], tri[:100], tri[100:]]).contiguous()
+    k = _b1_equal(tri, o, d, t_max, tri.shape[0])
+    assert ((k[4] >= 0) & (k[4] < 100)).any() and not ((k[4] >= 100) & (k[4] < 200)).any()
+    d = d.clone()
+    d[::7] = float("nan")
+    d[3::7] = 0.0
+    d[5::7, 1] = float("nan")
+    k = _b1_equal(tri, o, d, t_max, tri.shape[0])
+    assert not (k[4][::7] >= 0).any() and not (k[4][3::7] >= 0).any()
+
+
+def test_brute_det_threshold_equal_plain(dev):
+    """det = e1 . (d x e2) at exactly +-1e-12 (a hit: |det| >= eps) and at
+    the float just inside (a miss), each triangle hit head-on at t = 1."""
+    ex = np.float32(1e-12)
+    inner = np.nextafter(ex, np.float32(0))
+    tri = np.zeros((4, 12), np.float32)  # p0 = (0, 2j, 0), p1 = p0 + (e1x, 0, 1), p2 = p0 + (0, 1, 0)
+    tri[:, 1] = [0.0, 2.0, 4.0, 6.0]
+    tri[:, 3] = [ex, -ex, inner, -inner]
+    tri[:, 4] = tri[:, 1]
+    tri[:, 5] = 1.0
+    tri[:, 7] = tri[:, 1] + 1.0
+    o = np.zeros((256, 3), np.float32)
+    o[:, 1] = np.repeat(tri[:, 1], 64) + np.tile(np.linspace(0.05, 0.95, 64, dtype=np.float32), 4)
+    o[:, 2] = -1.0
+    d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (256, 1))
+    k = _b1_equal(*(torch.from_numpy(a).to(dev) for a in (tri, o, d)), torch.full((256,), 1e30, device=dev), 4)
+    assert torch.equal(k[4].cpu(), torch.tensor([0] * 64 + [1] * 64 + [-1] * 128, dtype=torch.int32))
+
+
+def test_brute_unaligned_rays_equal_plain(dev):
+    """o and d as views with a storage offset of 1 and 3 rows (12 and 36
+    bytes: not 16-byte aligned, so the kernel's 4-byte ray loads)."""
+    n = 20000
+    tri, o, d, t_max = _soup(np.random.default_rng(8), 36, n + 3, dev, 100)
+    for off in (1, 3):
+        assert o[off:].data_ptr() % 16 != 0
+        _b1_equal(tri, o[off:], d[off:], t_max[off:], 36)
 
 
 def test_render_on_card_goes_through_kernel(dev):
@@ -883,6 +959,82 @@ def test_shade_kernel_equals_plain(dev, case):
     for key in k:
         assert _bits_equal(k[key], p[key].contiguous()), key
     assert k["active"].any() and (k["nee_need"].any() or not (mis and any_lights))
+
+
+def _b5_equal(inp, gates, mis=True, any_lights=True):
+    tables = lut.load_tables(inp["active"].device)
+    k = shade.shade(inp, gates, mis, any_lights, tables)
+    p = shade.shade_plain(inp, gates, mis, any_lights, tables)
+    torch.cuda.synchronize()
+    for key in k:
+        assert _bits_equal(k[key], p[key].contiguous()), key
+    return k, shade.mixed_warps(shade.lobe_keys(inp, gates, tables))
+
+
+def _lobe_lanes(n, seed, dev, lobes):
+    """Random lanes whose materials force lane i's pick to lobes[i % len]."""
+    inp = _shade_lanes(n, seed, dev)
+    kind = torch.arange(n, device=dev) % len(lobes)
+    one, zero = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    pick = {name: kind == i for i, name in enumerate(lobes)}
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    inp["clearcoat"] = torch.where(pick.get("coat", none), one, zero)
+    inp["uc2"] = torch.where(pick.get("coat", none), zero, inp["uc2"])
+    inp["metallic"] = torch.where(pick.get("metal", none), one, zero)
+    inp["transmission"] = torch.where(pick.get("dielectric", none), one, zero)
+    inp["active"] = torch.ones(n, dtype=torch.bool, device=dev)
+    inp["found"] = inp["active"].clone()
+    return inp
+
+
+@pytest.mark.parametrize("case", ["one_lobe", "interleaved", "dead_tiles", "n_1", "n_127", "n_129", "n_2^20+77",
+                                  "offset_1", "offset_3"])
+def test_shade_tile_edges_equal_plain(dev, case):
+    """B5's lobe-grouped tiles at their edges, bitwise: every lane of a
+    tile on one lobe; the four lobes interleaved lane by lane (the grouping
+    leaves no mixed warp); every other 128-lane tile dead; lane counts
+    around a tile; every input a view with a storage offset (not 16-byte
+    aligned; the kernel reads each input at any address)."""
+    gates = (True, True, True, True)
+    if case == "one_lobe":
+        inp = _lobe_lanes(1 << 16, 1, dev, ("metal",))
+    elif case == "interleaved":
+        inp = _lobe_lanes(1 << 16, 2, dev, ("coat", "metal", "dielectric", "glossy"))
+    elif case == "dead_tiles":
+        inp = _shade_lanes(1 << 16, 3, dev)
+        dead = (torch.arange(1 << 16, device=dev) // shade.SHADE_TILE) % 2 == 0
+        inp["active"] &= ~dead
+        inp["found"] &= ~dead
+    elif case.startswith("n_"):
+        inp = _shade_lanes({"n_1": 1, "n_127": 127, "n_129": 129, "n_2^20+77": (1 << 20) + 77}[case], 4, dev)
+    else:
+        off = int(case[-1])
+        whole = _shade_lanes(1000 + off, 5, dev)
+        inp = {k: v[off:] if isinstance(v, torch.Tensor) else v for k, v in whole.items()}
+        assert inp["o"].data_ptr() % 16 and inp["active"].data_ptr() % 16
+    before = shade.COUNTS_SHADE.launches
+    k, mix = _b5_equal(inp, gates)
+    assert shade.COUNTS_SHADE.launches == before + 1
+    if case == "one_lobe":
+        assert mix["lanes"]["metal"] == 1 << 16 and mix["mixed_before"] == mix["mixed_after"] == 0
+    if case == "interleaved":
+        assert mix["mixed_before"] == mix["warps"] and mix["mixed_after"] == 0
+        assert all(mix["lanes"][x] == 1 << 14 for x in ("coat", "metal", "dielectric", "glossy"))
+    if case == "dead_tiles":
+        assert not k["active"][dead].any() and k["active"].any()
+
+
+@pytest.mark.parametrize("gates", [(True, True, False, False), (True, False, False, False),
+                                   (True, True, True, False), (False, True, True, True),
+                                   (False, False, True, False)], ids=["MD", "M", "MDC", "DCA", "C"])
+@pytest.mark.parametrize("mis", [True, False])
+@pytest.mark.parametrize("n", [5000, (1 << 18) + 77])
+def test_shade_instances_equal_plain(dev, gates, mis, n):
+    """The flag combinations the kernel has its own instance for (the
+    render paths' with NEE, the all-gates one without) and others that run
+    the generic instance; at 40 tiles, and at 2,049, more than one wave of
+    resident blocks (132 SMs x 8), where a block shades several tiles."""
+    _b5_equal(_shade_lanes(n, 9, dev), gates, mis=mis)
 
 
 def test_fused_render_on_card_goes_through_b5_b6(dev):

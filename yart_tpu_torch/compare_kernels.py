@@ -1,5 +1,8 @@
 """Builds of one kernel timed in turns on chip_smoke.py's cases, on the card.
 
+    python -m yart_tpu_torch.compare_kernels --kernel b1 OLD.cu yart_tpu_torch/csrc/brute_intersect.cu
+    python -m yart_tpu_torch.compare_kernels --kernel b5 OLD.cu yart_tpu_torch/csrc/shade.cu
+    python -m yart_tpu_torch.compare_kernels --kernel b6 yart_tpu_torch/csrc/draws.cu --sass DIR
     python -m yart_tpu_torch.compare_kernels --kernel b3 OLD.cu yart_tpu_torch/csrc/fused_trace.cu
     python -m yart_tpu_torch.compare_kernels --kernel b2 OLD.cu yart_tpu_torch/csrc/presort_keys.cu
     python -m yart_tpu_torch.compare_kernels --kernel b4 OLD.cu yart_tpu_torch/csrc/cluster_pairs.cu@128
@@ -7,9 +10,12 @@
 
 Run from the root of a checkout: the scenes, rays, timer and bounds are
 chip_smoke.py's own. Each argument is a source of the kernel with the
-package's launcher (the same C signature as `csrc/presort_keys.cu`,
-`csrc/fused_trace.cu` or `csrc/cluster_pairs.cu`), built with the
-package's nvcc flags into `build/compare_kernels/`. For B4 a source may
+package's launcher (the same C signature as `csrc/brute_intersect.cu`
+(B1), `csrc/presort_keys.cu` (B2), `csrc/fused_trace.cu` (B3),
+`csrc/cluster_pairs.cu` (B4), `csrc/shade.cu` (B5) or `csrc/draws.cu`
+(B6)), built with the package's nvcc flags into `build/compare_kernels/`
+(a variant is a patched copy of the source, its local headers beside
+it). For B4 a source may
 also have the earlier padded-block launcher (block cid, first and live
 flags, recognised by its signature): its pairs are then laid out as that
 design laid them out (each cluster's pairs in whole blocks of 1024 rows,
@@ -17,20 +23,40 @@ the rest empty rows) and its results are compared per pair. `@T` after a
 B4 source lays its pairs out in tiles of T (default `clusterpairs.TILE`).
 
 The first line names the card and each build's registers and spills
-(ptxas). With `--sass DIR` each build's SASS (`cuobjdump -sass`) is
-written to DIR, and the line gives each kernel's innermost loops: their
-instruction counts and those of the instructions that make a slab or plane
-test. Then, for each case, one JSON line: the case's bounds (chip_smoke's
-`b2_bounds`, `b3_bounds`, `b4_work` and `b4_floor_ms`: `bound_ms` over the
-work the inputs need, beside it the parent design's sweep bound or the
-no-FMA floor), and per source whether its output equals the plain twin's
-bitwise and its median milliseconds (chip_smoke.cuda_ms, 11 launches) at
-each of its turns: the sources run in the order given and then in reverse
-(A B B A), on the same tensors. A source that computes less than the
-kernel (a variant that times a part of it) is timed all the same; its
+(ptxas) and its build seconds. With `--sass DIR` each build's SASS
+(`cuobjdump -sass`) is written to DIR, and the line gives each kernel
+function's instruction count, its local loads and stores (LDL, STL) and
+its innermost loops: their instruction counts and those of the
+instructions that make a slab, plane or Moller-Trumbore test (B1's
+triangle loop). Then, for each case, one JSON line: the case's bounds
+(chip_smoke's `b1_work` and `b1_floor_ms`, `b2_bounds`, `b3_bounds`,
+`b4_work` and `b4_floor_ms`, `b5_bytes`, `b6_bound`: `bound_ms` over the work the
+inputs need, beside it the parent design's sweep bound or the no-FMA
+floor; B5's lobe mix, `kernels/shade.py` `mixed_warps`), and per source
+whether its output equals the plain twin's bitwise and its median
+milliseconds (chip_smoke.cuda_ms, 11 launches, the launch alone: the
+wrapper's checks and allocations are made once before) at each of its
+turns: the sources run in the order given and then in reverse (A B B A),
+`--rounds` times, on the same tensors. A source that computes less than
+the kernel (a variant that times a part of it) is timed all the same; its
 `bitwise_equal` is then false.
 
 Cases:
+- b1: chip_smoke.py phase 3's cases (`b1_cases`): cornell-mat's 2^20
+  camera rays against its 36 triangles, a 4096-triangle soup at 2^20 rays
+  (a block retired) and a ragged 1000, and the edge cases (T = 0, 1, 255,
+  256, 257 and 4096 at 2^16 + 77 rays, equal-t ties, NaN and zero
+  directions, det at +-1e-12).
+- b5: chip_smoke.py phase 3k's cases (`b5_cases`): real depth-1 bounces
+  of cornell-mat and atrium-ivy (2^20 lanes) and roadster (2^16), 2^20
+  random all-gates lanes (also with mis off and with no lights), dead
+  blocks, tiles of one lobe, the four lobes interleaved lane by lane, dead
+  tiles, n = 1, 127, 129 and 2^20 + 77, and inputs with a storage offset.
+  The bounces are captured with the plain twin, so no build under test
+  makes another's inputs.
+- b6: chip_smoke.py phase 3j's cases (`b6_cases`): the 8 draws of a
+  512x512 render's 2^20 lanes at bounce dimensions 4 and 28, ZSobol at 16
+  and 8 spp, a ragged 1000, and the hash sampler.
 - b3: 3b the bench scene's 262,144 incoherent and coherent rays; 3c the
   spheres render's 2^20 camera rays and their shadow rays (`nee`); 3d
   atrium-ivy's 2^20 camera rays, `amask` casts 0 and 1, and beside them
@@ -60,37 +86,47 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 CASE_REPS = 11  # launches per timed turn
-# Instructions that make a slab test (B2) or a plane test (B4) in SASS.
+# Instructions that make a slab test (B2), a plane test (B4) or a
+# Moller-Trumbore test (B1) in SASS.
 SASS_OPS = ("FMNMX", "FMUL", "FADD", "FSETP", "FSEL", "LDS", "MUFU", "FFMA")
+LOCAL_OPS = ("LDL", "STL")  # local-memory loads and stores (spills, local arrays)
 
 
 def build_source(path: str):
     """nvcc `path` into build/compare_kernels/ (cached by content and
-    flags); returns (library path, ptxas report)."""
+    flags); returns (library path, ptxas report, build seconds: 0.0 for a
+    cached build)."""
     from yart_tpu_torch.kernels import build
 
     with open(path, "rb") as f:
         src = f.read()
+    for inc in sorted(set(re.findall(rb'#include "([^"]+)"', src))):  # its local headers, hashed with it
+        with open(os.path.join(os.path.dirname(os.path.abspath(path)), inc.decode()), "rb") as f:
+            src += b"\0" + f.read()
     h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode() + b"\0" + src).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(path))[0]
     out_dir = os.path.join(os.path.dirname(build.BUILD_ROOT), "compare_kernels", f"{stem}-{h}")
     lib = os.path.join(out_dir, f"lib{stem}.so")
+    seconds = 0.0
     if not os.path.exists(lib):
         os.makedirs(out_dir, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", tmp, os.path.abspath(path)]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {path}:\n{proc.stdout}\n{proc.stderr}")
         with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
             f.write(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
-    return lib, build.parse_ptxas(os.path.join(out_dir, "ptxas.txt"))
+    return lib, build.parse_ptxas(os.path.join(out_dir, "ptxas.txt")), round(seconds, 3)
 
 
 def sass_loops(lib: str, out_path: str) -> dict:
@@ -121,7 +157,8 @@ def sass_loops(lib: str, out_path: str) -> dict:
             body = [op for addr, op, _ in ins if a <= addr <= b]
             rows.append({"start": hex(a), "instructions": len(body),
                          **{k: sum(1 for op in body if op.split(".")[0] == k) for k in SASS_OPS}})
-        out[name] = {"instructions": len(ins), "innermost_loops": rows}
+        out[name] = {"instructions": len(ins), **{k: sum(1 for _, op, _ in ins if op.split(".")[0] == k)
+                                                   for k in LOCAL_OPS}, "innermost_loops": rows}
 
     pending = []
     for line in text.splitlines():
@@ -148,7 +185,7 @@ def sass_loops(lib: str, out_path: str) -> dict:
 
 
 class Source:
-    """One build of the kernel under comparison."""
+    """One build of the kernel under comparison: `path[@TILE]`."""
 
     def __init__(self, arg: str, kernel: str):
         self.arg = arg
@@ -163,13 +200,14 @@ class Source:
         self.lib = self.ptxas = self.fn = None
 
     def bind(self, kernel: str):
-        from yart_tpu_torch.kernels import clusterpairs, fusedtrace, presort
+        from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
 
         lib = ctypes.CDLL(self.lib)
         if self.padded:
             self.fn = bind_padded(lib)
         else:
-            self.fn = {"b2": presort.bind, "b3": fusedtrace.bind, "b4": clusterpairs.bind}[kernel](lib)
+            self.fn = {"b1": brute.bind, "b2": presort.bind, "b3": fusedtrace.bind, "b4": clusterpairs.bind,
+                       "b5": shade.bind_shade, "b6": shade.bind_draws}[kernel](lib)
 
 
 def bind_padded(lib):
@@ -399,6 +437,34 @@ def prepare(kernel: str, cs, case, sources):
     from yart_tpu_torch.kernels import clusterpairs, fusedtrace, presort
     from yart_tpu_torch.render import bintrace, blocktrace
 
+    if kernel == "b1":
+        from yart_tpu_torch.kernels import brute
+
+        tri_pack, o, d, t_max, n_tris = case
+        ref = brute.brute_plain(tri_pack, o, d, t_max, n_tris, 1e-3)
+        rec = {"n_rays": int(o.shape[0]), "n_tris": int(n_tris), "live_rays": int((t_max > 1e-3).sum()),
+               "hit_frac": float((ref[4] >= 0).float().mean())}
+        rec["bound_ms"], rec["bound_by"] = cs.bound(*cs.b1_work(tri_pack, o, d, t_max, n_tris, ref))
+        rec["nofma_floor_ms"] = cs.b1_floor_ms(t_max, n_tris)
+        calls = {s.arg: brute.prepare(tri_pack, o, d, t_max, n_tris, 1e-3, fn=s.fn) for s in sources}
+        return rec, calls, lambda out: all(cs.bits_equal(a, b) for a, b in zip(out, ref))
+    if kernel == "b5":
+        from yart_tpu_torch.kernels import shade
+
+        inp, gates, mis, any_lights, tables = case
+        ref = shade.shade_plain(inp, gates, mis, any_lights, tables)
+        rec = cs.b5_record(inp, gates, mis, any_lights, tables)
+        calls = {s.arg: shade.prepare_shade(inp, gates, mis, any_lights, tables, fn=s.fn) for s in sources}
+        return rec, calls, lambda out: all(cs.bits_equal(out[k], ref[k].contiguous()) for k in ref)
+    if kernel == "b6":
+        from yart_tpu_torch.kernels import shade
+
+        setup = shade.sampler_draw_setup(*case)
+        n = int(setup.state.shape[0])
+        ref = shade.draws_plain(setup, n)
+        rec = {"n": n, "kind": setup.kind, **cs.b6_bound(setup, n)}
+        calls = {s.arg: shade.prepare_draws(setup, n, fn=s.fn) for s in sources}
+        return rec, calls, lambda out: all(cs.bits_equal(out[k], ref[k].contiguous()) for k in ref)
     if kernel == "b3":
         args = case
         ref = fusedtrace.fused_trace_plain(*args)
@@ -447,8 +513,9 @@ def prepare(kernel: str, cs, case, sources):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("b2", "b3", "b4"), required=True)
+    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4", "b5", "b6"), required=True)
     ap.add_argument("--sass", default=None, help="directory for each build's SASS and its loop counts")
+    ap.add_argument("--rounds", type=int, default=1, help="rounds of turns (each A B .. B A)")
     ap.add_argument("sources", nargs="+", help="kernel sources (.cu), B4's with an optional @TILE")
     args = ap.parse_args(argv)
     sources = [Source(a, args.kernel) for a in args.sources]
@@ -467,17 +534,20 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(paths)) as pool:
         built = dict(zip(paths, pool.map(build_source, paths)))
     for s in sources:
-        s.lib, s.ptxas = built[s.path]
+        s.lib, s.ptxas, _ = built[s.path]
         s.bind(args.kernel)
     head = {"device": cs.nvidia_smi(), "kernel": args.kernel, "sources": args.sources,
-            "ptxas": {p: b[1] for p, b in built.items()}}
+            "ptxas": {p: b[1] for p, b in built.items()}, "build_s": {p: b[2] for p, b in built.items()}}
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
         head["sass"] = {p: sass_loops(b[0], os.path.join(args.sass, f"{i}_{os.path.basename(p)}.sass"))
                         for i, (p, b) in enumerate(built.items())}
     print(json.dumps(head), flush=True)
-    turns = list(range(len(sources))) + list(reversed(range(len(sources))))
-    gen = {"b2": b2_cases, "b3": b3_cases, "b4": b4_cases}[args.kernel](cs, dev)
+    turns = (list(range(len(sources))) + list(reversed(range(len(sources))))) * args.rounds
+    gen = {"b1": lambda cs, dev: ((n, a) for n, a, _ in cs.b1_cases(dev)),
+           "b2": b2_cases, "b3": b3_cases, "b4": b4_cases,
+           "b5": lambda cs, dev: ((n, a) for n, a, _ in cs.b5_cases(dev, twin=True)),
+           "b6": lambda cs, dev: ((n, a) for n, a, _ in cs.b6_cases(dev))}[args.kernel](cs, dev)
     for name, case in gen:
         rec, calls, equal = prepare(args.kernel, cs, case, sources)
         per = {s.arg: {"bitwise_equal": bool(equal(calls[s.arg]())), "ms": []} for s in sources}

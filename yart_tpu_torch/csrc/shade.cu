@@ -14,26 +14,49 @@
 //
 // Design (not the TPU kernel's, which packs ~85 rows into one [F, Nsub,
 // 128] array because its vector unit has no per-lane gather):
-// - One thread per lane, 128 threads per block. Inputs are the
-//   integrator's own SoA tensors ([N, 3] vectors, [N] scalars, [N] uint8
-//   flags) passed as a struct of pointers; outputs go to preallocated
-//   [N, 3] / [N] tensors. The lobe gates, `mis` and `any_lights` are
-//   warp-uniform runtime flags.
+// - One thread a lane, tiles of 128 lanes on a persistent grid.
+//   Inputs are the integrator's own SoA tensors ([N, 3] vectors, [N]
+//   scalars, [N] uint8 flags; views with a storage offset too), passed as a
+//   struct of pointers and read where each value is first used; outputs go
+//   to preallocated [N, 3] / [N] tensors.
+// - Instances. The kernel is a template on the warp-uniform flags (NEE =
+//   mis && any_lights, and the coat, dielectric, metallic and anisotropy
+//   gates); the render paths' and chip_smoke's combinations have their own
+//   instance, every other one runs the generic instance, which reads the
+//   flags from the arguments.
+// - Less code on a warp's path. Without fast math each IEEE divide, square
+//   root, sine, cosine and exponential is a long sequence, and inlining every
+//   GGX, Fresnel, LUT and frame helper at every call site made a body of
+//   ~13,000 SASS instructions that warps at different points walked through
+//   the instruction cache. The per-lane math lives in shade_lane.cuh, where
+//   those helpers are out of line: one copy shared by every call site,
+//   ~3,000-6,000 instructions an instance.
+// - Occupancy: 8 blocks of 128 threads an SM (64 registers); the warps
+//   hide each other's long dependent chains.
+// - Lobe-grouped warps. Each tile lane's one-sample lobe pick (coat,
+//   metallic, dielectric, glossy) is made first; where a tile's warps mix
+//   live lobes, ballots and prefix counts give consecutive threads lanes of
+//   one lobe, dead lanes (neither active nor found, the pass-through state)
+//   last. Each thread shades its lane and writes the lane's own outputs, so
+//   every output bit is the lane's. Under the coat gate the pick's frame
+//   and coat half-vector stay in shared memory for the shading pass.
 // - The LUT fetches run in-kernel with ops/lut.py's index arithmetic (a
 //   negative coordinate takes the top bin, NaN takes bin 0, the fraction is
 //   unclamped), reading the six tables (~54 KB) through the read-only
-//   cache, and only where a lane's result uses them: the pre-pass of the
-//   TPU design is gone.
+//   cache, and only where a lane's result uses them.
 // - Only the picked lobe's sample is built (the twin builds all and
 //   selects; the values are the same).
-// - Dead lanes (neither active nor found) write the pass-through state, per
-//   lane; the twin zeroes their contrib and shadow_d, so all outputs agree.
+// - Dead lanes write the pass-through state; the twin zeroes their contrib
+//   and shadow_d, so all outputs agree.
 //
 // Bound on this card: bytes. Per live lane 256 B of inputs (13 vectors,
 // 23 scalars, 8 flags; the LUT reads mostly hit cache) and 99 B of
 // outputs; the arithmetic (~900 flops and a dozen transcendentals a lane)
-// stays under the bytes at 67 TFLOP/s. Measured at ~21x that bound: one
-// thread a lane, divergent lobe branches.
+// stays under the bytes at 67 TFLOP/s. What the kernel reaches is set by
+// latency: long dependent chains of IEEE operations at the occupancy the
+// registers allow. Staging a tile's inputs in shared memory with cp.async
+// before any math was measured and lost (it serialised each tile's loads
+// and its math in a block); it is not kept.
 //
 // Build with --fmad=false and without --use_fast_math.
 
@@ -72,7 +95,6 @@ struct ShadeArgs {
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr double kPi = 3.141592653589793;  // math.pi
 
 enum : int {
@@ -118,286 +140,29 @@ __device__ __forceinline__ V3 reflect_about(V3 wo, V3 wm) {
   const float d2 = vdot(wo, wm) * 2.0f;
   return vsub(vscale(wm, d2), wo);
 }
-__device__ __forceinline__ V3 load3(const float* a, int i) {
-  return V3{a[3 * i], a[3 * i + 1], a[3 * i + 2]};
-}
-__device__ __forceinline__ void store3(float* a, int i, V3 v) {
-  a[3 * i] = v.x;
-  a[3 * i + 1] = v.y;
-  a[3 * i + 2] = v.z;
-}
 
-// ---------------------------------------------------------------- frames
-
-__device__ V3 shading_tangent(V3 n) {
-  const V3 tg = vnormalize(vcross(n, v3(0.0f, 1.0f, 0.0f)));
-  return fabsf(n.y) > F(0.999) ? v3(1.0f, 0.0f, 0.0f) : tg;
-}
+// ---------------------------------------------------------------- structs
 
 struct Frame {
   V3 x, y, z;
 };
 
-__device__ Frame frame_from_normal_tangent(V3 n, V3 t) {
-  const bool big = fabsf(n.x) > 0.5f;
-  const V3 a = big ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-  const V3 fy = vnormalize(vcross(n, a));
-  const V3 fx = vcross(n, fy);
-  const V3 y = vnormalize(vcross(n, t));
-  const V3 x = vcross(y, n);
-  const bool degen = fabsf(vdot(t, n)) > F(0.9);
-  return Frame{degen ? fx : x, degen ? fy : y, n};
-}
-
-__device__ __forceinline__ V3 world_to_local(V3 v, const Frame& f) {
-  return v3(vdot(v, f.x), vdot(v, f.y), vdot(v, f.z));
-}
-__device__ __forceinline__ V3 local_to_world(V3 v, const Frame& f) {
-  return v3(v.x * f.x.x + v.y * f.y.x + v.z * f.z.x, v.x * f.x.y + v.y * f.y.y + v.z * f.z.y,
-            v.x * f.x.z + v.y * f.y.z + v.z * f.z.z);
-}
-__device__ __forceinline__ V3 rot_z(V3 v, float angle) {
-  const float c = cosf(angle);
-  const float s = sinf(angle);
-  return v3(c * v.x - s * v.y, s * v.x + c * v.y, v.z);
-}
-
-// ---------------------------------------------------------------- GGX
-
 struct Alphas {
   float x, y;
 };
 
-__device__ __forceinline__ Alphas make_alphas(float r, bool aniso, float an) {
-  const float alpha = r * r;
-  if (!aniso) return Alphas{alpha, alpha};
-  const float aspect = sqrtf(1.0f - an * F(0.9));
-  return Alphas{alpha / aspect, alpha * aspect};
-}
-__device__ __forceinline__ bool ggx_smooth(Alphas a) {
-  return a.x < F(1e-3) && a.y < F(1e-3);
-}
-
 struct Phi {
   float cos2t, sin2t, cos2p, sin2p;
 };
-
-__device__ __forceinline__ Phi phi_terms(V3 w) {
-  Phi r;
-  r.cos2t = w.z * w.z;
-  r.sin2t = cmin0(1.0f - r.cos2t, 0.0f);
-  const float safe = r.sin2t > F(1e-20) ? r.sin2t : 1.0f;
-  const bool z = r.sin2t == 0.0f;
-  r.cos2p = z ? 1.0f : w.x * w.x / safe;
-  r.sin2p = z ? 0.0f : w.y * w.y / safe;
-  return r;
-}
-
-__device__ float ggx_mdf(Alphas a, V3 w) {
-  const Phi t = phi_terms(w);
-  const bool ok = t.cos2t > F(1e-12);
-  const float tan2t = (ok ? t.sin2t : 0.0f) / (ok ? t.cos2t : 1.0f);
-  const float cos4t = ok ? t.cos2t * t.cos2t : 1.0f;
-  const float ax = cmin0(a.x, F(1e-4));
-  const float ay = cmin0(a.y, F(1e-4));
-  const float k = tan2t * (t.cos2p / (ax * ax) + t.sin2p / (ay * ay));
-  const float k2 = (1.0f + k) * (1.0f + k);
-  const float d = 1.0f / (ax * F(kPi) * ay * cos4t * k2);
-  return ok ? d : 0.0f;
-}
-
-__device__ float ggx_lambda(Alphas a, V3 w) {
-  const Phi t = phi_terms(w);
-  const bool ok = t.cos2t > F(1e-12);
-  const float tan2t = (ok ? t.sin2t : 0.0f) / (ok ? t.cos2t : 1.0f);
-  const float alpha2 = a.x * a.x * t.cos2p + a.y * a.y * t.sin2p;
-  const float lam = (sqrtf(1.0f + alpha2 * tan2t) - 1.0f) * 0.5f;
-  return ok ? lam : F(1e20);
-}
-
-__device__ __forceinline__ float ggx_g1(Alphas a, V3 w) { return 1.0f / (1.0f + ggx_lambda(a, w)); }
-__device__ __forceinline__ float ggx_g(Alphas a, V3 wo, V3 wi) {
-  return 1.0f / (1.0f + ggx_lambda(a, wo) + ggx_lambda(a, wi));
-}
-__device__ float ggx_vmdf(Alphas a, V3 w, V3 wm) {
-  return ggx_g1(a, w) / cmin0(fabsf(w.z), F(1e-20)) * ggx_mdf(a, wm) * fabsf(vdot(w, wm));
-}
-
-__device__ V3 sample_visible(Alphas al, V3 w, float u0, float u1) {
-  const float ax = cmin0(al.x, F(1e-4));
-  const float ay = cmin0(al.y, F(1e-4));
-  V3 wh = vnormalize(v3(ax * w.x, ay * w.y, w.z));
-  wh = wh.z < 0.0f ? vneg(wh) : wh;
-  const V3 b_raw = vnormalize(vcross(v3(0.0f, 0.0f, 1.0f), wh));
-  const V3 b = wh.z < F(0.9999) ? b_raw : v3(1.0f, 0.0f, 0.0f);
-  const V3 t = vcross(wh, b);
-  // sample_disk_uniform
-  const float r = sqrtf(u0);
-  const float theta = u1 * F(2.0 * kPi);
-  const float px = r * cosf(theta);
-  const float py0 = r * sinf(theta);
-  const float h = safe_sqrt(1.0f - px * px);
-  const float mix = wh.z * 0.5f + 0.5f;
-  const float py = h + (py0 - h) * mix;
-  const float pz = safe_sqrt(1.0f - px * px - py * py);
-  const V3 nh = vadd(vadd(vscale(b, px), vscale(t, py)), vscale(wh, pz));
-  return vnormalize(v3(ax * nh.x, ay * nh.y, cmin0(nh.z, F(1e-6))));
-}
-
-__device__ __forceinline__ V3 sample_cosine_hemisphere(float u0, float u1) {
-  const float phi = u0 * 2.0f * F(kPi);
-  const float sqrt_r2 = sqrtf(u1);
-  return v3(cosf(phi) * sqrt_r2, sinf(phi) * sqrt_r2, safe_sqrt(1.0f - u1));
-}
-
-// ---------------------------------------------------------------- Fresnel
-
-// `inv_ior` is the value the twin's where(below, 1 / ior, ior) takes below
-// the surface: 1.0f / ior for a tensor ior, float(1 / 1.5) for the coat's.
-__device__ float fresnel_dielectric(float cos_theta, float ior_in, float inv_ior) {
-  cos_theta = clampf(cos_theta, -1.0f, 1.0f);
-  const bool below = cos_theta < 0.0f;
-  const float ior = below ? inv_ior : ior_in;
-  cos_theta = fabsf(cos_theta);
-  const float sin2 = 1.0f - cos_theta * cos_theta;
-  const float sin2_t = sin2 / (ior * ior);
-  const bool tir = sin2_t >= 1.0f;
-  const float cos_t = safe_sqrt(1.0f - sin2_t);
-  const float r_prl = (ior * cos_theta - cos_t) / (ior * cos_theta + cos_t + F(1e-20));
-  const float r_per = (cos_theta - ior * cos_t) / (cos_theta + ior * cos_t + F(1e-20));
-  const float f = 0.5f * (r_prl * r_prl + r_per * r_per);
-  return tir ? 1.0f : f;
-}
-__device__ __forceinline__ float fresnel_t(float c, float ior) {
-  return fresnel_dielectric(c, ior, 1.0f / ior);
-}
-__device__ __forceinline__ float fresnel_coat(float c) {
-  return fresnel_dielectric(c, 1.5f, F(1.0 / 1.5));
-}
-
-__device__ __forceinline__ V3 fresnel_schlick3(V3 f0, float cos_theta) {
-  const float m = 1.0f - cos_theta;
-  const float m5 = (m * m) * (m * m) * m;
-  return v3(f0.x + (1.0f - f0.x) * m5, f0.y + (1.0f - f0.y) * m5, f0.z + (1.0f - f0.z) * m5);
-}
-
-__device__ V3 refract(V3 wi, V3 n, float ior, bool* tir) {
-  float cos_theta = vdot(wi, n);
-  const bool below = cos_theta < 0.0f;
-  const float eta = below ? 1.0f / ior : ior;
-  cos_theta = fabsf(cos_theta);
-  const V3 nn = below ? vneg(n) : n;
-  const float sin2 = cmin0(1.0f - cos_theta * cos_theta, 0.0f);
-  const float sin2_t = sin2 / (eta * eta);
-  *tir = sin2_t >= 1.0f;
-  const float cos_t = safe_sqrt(1.0f - sin2_t);
-  return vadd(vscale(vneg(wi), 1.0f / eta), vscale(nn, cos_theta / eta - cos_t));
-}
 
 struct Outward {
   V3 w;
   bool ok;
 };
 
-__device__ Outward outward(V3 wm) {
-  const float n2 = vdot(wm, wm);
-  const bool ok = n2 > F(1e-20);
-  const float n2m = ok ? n2 : 1.0f;
-  V3 w = vscale(wm, ok ? 1.0f / sqrtf(n2m) : 0.0f);
-  w = w.z < 0.0f ? vneg(w) : w;
-  return Outward{w, ok};
-}
-
-__device__ __forceinline__ float safe_div(float a, float b, double eps) {
-  const bool small = fabsf(b) < F(eps);
-  const float bb = small ? (b < 0.0f ? F(-eps) : F(eps)) : b;
-  return a / bb;
-}
-
-__device__ __forceinline__ float favg_fit(float ior) {
-  return (ior - 1.0f) / (ior * F(1.00071) + F(4.08567));
-}
-
-__device__ __forceinline__ float roughen(float r) {
-  return tmax(r, clampf(r * 2.0f, F(0.1), F(0.3)));
-}
-
-// ---------------------------------------------------------------- LUTs
-// ops/lut.py: idx = min(int(x * (n - 1)), n - 2), a negative coordinate
-// takes the top bin, NaN takes bin 0, the fraction is unclamped.
-
-__device__ __forceinline__ void ref_index(float x, int n, int* idx, float* frac) {
-  const float xo = x * F(n - 1.0);
-  const float safe = isnan(xo) ? 0.0f : xo;
-  const int i = safe < 0.0f ? n - 2 : (int)fminf(fmaxf(safe, 0.0f), F(n - 2.0));
-  *idx = i;
-  *frac = xo - (float)i;
-}
-
-__device__ float fetch_1d(const float* tab, int n, float x) {
-  int i;
-  float f;
-  ref_index(x, n, &i, &f);
-  return __ldg(tab + i) * (1.0f - f) + __ldg(tab + i + 1) * f;
-}
-
-__device__ float fetch_2d(const float* tab, int n0, int n1, float x0, float x1) {
-  int i0, i1;
-  float f0, f1;
-  ref_index(x0, n0, &i0, &f0);
-  ref_index(x1, n1, &i1, &f1);
-  const float g0 = 1.0f - f0;
-  const float r0 = __ldg(tab + i0 * n1 + i1) * g0 + __ldg(tab + (i0 + 1) * n1 + i1) * f0;
-  const float r1 = __ldg(tab + i0 * n1 + i1 + 1) * g0 + __ldg(tab + (i0 + 1) * n1 + i1 + 1) * f0;
-  return r0 * (1.0f - f1) + r1 * f1;
-}
-
-__device__ float fetch_3d(const float* tab, int n, float x0, float x1, float x2) {
-  int i0, i1, i2;
-  float f0, f1, f2;
-  ref_index(x0, n, &i0, &f0);
-  ref_index(x1, n, &i1, &f1);
-  ref_index(x2, n, &i2, &f2);
-  const int s0 = n * n;
-  const float g0 = 1.0f - f0;
-  const float w1[2] = {1.0f - f1, f1};
-  const float w2[2] = {1.0f - f2, f2};
-  float out = 0.0f;
-#pragma unroll
-  for (int dj = 0; dj < 2; ++dj) {
-#pragma unroll
-    for (int dk = 0; dk < 2; ++dk) {
-      const int off = (i1 + dj) * n + (i2 + dk);
-      const float a = __ldg(tab + i0 * s0 + off) * g0 + __ldg(tab + (i0 + 1) * s0 + off) * f0;
-      const float term = a * w1[dj] * w2[dk];
-      out = (dj == 0 && dk == 0) ? term : out + term;
-    }
-  }
-  return out;
-}
-
 struct Luts {
   const float *E, *Eavg, *base_E, *base_Eavg, *glass_E, *glass_inv_E;
 };
-
-__device__ __forceinline__ float lut_e(const Luts& t, float cos_theta, float r) {
-  return fetch_2d(t.E, 32, 32, r, cos_theta);
-}
-__device__ __forceinline__ float lut_eavg(const Luts& t, float r) { return fetch_1d(t.Eavg, 32, r); }
-__device__ __forceinline__ float lut_base_e(const Luts& t, float f0, float r, float cos_theta) {
-  return fetch_3d(t.base_E, 16, f0, r, cos_theta);
-}
-__device__ __forceinline__ float lut_base_eavg(const Luts& t, float f0, float r) {
-  return fetch_2d(t.base_Eavg, 16, 16, f0, r);
-}
-__device__ float lut_glass_e(const Luts& t, float ior, float r, float cos_theta) {
-  const bool inv = ior < 1.0f;
-  const float x = inv ? 1.0f / cmin0(ior, F(1e-6)) : ior;
-  const float f0 = sqrtf(fabsf((x - 1.0f) / (x + 1.0f)));
-  return fetch_3d(inv ? t.glass_inv_E : t.glass_E, 16, f0, cos_theta, r);
-}
-
-// ---------------------------------------------------------------- lane
 
 struct Lane {
   V3 n, d, p, base, emission;
@@ -421,555 +186,252 @@ struct Sample {
   float pdf, roughness;
 };
 
-// ---------------------------------------------------------------- samples
-
-__device__ Sample sample_metallic(const Lane& L, const Cand& c, const Luts& t) {
-  const V3 wo = c.wo_r, wm = c.wm;
-  Sample s;
-  if (c.smooth) {
-    s.flags = REFLECTED | SPECULAR;
-    s.f = vscale(fresnel_schlick3(L.base, wo.z), 1.0f / cmin0(fabsf(wo.z), F(1e-12)));
-    s.wi = vmirror(wo);
-    s.pdf = 1.0f;
-    s.roughness = 0.0f;
-    return s;
-  }
-  const V3 wi = c.wi_g;
-  const bool valid = wo.z * wi.z >= 0.0f;
-  const float pdf = ggx_vmdf(c.a, wo, wm) / cmin0(fabsf(vdot(wo, wm)) * 4.0f, F(1e-12));
-  const float cos_o = fabsf(wo.z);
-  const float cos_i = fabsf(wi.z);
-  const V3 fss = fresnel_schlick3(L.base, fabsf(vdot(wo, wm)));
-  const float m_scalar =
-      ggx_mdf(c.a, wm) * ggx_g(c.a, wo, wi) / cmin0(cos_o * 4.0f * cos_i, F(1e-12));
-  const V3 mss = vscale(fss, m_scalar);
-  const float ess = cmin0(lut_e(t, fabsf(c.wo_r.z), c.r_s), F(1e-4));
-  const float ms_gain = (1.0f - ess) / ess;
-  const V3 f = vmul(mss, vadd(vsplat(1.0f), vscale(L.base, ms_gain)));
-  s.flags = valid ? (REFLECTED | GLOSSY) : ABSORBED;
-  s.f = valid ? f : vsplat(0.0f);
-  s.wi = wi;
-  s.pdf = pdf;
-  s.roughness = L.roughness_base;
-  return s;
-}
-
-__device__ Sample sample_dielectric(const Lane& L, const Cand& c, const Luts& t) {
-  const V3 wo = c.wo_r, wm = c.wm;
-  const float ior = L.ior;
-  const float ior_rel = c.ior_rel;
-  Sample s;
-  if (c.smooth) {
-    const float f_spec = fresnel_t(fabsf(wo.z), ior_rel);
-    const bool refl_s = L.uc < f_spec;
-    const V3 wi_s_refl = vmirror(wo);
-    bool tir_s;
-    V3 wi_s_refr = refract(wo, v3(0.0f, 0.0f, 1.0f), ior, &tir_s);
-    wi_s_refr = L.thin ? vneg(wo) : wi_s_refr;
-    tir_s = tir_s && !L.thin;
-    const float t_spec = 1.0f - f_spec;
-    s.wi = refl_s ? wi_s_refl : wi_s_refr;
-    s.f = refl_s ? vsplat(f_spec / cmin0(fabsf(wi_s_refl.z), F(1e-12)))
-                 : vscale(L.base, t_spec / cmin0(fabsf(wi_s_refr.z), F(1e-12)));
-    s.pdf = refl_s ? f_spec : t_spec;
-    s.flags = refl_s ? (REFLECTED | SPECULAR) : (tir_s ? ABSORBED : (TRANSMITTED | SPECULAR));
-    s.roughness = 0.0f;
-    return s;
-  }
-  const float dot_wo_wm = vdot(wo, wm);
-  const float fss = fresnel_t(fabsf(dot_wo_wm), ior_rel);
-  const float cos_o = fabsf(wo.z);
-  const float e_o = cmin0(lut_glass_e(t, ior_rel, c.r_s, fabsf(c.wo_r.z)), F(1e-4));
-  const bool refl = L.uc < fss;
-  const float vm = ggx_vmdf(c.a, wo, wm) / cmin0(fabsf(dot_wo_wm) * 4.0f, F(1e-12));
-  s.roughness = c.r_s;
-  if (refl) {
-    const V3 wi_r = c.wi_g;
-    const bool ok_r = wo.z * wi_r.z >= 0.0f;
-    const float cos_i_r = fabsf(wi_r.z);
-    const float mss_r =
-        ggx_mdf(c.a, wm) * ggx_g(c.a, wo, wi_r) / cmin0(cos_o * 4.0f * cos_i_r, F(1e-12));
-    s.wi = wi_r;
-    s.f = vsplat(fss * mss_r / e_o);
-    s.pdf = vm * fss;
-    s.flags = ok_r ? (REFLECTED | GLOSSY) : ABSORBED;
-  } else if (L.thin) {
-    const V3 wi_thin = v3(c.wi_g.x, c.wi_g.y, -c.wi_g.z);
-    const float cos_i_t = fabsf(wi_thin.z);
-    const float tss_thin =
-        ggx_mdf(c.a, wm) * ggx_g(c.a, wo, wi_thin) / cmin0(cos_o * 4.0f * cos_i_t, F(1e-12));
-    s.wi = wi_thin;
-    s.f = vscale(L.base, (1.0f - fss) * tss_thin / e_o);
-    s.pdf = vm * (1.0f - fss);
-    s.flags = TRANSMITTED | GLOSSY;
-  } else {
-    bool tir;
-    const V3 wi_t = refract(wo, wm, ior, &tir);
-    const bool bad_t = tir || (wo.z * wi_t.z > 0.0f) || (wi_t.z == 0.0f);
-    const float dot_wi_wm = vdot(wi_t, wm);
-    const float temp = dot_wi_wm * ior_rel + dot_wo_wm;
-    const float dwm_dwi = fabsf(dot_wi_wm) / cmin0(temp * temp, F(1e-12));
-    const float pdf_t = ggx_vmdf(c.a, wo, wm) * dwm_dwi * (1.0f - fss);
-    const float tss = ggx_mdf(c.a, wm) * ggx_g(c.a, wo, wi_t) *
-                      fabsf(safe_div(dot_wi_wm * dot_wo_wm, wi_t.z * wo.z * temp * temp, 1e-20));
-    s.wi = wi_t;
-    s.f = vscale(L.base, (1.0f - fss) * tss / e_o);
-    s.pdf = pdf_t;
-    s.flags = bad_t ? ABSORBED : (TRANSMITTED | GLOSSY);
-  }
-  return s;
-}
-
-// The glossy lobe; *le gets its Le (emission on the diffuse branch).
-__device__ Sample sample_glossy(const Lane& L, const Cand& c, const Luts& t, V3* le) {
-  const V3 wo = c.wo_r, wm = c.wm;
-  const float ior = L.ior;
-  const float cos_o = wo.z;
-  const float favg = favg_fit(ior);
-  const float eavg = lut_eavg(t, c.r_s);
-  const float fms = favg * favg * eavg / cmin0(1.0f - (1.0f - eavg) * favg, F(1e-6));
-  const float e_o = lut_e(t, cos_o, c.r_s);  // RAW sign-carrying cosine
-  const float kappa = 1.0f - (favg * e_o + fms * (1.0f - e_o));
-  Sample s;
-  if (L.uc < kappa) {  // diffuse
-    const V3 wi_d = c.wi_d;
-    const float e_wo = lut_base_e(t, c.f0, c.r_s, cos_o);
-    const float e_wi = lut_base_e(t, c.f0, c.r_s, wi_d.z);
-    const float eavg_b = lut_base_eavg(t, c.f0, c.r_s);
-    const float c_diffuse = (1.0f - e_wo) * (1.0f - e_wi) / cmin0((1.0f - eavg_b) * F(kPi), F(1e-6));
-    s.f = vscale(L.base, c_diffuse);
-    s.pdf = fabsf(wi_d.z) * c_diffuse;
-    s.flags = vdot(L.emission, L.emission) > 0.0f ? (REFLECTED | DIFFUSE | EMITTED)
-                                                   : (REFLECTED | DIFFUSE);
-    s.wi = wi_d;
-    s.roughness = 1.0f;
-    *le = L.emission;
-    return s;
-  }
-  *le = vsplat(0.0f);
-  if (c.smooth) {
-    const float f_spec = fresnel_t(cos_o, ior);
-    s.wi = vmirror(wo);
-    s.f = vsplat(f_spec / cmin0(fabsf(s.wi.z), F(1e-12)));
-    s.pdf = f_spec;
-    s.flags = REFLECTED | SPECULAR;
-    s.roughness = 0.0f;
-    return s;
-  }
-  const V3 wi_g = c.wi_g;
-  const float cos_i_g = wi_g.z;
-  const bool ok_g = cos_o * cos_i_g >= 0.0f;
-  const float fss = fresnel_t(vdot(wo, wm), ior);
-  const float mss =
-      ggx_mdf(c.a, wm) * ggx_g(c.a, wo, wi_g) / cmin0(fabsf(cos_o * 4.0f * cos_i_g), F(1e-12));
-  const float e_i = lut_e(t, wi_g.z, c.r_s);
-  const float mms = (1.0f - e_o) * (1.0f - e_i) / cmin0((1.0f - eavg) * F(kPi), F(1e-6));
-  s.f = ok_g ? vsplat(fss * mss + fms * mms) : vsplat(0.0f);
-  s.pdf = ggx_vmdf(c.a, wo, wm) / cmin0(fabsf(vdot(wo, wm)) * 4.0f, F(1e-12)) * fss;
-  s.flags = ok_g ? (REFLECTED | GLOSSY) : ABSORBED;
-  s.wi = wi_g;
-  s.roughness = c.r_s;
-  return s;
-}
-
-__device__ Sample sample_clearcoat(const Lane& L, const Cand& c) {
-  const V3 wo = c.wo, wm = c.wm_coat;
-  const float cos_o = wo.z;
-  Sample s;
-  if (ggx_smooth(c.ac)) {
-    // the reference uses the MATERIAL ior here (parametric.cpp:804)
-    const float f_spec = fresnel_t(cos_o, L.ior);
-    s.wi = vmirror(wo);
-    s.f = vsplat(f_spec / cmin0(fabsf(s.wi.z), F(1e-12)));
-    s.pdf = f_spec;
-    s.flags = REFLECTED | SPECULAR;
-    s.roughness = 0.0f;
-    return s;
-  }
-  const V3 wi = reflect_about(wo, wm);
-  const bool ok = cos_o * wi.z >= 0.0f;
-  const float fss = fresnel_coat(vdot(wo, wm));
-  const float mss =
-      ggx_mdf(c.ac, wm) * ggx_g(c.ac, wo, wi) / cmin0(fabsf(cos_o * 4.0f * wi.z), F(1e-12));
-  s.pdf = fss * ggx_vmdf(c.ac, wo, wm) / cmin0(fabsf(vdot(wo, wm)) * 4.0f, F(1e-12));
-  s.f = ok ? vsplat(fss * mss) : vsplat(0.0f);
-  s.flags = ok ? (REFLECTED | GLOSSY) : ABSORBED;
-  s.wi = wi;
-  s.roughness = L.cc_roughness_base;
-  return s;
-}
-
-// ---------------------------------------------------------------- NEE eval
-
 struct NeeFet {
   float eavg_raw, e_o_abs_raw, e_i_l_abs, base_e_o_abs, base_e_i_l, base_eavg_raw;
 };
 
-__device__ V3 f_glossy(const Lane& L, const NeeFet& q, Alphas a, V3 wo, V3 wi) {
-  const float cos_o = fabsf(wo.z);
-  const float cos_i = fabsf(wi.z);
-  const Outward o = outward(vadd(wo, wi));
-  const bool ok = o.ok && cos_o > 0.0f && cos_i > 0.0f;
-  if (!ok) return vsplat(0.0f);
-  const bool rough_ok = !ggx_smooth(a);
-  const V3 wm = o.w;
-  const float favg = favg_fit(L.ior);
-  const float eavg = q.eavg_raw;
-  const float c_diffuse = (1.0f - q.base_e_o_abs) * (1.0f - q.base_e_i_l) /
-                          cmin0((1.0f - q.base_eavg_raw) * F(kPi), F(1e-6));
-  const V3 diffuse = vscale(L.base, c_diffuse);
-  float spec = 0.0f;
-  if (rough_ok) {
-    const float fss = fresnel_t(vdot(wo, wm), L.ior);
-    const float mss = ggx_mdf(a, wm) * ggx_g(a, wo, wi) / cmin0(cos_o * 4.0f * cos_i, F(1e-12));
-    const float mms = (1.0f - q.e_o_abs_raw) * (1.0f - q.e_i_l_abs) /
-                      cmin0((1.0f - eavg) * F(kPi), F(1e-6));
-    const float fms = favg * favg * eavg / cmin0(1.0f - (1.0f - eavg) * favg, F(1e-6));
-    spec = fss * mss + mms * fms;
-  }
-  return vadd(vsplat(spec), diffuse);
-}
+struct Base {
+  Frame frame;
+  V3 wo;
+  bool regularized;
+};
 
-__device__ float pdf_glossy(const Lane& L, const NeeFet& q, Alphas a, V3 wo, V3 wi) {
-  const float cos_i = fabsf(wi.z);
-  const Outward o = outward(vadd(wo, wi));
-  const float favg = favg_fit(L.ior);
-  const float eavg = q.eavg_raw;
-  const float fms = favg * favg * eavg / cmin0(1.0f - (1.0f - eavg) * favg, F(1e-6));
-  const float e_o = q.e_o_abs_raw;
-  const float kappa = 1.0f - (favg * e_o + fms * (1.0f - e_o));
-  float spec_pdf = 0.0f;
-  if (o.ok && !ggx_smooth(a)) {
-    const float fss = fresnel_t(vdot(wo, o.w), L.ior);
-    spec_pdf = (fss + fms) * ggx_vmdf(a, wo, o.w) / cmin0(fabsf(vdot(wo, o.w)) * 4.0f, F(1e-12));
-  }
-  return spec_pdf + cos_i * kappa;
-}
-
-__device__ V3 f_metallic(const Lane& L, const NeeFet& q, Alphas a, V3 wo, V3 wi) {
-  const float cos_o = fabsf(wo.z);
-  const float cos_i = fabsf(wi.z);
-  const Outward o = outward(vadd(wo, wi));
-  if (!(o.ok && cos_o > 0.0f && cos_i > 0.0f && !ggx_smooth(a))) return vsplat(0.0f);
-  const V3 wm = o.w;
-  const V3 fss = fresnel_schlick3(L.base, fabsf(vdot(wo, wm)));
-  const float m_scalar = ggx_mdf(a, wm) * ggx_g(a, wo, wi) / cmin0(cos_o * 4.0f * cos_i, F(1e-12));
-  const V3 mss = vscale(fss, m_scalar);
-  const float ess = cmin0(q.e_o_abs_raw, F(1e-4));
-  const V3 mms = vscale(vmul(mss, L.base), (1.0f - ess) / ess);
-  return vadd(mss, mms);
-}
-
-__device__ float pdf_metallic(Alphas a, V3 wo, V3 wi) {
-  const Outward o = outward(vadd(wo, wi));
-  if (!(o.ok && !ggx_smooth(a))) return 0.0f;
-  return ggx_vmdf(a, wo, o.w) / cmin0(fabsf(vdot(wo, o.w)) * 4.0f, F(1e-12));
-}
-
-__device__ V3 f_dielectric(const Lane& L, float glass_e_f, Alphas a, V3 wo, V3 wi) {
-  const float cos_o = wo.z;
-  const float cos_i = wi.z;
-  const bool is_refl = cos_o * cos_i > 0.0f;
-  const float ior = is_refl ? 1.0f : (cos_o > 0.0f ? L.ior : 1.0f / L.ior);
-  const Outward o = outward(vadd(vscale(wi, ior), wo));
-  const V3 wm = o.w;
-  const bool ok = o.ok && cos_i != 0.0f && cos_o != 0.0f && !ggx_smooth(a) &&
-                  vdot(wm, wi) * cos_i >= 0.0f && vdot(wm, wo) * cos_o >= 0.0f;
-  if (!ok) return vsplat(0.0f);
-  const float fss = fresnel_t(fabsf(vdot(wo, wm)), ior);
-  const float tt = 1.0f - fss;
-  const float e_o = cmin0(glass_e_f, F(1e-4));
-  const float d_g = ggx_mdf(a, wm) * ggx_g(a, wo, wi);
-  if (is_refl) {
-    const float f_refl = fss * d_g / cmin0(fabsf(cos_o * 4.0f * cos_i), F(1e-12));
-    return vsplat(f_refl / e_o);
-  }
-  float trans_ss;
-  if (L.thin) {
-    // SIGNED cos_o denominator: the reference's thin-transmission quirk
-    const V3 wip = v3(wi.x, wi.y, -wi.z);
-    const Outward ot = outward(vadd(wip, wo));
-    const float cos_ip = fabsf(wip.z);
-    const float tss_thin = ggx_mdf(a, ot.w) * ggx_g(a, wo, wip) * safe_div(1.0f, cos_o * 4.0f * cos_ip, 1e-12);
-    trans_ss = ot.ok ? tss_thin : 0.0f;
-  } else {
-    const float temp = vdot(wi, wm) * ior + vdot(wo, wm);
-    const float dwm_dwi = fabsf(vdot(wi, wm)) * fabsf(vdot(wo, wm)) / cmin0(temp * temp, F(1e-12));
-    trans_ss = d_g * dwm_dwi / cmin0(fabsf(cos_i * cos_o), F(1e-12));
-  }
-  const V3 f_trans = vscale(L.base, tt * trans_ss);
-  return vscale(f_trans, 1.0f / e_o);
-}
-
-__device__ float pdf_dielectric(const Lane& L, Alphas a, V3 wo, V3 wi) {
-  const float cos_o = wo.z;
-  const float cos_i = wi.z;
-  const bool is_refl = cos_o * cos_i > 0.0f;
-  const float ior = is_refl ? 1.0f : (cos_o > 0.0f ? L.ior : 1.0f / L.ior);
-  const Outward o = outward(vadd(vscale(wi, ior), wo));
-  const V3 wm = o.w;
-  const bool ok = o.ok && cos_i != 0.0f && cos_o != 0.0f && !ggx_smooth(a) &&
-                  vdot(wm, wi) * cos_i >= 0.0f && vdot(wm, wo) * cos_o >= 0.0f;
-  if (!ok) return 0.0f;
-  // NOTE: signed dot and the MATERIAL ior (parametric.cpp:438-440).
-  const float f = fresnel_t(vdot(wo, wm), L.ior);
-  const float tt = 1.0f - f;
-  if (is_refl) return ggx_vmdf(a, wo, wm) / cmin0(fabsf(vdot(wo, wm)) * 4.0f, F(1e-12)) * f;
-  if (L.thin) {
-    const V3 wip = v3(wi.x, wi.y, -wi.z);
-    const V3 wm_thin = outward(vadd(wip, wo)).w;
-    return ggx_vmdf(a, wo, wm_thin) / cmin0(fabsf(vdot(wo, wm_thin)) * 4.0f, F(1e-12)) * tt;
-  }
-  const float temp2 = vdot(wi, wm) + vdot(wo, wm) / ior;
-  const float dwm_dwi2 = fabsf(vdot(wo, wm)) / cmin0(temp2 * temp2, F(1e-12));
-  return ggx_vmdf(a, wo, wm) * dwm_dwi2 * tt;
-}
-
-// Returns f_scalar; *fc gets Fc.
-__device__ float f_clearcoat(Alphas a, V3 wo, V3 wi, float* fc) {
-  const float cos_o = fabsf(wo.z);
-  const float cos_i = fabsf(wi.z);
-  *fc = tmax(fresnel_coat(cos_o), fresnel_coat(cos_i));
-  const Outward o = outward(vadd(wo, wi));
-  if (!(o.ok && cos_o > 0.0f && cos_i > 0.0f && !ggx_smooth(a))) return 0.0f;
-  const float fss = fresnel_coat(vdot(wo, o.w));
-  const float mss = ggx_mdf(a, o.w) * ggx_g(a, wo, wi) / cmin0(cos_o * 4.0f * cos_i, F(1e-12));
-  return fss * mss;
-}
-
-__device__ float pdf_clearcoat(Alphas a, V3 wo, V3 wi, float* fc) {
-  *fc = tmax(fresnel_coat(fabsf(wo.z)), fresnel_coat(fabsf(wi.z)));
-  const Outward o = outward(vadd(wo, wi));
-  if (!(o.ok && !ggx_smooth(a))) return 0.0f;
-  const float fss = fresnel_coat(vdot(wo, o.w));
-  return fss * ggx_vmdf(a, wo, o.w) / cmin0(fabsf(vdot(wo, o.w)) * 4.0f, F(1e-12));
-}
+// What a lane's lobe pick computes under the coat gate and its shading
+// reads again: the frame and wo, the coat's alphas and half-vector.
+struct Picked {
+  Base b;
+  float cr_s;
+  Alphas ac;
+  V3 wm_coat;
+};
 
 // ---------------------------------------------------------------- kernel
+//
+// A block owns a tile of kTile lanes, one thread a lane, and walks the tiles
+// of a persistent grid. Each lane reads its inputs where they are first
+// used (the integrator's SoA tensors, passed as a struct of pointers) and
+// writes its own output slots.
 
-__global__ void __launch_bounds__(kThreads)
-shade_kernel(ShadeIn in, ShadeOut out, ShadeArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  const bool active_in = in.active[i] != 0;
-  const bool found = in.found[i] != 0;
-  const bool spec_prev = in.specular_prev[i] != 0;
-  const V3 atten = load3(in.atten, i);
-  if (!(active_in || found)) {  // dead lane: the pass-through state
-    store3(out.L_emit, i, vsplat(0.0f));
-    store3(out.contrib, i, vsplat(0.0f));
-    store3(out.shadow_d, i, vsplat(0.0f));
-    store3(out.o, i, load3(in.o, i));
-    store3(out.d, i, load3(in.d, i));
-    store3(out.atten, i, atten);
-    store3(out.last_p, i, load3(in.last_p, i));
-    out.shadow_tmax[i] = -1.0f;
-    out.last_pdf[i] = in.last_pdf[i];
-    out.acc_rough[i] = in.acc_rough[i] + 0.0f;
-    out.nee_need[i] = 0;
-    out.active[i] = 0;
-    out.specular[i] = spec_prev;
-    return;
+constexpr int kTile = 128;  // lanes a tile = threads a block (kernels/shade.py SHADE_TILE)
+constexpr int kWarps = kTile / 32;
+constexpr int kMinBlocks = 8;  // __launch_bounds__' blocks an SM (caps the registers at 64)
+constexpr int kIn = 44;   // ShadeIn's per-lane arrays: 13 vectors, 23 scalars, 8 flags
+constexpr int kOut = 13;  // ShadeOut's: 7 vectors, 3 scalars, 3 flags
+
+enum InKey : int {
+  I_O, I_D, I_N, I_P, I_ATTEN, I_LAST_P, I_BASE, I_EMISSION, I_VOLUME_COLOR, I_LS_WI, I_LS_LI, I_LS_N,
+  I_LS_P, I_LAST_PDF, I_ACC_ROUGH, I_HIT_T, I_U0, I_U1, I_UC, I_UC2, I_U_RR, I_METALLIC, I_ROUGHNESS,
+  I_ROUGHNESS_BASE, I_TRANSMISSION, I_IOR, I_ANISOTROPIC, I_ANISO_ROTATION, I_CLEARCOAT, I_CC_ROUGHNESS,
+  I_CC_ROUGHNESS_BASE, I_VOLUME_DENSITY, I_PDF_AREA, I_SEL_P, I_LS_PDF, I_LS_SELECT_P, I_ACTIVE, I_FOUND,
+  I_SPECULAR_PREV, I_LIGHT_NEG, I_HIT_BACK, I_THIN, I_LS_VALID, I_LS_IS_ENV
+};
+enum OutKey : int {
+  O_L_EMIT, O_CONTRIB, O_SHADOW_D, O_O, O_D, O_ATTEN, O_LAST_P, O_SHADOW_TMAX, O_LAST_PDF, O_ACC_ROUGH,
+  O_NEE_NEED, O_ACTIVE, O_SPECULAR
+};
+
+// The picked lobe of a lane, the order of a grouped tile.
+enum : int { KEY_COAT = 0, KEY_METAL = 1, KEY_DIEL = 2, KEY_GLOSSY = 3, KEY_DEAD = 4, kKeys = 5 };
+
+// The per-lane arrays of a call (ShadeIn's first kIn pointers, ShadeOut's).
+struct Arrays {
+  const char* in[kIn];  // null: not read by this call
+  char* out[kOut];
+};
+
+// The flags an instance is specialised on: FL >= 0 holds them as bits,
+// FL < 0 reads them from the arguments (the generic instance).
+enum : int { FL_NEE = 1, FL_COAT = 2, FL_DIEL = 4, FL_METAL = 8, FL_ANISO = 16 };
+template <int FL>
+struct Gates {
+  __device__ static bool nee(const ShadeArgs& a) { return FL < 0 ? (a.mis && a.any_lights) : (FL & FL_NEE) != 0; }
+  __device__ static bool coat(const ShadeArgs& a) { return FL < 0 ? a.use_coat != 0 : (FL & FL_COAT) != 0; }
+  __device__ static bool diel(const ShadeArgs& a) { return FL < 0 ? a.use_diel != 0 : (FL & FL_DIEL) != 0; }
+  __device__ static bool metal(const ShadeArgs& a) { return FL < 0 ? a.use_metal != 0 : (FL & FL_METAL) != 0; }
+  __device__ static bool aniso(const ShadeArgs& a) { return FL < 0 ? a.use_aniso != 0 : (FL & FL_ANISO) != 0; }
+};
+
+// Lane i's inputs, each loaded where it is used.
+struct Acc {
+  const Arrays& s;
+  int i;
+  __device__ float f(int k) const { return reinterpret_cast<const float*>(s.in[k])[i]; }
+  __device__ V3 v(int k) const {
+    const float* p = reinterpret_cast<const float*>(s.in[k]) + 3 * (size_t)i;
+    return V3{p[0], p[1], p[2]};
   }
-  const Luts t{in.ggx_E, in.ggx_Eavg, in.ggx_base_E, in.ggx_base_Eavg, in.ggx_glass_E,
-               in.ggx_glass_inv_E};
-  const bool nee = a.mis && a.any_lights;
+  __device__ bool b(int k) const { return s.in[k][i] != 0; }
+};
 
-  Lane L;
-  L.n = load3(in.n, i);
-  L.d = load3(in.d, i);
-  L.p = load3(in.p, i);
-  L.base = load3(in.base, i);
-  L.emission = load3(in.emission, i);
-  L.metallic = in.metallic[i];
-  L.roughness = in.roughness[i];
-  L.roughness_base = in.roughness_base[i];
-  L.transmission = in.transmission[i];
-  L.ior = in.ior[i];
-  L.anisotropic = in.anisotropic[i];
-  L.aniso_rotation = in.aniso_rotation[i];
-  L.clearcoat = in.clearcoat[i];
-  L.cc_roughness = in.cc_roughness[i];
-  L.cc_roughness_base = in.cc_roughness_base[i];
-  L.u0 = in.u0[i];
-  L.u1 = in.u1[i];
-  L.uc = in.uc[i];
-  L.uc2 = in.uc2[i];
-  L.thin = in.thin[i] != 0;
-  const bool aniso = a.use_aniso != 0;
 
-  // ---- candidates ----
-  Cand c;
-  const V3 tg = shading_tangent(L.n);
-  c.frame = frame_from_normal_tangent(L.n, tg);
-  c.wo = world_to_local(vneg(L.d), c.frame);
-  c.regularized = in.acc_rough[i] > a.reg_threshold;
-  c.r_s = c.regularized ? roughen(L.roughness) : L.roughness;
-  c.wo_r = aniso ? rot_z(c.wo, -L.aniso_rotation) : c.wo;
-  c.a = make_alphas(c.r_s, aniso, L.anisotropic);
-  c.smooth = ggx_smooth(c.a);
-  c.wm = sample_visible(c.a, c.wo_r, L.u0, L.u1);
-  c.wi_g = reflect_about(c.wo_r, c.wm);
-  const V3 wi_d = sample_cosine_hemisphere(L.u0, L.u1);
-  c.wi_d = c.wo_r.z < 0.0f ? vneg(wi_d) : wi_d;
-  c.wi_l = world_to_local(load3(in.ls_wi, i), c.frame);
-  c.wi_l_r = aniso ? rot_z(c.wi_l, -L.aniso_rotation) : c.wi_l;
-  const float r0 = (1.0f - L.ior) / (L.ior + 1.0f);
-  c.f0 = r0 * r0;
-  if (a.use_diel) c.ior_rel = (L.thin || c.wo_r.z > 0.0f) ? L.ior : 1.0f / L.ior;
-  float eavg_c = 0.0f, e_o_c = 0.0f;
-  if (a.use_coat) {
-    c.cr_s = c.regularized ? roughen(L.cc_roughness) : L.cc_roughness;
-    c.ac = make_alphas(c.cr_s, false, 0.0f);
-    c.wm_coat = sample_visible(c.ac, c.wo, L.u0, L.u1);
-    eavg_c = lut_eavg(t, c.cr_s);
-    e_o_c = lut_e(t, clampf(fabsf(vdot(c.wo, c.wm_coat)), 0.0f, 1.0f), c.cr_s);
+struct LaneOut {
+  V3 L_emit, contrib, shadow_d, o, d, atten, last_p;
+  float shadow_tmax, last_pdf, acc_rough;
+  bool nee_need, active, specular;
+};
+
+#include "shade_lane.cuh"
+
+// One lane's outputs.
+__device__ void store_lane(const Arrays& s, int i, const LaneOut& r) {
+  const V3* v[7] = {&r.L_emit, &r.contrib, &r.shadow_d, &r.o, &r.d, &r.atten, &r.last_p};
+#pragma unroll
+  for (int k = 0; k < 7; ++k) {
+    float* p = reinterpret_cast<float*>(s.out[k]) + 3 * (size_t)i;
+    p[0] = v[k]->x;
+    p[1] = v[k]->y;
+    p[2] = v[k]->z;
   }
+  reinterpret_cast<float*>(s.out[O_SHADOW_TMAX])[i] = r.shadow_tmax;
+  reinterpret_cast<float*>(s.out[O_LAST_PDF])[i] = r.last_pdf;
+  reinterpret_cast<float*>(s.out[O_ACC_ROUGH])[i] = r.acc_rough;
+  s.out[O_NEE_NEED][i] = r.nee_need;
+  s.out[O_ACTIVE][i] = r.active;
+  s.out[O_SPECULAR][i] = r.specular;
+}
 
-  // ---- one-sample lobe pick (bsdf_sample_c) ----
-  float p_coat = 0.0f;
-  if (a.use_coat) {
-    const float fms_c = eavg_c * a.favg15_sq / cmin0(1.0f - (1.0f - eavg_c) * a.favg15, F(1e-6));
-    const float kappa_c = 1.0f - (e_o_c * a.favg15 + fms_c * (1.0f - e_o_c));
-    p_coat = L.clearcoat * (1.0f - kappa_c);
-  }
-  const float p_metal = (1.0f - p_coat) * L.metallic;
-  const float p_diel = (1.0f - p_coat) * (L.metallic + (1.0f - L.metallic) * L.transmission);
-  const bool sel_coat = a.use_coat && L.uc2 < p_coat;
-  const bool sel_metal = a.use_metal && !sel_coat && L.uc2 < p_metal;
-  const bool sel_diel = a.use_diel && !sel_coat && !sel_metal && L.uc2 < p_diel;
-  V3 le = vsplat(0.0f);
-  Sample smp;
-  if (sel_coat) {
-    smp = sample_clearcoat(L, c);
-  } else if (sel_metal) {
-    smp = sample_metallic(L, c, t);
-  } else if (sel_diel) {
-    smp = sample_dielectric(L, c, t);
-  } else {
-    smp = sample_glossy(L, c, t, &le);
-  }
-  if (aniso && !sel_coat) smp.wi = rot_z(smp.wi, L.aniso_rotation);
-  const int flags = smp.flags;
-  const V3 wi_world = local_to_world(smp.wi, c.frame);
+// Per-block scratch: the lanes' picks (under the coat gate) and the grouping.
+template <bool COAT>  // the picks are kept only where the coat gate can be on
+struct Scratch {
+  Picked pick[COAT ? kTile : 1];  // by tile lane
+  unsigned char key[kTile];
+  unsigned char perm[kTile];
+  int count[kWarps][kKeys];
+};
+template <bool COAT>
+__device__ __forceinline__ Picked* pick_slot(Scratch<COAT>& x, int lane) {
+  return x.pick + (COAT ? lane : 0);
+}
 
-  // ---- emitted radiance + MIS vs the light sampler ----
-  const bool emitted = (flags & EMITTED) != 0 && found;
-  float w_b = 1.0f;
-  if (a.mis && !a.depth0 && !(spec_prev || in.light_neg[i] != 0)) {
-    const V3 dp = vsub(load3(in.last_p, i), L.p);
-    const float dist2 = vdot(dp, dp);
-    float pdf_light = 0.0f;
-    if (a.any_lights)
-      pdf_light = in.pdf_area[i] * dist2 * in.sel_p[i] / cmin0(fabsf(vdot(vneg(L.d), L.n)), F(1e-9));
-    const float lp = in.last_pdf[i];
-    w_b = lp / cmin0(lp + pdf_light, F(1e-20));
+// The tile lane this thread shades and its key. Grouped: each tile lane's
+// key is found first (dead past the tile's end), and ballots count each key
+// by warp. A tile where no warp holds two live lobes keeps its lane order
+// (dead lanes only idle in a live warp); otherwise prefix sums place the
+// lanes of one key on consecutive threads (keys in order, lanes in order
+// within a key, dead lanes last).
+template <int FL, class X>
+__device__ int tile_lane(const ShadeArgs& a, const Luts& t, const Arrays& s, int base, int cnt, X& x,
+                         int* key_out) {
+  const int tid = threadIdx.x;
+  int key = KEY_DEAD;
+  if (tid < cnt) {
+    const Acc A{s, base + tid};
+    if (A.b(I_ACTIVE) || A.b(I_FOUND)) key = pick_lobe<FL>(a, t, A, pick_slot(x, tid));
   }
-  const V3 L_emit = emitted ? vscale(vmul(atten, le), w_b) : vsplat(0.0f);
-  const bool scattered = (flags & (REFLECTED | TRANSMITTED)) != 0 && found;
+  *key_out = key;
+  const int w = tid >> 5, l = tid & 31;
+  int rank = 0, lobes = 0;
+#pragma unroll
+  for (int k = 0; k < kKeys; ++k) {
+    const unsigned m = __ballot_sync(0xffffffffu, key == k);
+    if (l == 0) x.count[w][k] = __popc(m);
+    if (key == k) rank = __popc(m & ((1u << l) - 1u));
+    lobes += k != KEY_DEAD && m != 0u;
+  }
+  x.key[tid] = (unsigned char)key;
+  if (!__syncthreads_or(lobes > 1)) return tid;
+  int pos = rank;
+  for (int k = 0; k < key; ++k)
+    for (int w2 = 0; w2 < kWarps; ++w2) pos += x.count[w2][k];
+  for (int w2 = 0; w2 < w; ++w2) pos += x.count[w2][key];
+  x.perm[pos] = (unsigned char)tid;
+  __syncthreads();
+  const int lane = x.perm[tid];
+  *key_out = x.key[lane];
+  return lane;
+}
 
-  // ---- NEE: f/pdf at the sampled light direction + pending contrib ----
-  bool nee_need = false;
-  V3 shadow_d = vsplat(0.0f), contrib = vsplat(0.0f);
-  float shadow_tmax = -1.0f;
-  if (nee) {
-    const Alphas ar = make_alphas(L.roughness, aniso, L.anisotropic);
-    NeeFet q;
-    const float cos_o_abs = fabsf(c.wo_r.z);
-    const float cos_l_abs = fabsf(c.wi_l_r.z);
-    q.eavg_raw = lut_eavg(t, L.roughness);
-    q.e_o_abs_raw = lut_e(t, cos_o_abs, L.roughness);
-    q.e_i_l_abs = lut_e(t, cos_l_abs, L.roughness);
-    q.base_e_o_abs = lut_base_e(t, c.f0, L.roughness, cos_o_abs);
-    q.base_e_i_l = lut_base_e(t, c.f0, L.roughness, cos_l_abs);
-    q.base_eavg_raw = lut_base_eavg(t, c.f0, L.roughness);
-    // bsdf_f_c at the rotated pair
-    const float c_diel = (1.0f - L.metallic) * L.transmission;
-    const float c_glossy = (1.0f - L.metallic) * (1.0f - L.transmission);
-    V3 f_l = vscale(f_glossy(L, q, ar, c.wo_r, c.wi_l_r), c_glossy);
-    if (a.use_metal) f_l = vadd(f_l, vscale(f_metallic(L, q, ar, c.wo_r, c.wi_l_r), L.metallic));
-    if (a.use_diel) {
-      const bool is_refl = c.wo_r.z * c.wi_l_r.z > 0.0f;
-      const float ior_f = is_refl ? 1.0f : (c.wo_r.z > 0.0f ? L.ior : 1.0f / L.ior);
-      const float glass_e_f = lut_glass_e(t, ior_f, L.roughness, cos_o_abs);
-      f_l = vadd(f_l, vscale(f_dielectric(L, glass_e_f, ar, c.wo_r, c.wi_l_r), c_diel));
+template <int FL>
+__global__ void __launch_bounds__(kTile, kMinBlocks)
+shade_kernel(const __grid_constant__ Luts t, const __grid_constant__ ShadeArgs a,
+             const __grid_constant__ Arrays s, int n_tiles) {
+  __shared__ Scratch<(FL < 0 || (FL & FL_COAT) != 0)> x;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * kTile;
+    const int cnt = min(kTile, a.n - base);
+    int key;
+    const int lane = tile_lane<FL>(a, t, s, base, cnt, x, &key);
+    if (lane < cnt) {
+      const Acc A{s, base + lane};
+      store_lane(s, base + lane,
+                 key == KEY_DEAD ? pass_through(A) : shade_lane<FL>(a, t, A, key, *pick_slot(x, lane)));
     }
-    const Alphas acc = make_alphas(L.cc_roughness, false, 0.0f);
-    if (a.use_coat) {
-      float fc;
-      const float f_coat = f_clearcoat(acc, c.wo_r, c.wi_l_r, &fc);
-      f_l = vadd(vscale(f_l, 1.0f - L.clearcoat * fc), vsplat(L.clearcoat * f_coat));
-    }
-    // bsdf_pdf_c at the UNROTATED pair
-    float pdf_b = c_glossy * pdf_glossy(L, q, ar, c.wo, c.wi_l);
-    if (a.use_metal) pdf_b = pdf_b + L.metallic * pdf_metallic(ar, c.wo, c.wi_l);
-    if (a.use_diel) pdf_b = pdf_b + c_diel * pdf_dielectric(L, ar, c.wo, c.wi_l);
-    if (a.use_coat) {
-      float fc;
-      const float pdf_coat = pdf_clearcoat(acc, c.wo, c.wi_l, &fc);
-      pdf_b = (1.0f - L.clearcoat * fc) * pdf_b + L.clearcoat * pdf_coat;
-    }
-    const bool do_nee = scattered && (flags & (EMITTED | SPECULAR)) == 0;
-    nee_need = do_nee && in.ls_valid[i] != 0 && vdot(f_l, f_l) > 0.0f;
-    const V3 ls_wi = load3(in.ls_wi, i);
-    const V3 to_l = vsub(load3(in.ls_p, i), L.p);
-    const float dist2_l = vdot(to_l, to_l);
-    const float dist_l = sqrtf(cmin0(dist2_l, F(1e-20)));
-    shadow_d = vscale(to_l, 1.0f / dist_l);
-    shadow_tmax = nee_need ? dist_l - F(1e-3) : -1.0f;
-    float pdf_l = in.ls_select_p[i] * in.ls_pdf[i] / cmin0(fabsf(vdot(load3(in.ls_n, i), ls_wi)), F(1e-9));
-    pdf_l = in.ls_is_env[i] != 0 ? pdf_l : pdf_l * dist2_l;
-    const float w_nee = fabsf(vdot(ls_wi, L.n)) / cmin0(pdf_b + pdf_l, F(1e-20));
-    contrib = vmul(atten, vscale(vmul(load3(in.ls_Li, i), f_l), w_nee));
+    __syncthreads();  // the scratch is free for the next tile
   }
+}
 
-  // ---- throughput update ----
-  const V3 fcos = vscale(smp.f, fabsf(vdot(wi_world, L.n)));
-  V3 atten_new = vmul(atten, vscale(fcos, 1.0f / cmin0(smp.pdf, F(1e-20))));
-  if (in.hit_back[i] != 0 && scattered && !L.thin) {
-    const V3 vc = load3(in.volume_color, i);
-    const float ht = in.hit_t[i];
-    const float dens = in.volume_density[i];
-    const V3 vol = v3(expf((vc.x - 1.0f) * ht * dens), expf((vc.y - 1.0f) * ht * dens),
-                      expf((vc.z - 1.0f) * ht * dens));
-    atten_new = vmul(atten_new, vol);
-  }  // a thin lane's volume factor is 1: the twin's product by 1 is exact
-  bool active = active_in && scattered;
-  const bool specular = (flags & SPECULAR) != 0;
-  const float acc_rough = in.acc_rough[i] + (scattered ? smp.roughness : 0.0f);
+// The instances: the generic one, and the flag combinations of the render
+// paths (cornell-mat, atrium-ivy, roadster with NEE), of the all-gates
+// cases (with and without NEE) and NEE alone.
+using KernelFn = void (*)(Luts, ShadeArgs, Arrays, int);
+constexpr int kSpecialised[] = {FL_NEE | FL_DIEL | FL_METAL,
+                                FL_NEE | FL_METAL,
+                                FL_NEE | FL_COAT | FL_DIEL | FL_METAL,
+                                FL_NEE | FL_COAT | FL_DIEL | FL_METAL | FL_ANISO,
+                                FL_COAT | FL_DIEL | FL_METAL | FL_ANISO,
+                                FL_NEE};
+constexpr int kInstances = 1 + (int)(sizeof(kSpecialised) / sizeof(int));
+const KernelFn kKernels[kInstances] = {
+    shade_kernel<-1>, shade_kernel<kSpecialised[0]>, shade_kernel<kSpecialised[1]>, shade_kernel<kSpecialised[2]>,
+    shade_kernel<kSpecialised[3]>, shade_kernel<kSpecialised[4]>, shade_kernel<kSpecialised[5]>};
 
-  // ---- russian roulette ----
-  if (a.mis) {
-    const float q = cmin0(1.0f - tmax(atten_new.x, tmax(atten_new.y, atten_new.z)), 0.0f);
-    const bool rr = a.rr_on && active;
-    const bool killed = rr && in.u_rr[i] < q;
-    active = active && !killed;
-    const float scale = (rr && !killed) ? 1.0f / cmin0(1.0f - q, F(1e-9)) : 1.0f;
-    atten_new = vscale(atten_new, scale);
+int instance(const ShadeArgs& a) {
+  const int fl = ((a.mis && a.any_lights) ? FL_NEE : 0) | (a.use_coat ? FL_COAT : 0) |
+                 (a.use_diel ? FL_DIEL : 0) | (a.use_metal ? FL_METAL : 0) | (a.use_aniso ? FL_ANISO : 0);
+  for (int i = 0; i < kInstances - 1; ++i)
+    if (kSpecialised[i] == fl) return i + 1;
+  return 0;
+}
+
+// Per device, the SM count and each kernel's resident blocks (queried at
+// its first launch).
+struct Occupancy {
+  int dev = -1, sms = 0;
+  int bps[kInstances] = {};  // 0: not queried yet
+};
+
+int blocks_per_sm(Occupancy& occ, int inst) {
+  int& b = occ.bps[inst];
+  if (b == 0) {
+    const KernelFn fn = kKernels[inst];
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, fn, kTile, 0) != cudaSuccess) b = 0;
   }
-
-  store3(out.L_emit, i, L_emit);
-  store3(out.contrib, i, contrib);
-  store3(out.shadow_d, i, shadow_d);
-  store3(out.o, i, active ? L.p : load3(in.o, i));
-  store3(out.d, i, active ? wi_world : L.d);
-  store3(out.atten, i, active ? atten_new : atten);
-  store3(out.last_p, i, active ? L.p : load3(in.last_p, i));
-  out.shadow_tmax[i] = shadow_tmax;
-  out.last_pdf[i] = active ? smp.pdf : in.last_pdf[i];
-  out.acc_rough[i] = acc_rough;
-  out.nee_need[i] = nee_need;
-  out.active[i] = active;
-  out.specular[i] = (active && specular) || (!active && spec_prev);
+  return b;
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int shade_launch(ShadeIn in, ShadeOut out, ShadeArgs args, cudaStream_t stream) {
-  if (args.n > 0) {
-    const int blocks = (args.n + kThreads - 1) / kThreads;
-    shade_kernel<<<blocks, kThreads, 0, stream>>>(in, out, args);
+  if (args.n <= 0) return (int)cudaGetLastError();
+  static Occupancy occ;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (occ.dev != dev) {
+    occ = Occupancy();
+    occ.dev = dev;
+    cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  Arrays s;
+  const char* const* ins = reinterpret_cast<const char* const*>(&in);  // ShadeIn's first kIn fields
+  char* const* outs = reinterpret_cast<char* const*>(&out);
+  for (int k = 0; k < kIn; ++k) s.in[k] = ins[k];
+  for (int k = 0; k < kOut; ++k) s.out[k] = outs[k];
+  const int n_tiles = (args.n + kTile - 1) / kTile;
+  const int inst = instance(args);
+  const int bps = blocks_per_sm(occ, inst);
+  if (bps <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = n_tiles < occ.sms * bps ? n_tiles : occ.sms * bps;
+  const KernelFn fn = kKernels[inst];
+  const Luts t{in.ggx_E, in.ggx_Eavg, in.ggx_base_E, in.ggx_base_Eavg, in.ggx_glass_E, in.ggx_glass_inv_E};
+  fn<<<blocks, kTile, 0, stream>>>(t, args, s, n_tiles);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the generic instance (reported beside the
+// kernel's times).
+extern "C" int shade_occupancy(void) {
+  int bps = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kKernels[0], kTile, 0) != cudaSuccess) return 0;
+  return bps;
 }

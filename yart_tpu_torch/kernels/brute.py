@@ -11,6 +11,8 @@ kernel, one elementwise op at a time, and chunks both rays and triangles so
 its [rays x triangles] intermediates stay bounded. Together with the
 kernel's `--fmad=false` build the two agree bitwise on the card.
 
+`prepare` checks a call and allocates its outputs, and returns the
+`build.Launch` that launches it (timers bracket that launch alone).
 `COUNTS` records kernel launches and plain-twin calls on CUDA tensors, so a
 run can show which path it took.
 """
@@ -22,7 +24,7 @@ import functools
 
 import torch
 
-from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.build import Counts, Launch, load
 
 EPS_DET = 1e-12  # reference epsilon (math_base.hpp)
 MAX_TRIS = 4096  # the dispatcher's cap for the brute path (render/intersect.py)
@@ -31,9 +33,10 @@ PLAIN_BUDGET = 1 << 22  # rays x triangles per plain-twin chunk
 COUNTS = Counts()
 
 
-@functools.cache  # loaded and bound once a process: `load` hashes the sources
-def _library():
-    lib, _ = load("brute_intersect")
+def bind(lib):
+    """The launcher `brute_intersect_launch` of a loaded B1 library, its C
+    signature declared (also for another build of a B1 source, as
+    `python -m yart_tpu_torch.compare_kernels` loads them)."""
     fn = lib.brute_intersect_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -45,6 +48,13 @@ def _library():
         ctypes.c_void_p,  # stream
     ]
     return fn
+
+
+@functools.cache
+def _library():
+    """The package kernel's launcher, loaded once a process: `load` hashes
+    the sources, ~0.15 ms a call on the card's host."""
+    return bind(load("brute_intersect")[0])
 
 
 def _check(tri_pack, o, d, t_max, n_tris):
@@ -147,9 +157,11 @@ def brute_plain(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     return out
 
 
-def brute_cuda(tri_pack, o, d, t_max, n_tris: int, t_min: float):
-    """Launch the Hopper kernel on the current stream; raises on any input
-    it does not take or if the launch is refused."""
+def prepare(tri_pack, o, d, t_max, n_tris: int, t_min: float, fn=None) -> Launch:
+    """Check a B1 call and allocate its outputs; returns the `Launch` that
+    runs the launcher `fn` (`bind` of a B1 library; None: the package's
+    kernel) on the current stream, uncounted. Raises on any input the
+    kernel does not take."""
     _check(tri_pack, o, d, t_max, n_tris)
     if not o.is_cuda:
         raise ValueError("brute_cuda needs CUDA tensors")
@@ -159,7 +171,7 @@ def brute_cuda(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     n = o.shape[0]
     if n >= 2 ** 31 // 3:
         raise ValueError(f"{n} rays overflow the kernel's int indexing")
-    fn = _library()
+    fn = fn or _library()
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
@@ -167,15 +179,17 @@ def brute_cuda(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            tri_pack.data_ptr(), int(n_tris), o.data_ptr(), d.data_ptr(),
-            t_max.data_ptr(), int(n), float(t_min), t.data_ptr(), u.data_ptr(),
-            v.data_ptr(), back.data_ptr(), tri.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"brute_intersect launch failed: cudaError {err}")
+    args = (tri_pack.data_ptr(), int(n_tris), o.data_ptr(), d.data_ptr(), t_max.data_ptr(), int(n),
+            float(t_min), t.data_ptr(), u.data_ptr(), v.data_ptr(), back.data_ptr(), tri.data_ptr(), stream)
+    return Launch("brute_intersect", fn, args, (t, u, v, back, tri), o.device)
+
+
+def brute_cuda(tri_pack, o, d, t_max, n_tris: int, t_min: float):
+    """Launch the Hopper kernel on the current stream (counted); raises on
+    any input it does not take or if the launch is refused."""
+    out = prepare(tri_pack, o, d, t_max, n_tris, t_min)()
     COUNTS.launches += 1
-    return t, u, v, back, tri
+    return out
 
 
 def brute_intersect(tri_pack, o, d, t_max, n_tris: int, t_min: float):

@@ -21,6 +21,8 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
 # Every kernel library of the port: name -> its sources under csrc/.
 LIBRARIES = {
@@ -33,6 +35,8 @@ LIBRARIES = {
     "select_clusters": ("select_clusters.cu",),  # B7a, kernels/blocktrace.py
     "test_clusters": ("test_clusters.cu",),  # B7b, kernels/blocktrace.py
 }
+# Headers a library's sources include from csrc/: hashed with them, not compiled alone.
+HEADERS = {"shade": ("shade_lane.cuh",)}
 BUILD_ROOT = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "yart_tpu_torch")
 )
@@ -59,6 +63,26 @@ class Counts:
         self.modes = {}
 
 
+class Launch:
+    """One kernel call, checked and ready: its bound launcher, its ctypes
+    arguments (the stream among them) and its preallocated outputs. Calling
+    it launches the kernel once, uncounted, and returns the outputs, so a
+    timer around the call times the launch and not the wrapper's checks and
+    allocations (the wrappers' `prepare` functions make one)."""
+
+    __slots__ = ("name", "fn", "args", "out", "device")
+
+    def __init__(self, name: str, fn, args: tuple, out, device):
+        self.name, self.fn, self.args, self.out, self.device = name, fn, args, out, device
+
+    def __call__(self):
+        with torch.cuda.device(self.device):
+            err = self.fn(*self.args)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {err}")
+        return self.out
+
+
 _lock = threading.Lock()  # guards _loaded
 _loaded: dict = {}
 
@@ -79,7 +103,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str, sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *HEADERS.get(name, ())):
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
     return os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}", f"lib{name}.so")

@@ -12,8 +12,11 @@ no fallback from a kernel to its twin.
 
 Both kernels repeat their twins' operations in order and are built with
 --fmad=false, so they agree bitwise with the twins run on the same card
-tensors. `COUNTS_DRAWS` and `COUNTS_SHADE` count kernel launches and twin
-calls on CUDA tensors.
+tensors. `prepare_draws` and `prepare_shade` check a call and allocate its
+outputs, and return the `build.Launch` that launches it (timers bracket
+that launch alone). `lobe_keys` and `mixed_warps` report the lobe mix that
+B5's lobe-grouped warps see. `COUNTS_DRAWS` and `COUNTS_SHADE` count kernel
+launches and twin calls on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.kernels import shade_math as SM
-from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.build import Counts, Launch, load
 from yart_tpu_torch.ops import qmc
 
 COUNTS_DRAWS = Counts()
@@ -35,6 +38,8 @@ LUT_KEYS = ("ggx_E", "ggx_Eavg", "ggx_base_E", "ggx_base_Eavg", "ggx_glass_E", "
 LUT_SHAPES = {"ggx_E": (32, 32), "ggx_Eavg": (32,), "ggx_base_E": (16, 16, 16),
               "ggx_base_Eavg": (16, 16), "ggx_glass_E": (16, 16, 16), "ggx_glass_inv_E": (16, 16, 16)}
 MAX_MATRIX_COLS = qmc.SOBOL_MATRIX_BITS
+SHADE_TILE = 128  # B5's lanes a tile (csrc/shade.cu SHADE_TILE)
+LOBES = ("coat", "metal", "dielectric", "glossy", "dead")  # B5's lane keys, in its grouped order
 
 
 class DrawSetup(NamedTuple):
@@ -89,18 +94,25 @@ class _DrawArgs(ctypes.Structure):
     ]
 
 
-@functools.cache  # loaded and bound once a process: `load` hashes the sources
-def _draws_fn():
-    lib, _ = load("draws")
+def bind_draws(lib):
+    """The launcher `draws_launch` of a loaded B6 library, its C signature
+    declared (also for another build of a B6 source)."""
     fn = lib.draws_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, _DrawArgs, ctypes.c_void_p, ctypes.c_void_p]
     return fn
 
 
-def draws_cuda(setup: DrawSetup, n: int) -> dict:
-    """Launch B6 on the current stream; raises on input it does not take
-    or if the launch is refused."""
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
+def _draws_fn():
+    return bind_draws(load("draws")[0])
+
+
+def prepare_draws(setup: DrawSetup, n: int, fn=None) -> Launch:
+    """Check a B6 call and allocate its output; returns the `Launch` that
+    runs the launcher `fn` (`bind_draws` of a B6 library; None: the
+    package's kernel) on the current stream, uncounted. Raises on input the
+    kernel does not take."""
     st = setup.state
     if not st.is_cuda:
         raise ValueError("draws_cuda needs a CUDA lane state")
@@ -122,12 +134,17 @@ def draws_cuda(setup: DrawSetup, n: int) -> dict:
         args.consts[i] = c
     out = torch.empty((len(DRAW_OUT), n), dtype=torch.float32, device=st.device)
     with torch.cuda.device(st.device):
-        err = _draws_fn()(st.data_ptr(), int(n), args, out.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"draws launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream().cuda_stream
+    return Launch("draws", fn or _draws_fn(), (st.data_ptr(), int(n), args, out.data_ptr(), stream),
+                  {k: out[j] for j, k in enumerate(DRAW_OUT)}, st.device)
+
+
+def draws_cuda(setup: DrawSetup, n: int) -> dict:
+    """Launch B6 on the current stream (counted); raises on input it does
+    not take or if the launch is refused."""
+    out = prepare_draws(setup, n)()
     COUNTS_DRAWS.launches += 1
-    return {k: out[j] for j, k in enumerate(DRAW_OUT)}
+    return out
 
 
 def draws(setup: DrawSetup, n: int) -> dict:
@@ -167,13 +184,19 @@ class _ShadeArgs(ctypes.Structure):
     ]
 
 
-@functools.cache  # loaded and bound once a process: `load` hashes the sources
-def _shade_fn():
-    lib, _ = load("shade")
+def bind_shade(lib):
+    """The launcher `shade_launch` of a loaded B5 library, its C signature
+    declared (also for another build of a B5 source, as
+    `python -m yart_tpu_torch.compare_kernels` loads them)."""
     fn = lib.shade_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [_ShadeIn, _ShadeOut, _ShadeArgs, ctypes.c_void_p]
     return fn
+
+
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
+def _shade_fn():
+    return bind_shade(load("shade")[0])
 
 
 def shade_plain(inp, gates, mis, any_lights, tables):
@@ -207,9 +230,39 @@ def check_inputs(inp, mis, any_lights) -> None:
                              f"{'' if a.is_contiguous() else 'not '}contiguous")
 
 
-def shade_cuda(inp, gates, mis, any_lights, tables):
-    """Launch B5 on the current stream; raises on input it does not take
-    or if the launch is refused. Returns the outputs of `shade_plain`."""
+def shade_structs(inp, gates, mis, any_lights, tables, out):
+    """The launcher's three argument structs for a checked call: B5 reads
+    the pointers of `_needs` (the others stay null) and the LUTs, and
+    writes `out`."""
+    ins = _ShadeIn()
+    for k in _needs(mis, any_lights):
+        setattr(ins, k, inp[k].data_ptr())
+    for k in LUT_KEYS:
+        setattr(ins, k, tables[k].data_ptr())
+    outs = _ShadeOut(**{k: v.data_ptr() for k, v in out.items()})
+    use_metal, use_diel, use_coat, use_aniso = (int(bool(g)) for g in gates)
+    args = _ShadeArgs(int(inp["active"].shape[0]), use_metal, use_diel, use_coat, use_aniso, int(bool(mis)),
+                      int(bool(any_lights)), int(bool(inp["depth0"])), int(bool(inp["rr_on"])),
+                      float(inp["reg_threshold"]), SM.FAVG15, SM.FAVG15 * SM.FAVG15)
+    return ins, outs, args
+
+
+def empty_outputs(n: int, dev) -> dict:
+    """B5's outputs, allocated: [N, 3] float32 vectors, [N] float32
+    scalars, [N] bool flags (each on its own allocation, so 16-byte
+    aligned as the kernel writes them)."""
+    out = {k: torch.empty((n, 3), dtype=torch.float32, device=dev) for k in SM.OUT_V3}
+    out.update({k: torch.empty(n, dtype=torch.float32, device=dev) for k in SM.OUT_F})
+    out.update({k: torch.empty(n, dtype=torch.bool, device=dev) for k in SM.OUT_B})
+    return out
+
+
+def prepare_shade(inp, gates, mis, any_lights, tables, fn=None) -> Launch:
+    """Check a B5 call and allocate its outputs; returns the `Launch` that
+    runs the launcher `fn` (`bind_shade` of a B5 library; None: the
+    package's kernel) on the current stream, uncounted. Raises on input the
+    kernel does not take. Inputs need no alignment: the kernel reads each
+    value where it uses it, at any address."""
     act = inp["active"]
     n = act.shape[0]
     dev = act.device
@@ -218,28 +271,61 @@ def shade_cuda(inp, gates, mis, any_lights, tables):
     if n >= 2 ** 31 // 3:
         raise ValueError(f"{n} lanes overflow the kernel's int indexing")
     check_inputs(inp, mis, any_lights)
-    ins = _ShadeIn()
-    for k in _needs(mis, any_lights):
-        setattr(ins, k, inp[k].data_ptr())
     for k in LUT_KEYS:
         t = tables[k]
         if tuple(t.shape) != LUT_SHAPES[k] or t.dtype != torch.float32 or t.device != dev:
             raise ValueError(f"LUT {k}: need float32 {LUT_SHAPES[k]} on {dev}")
-        setattr(ins, k, t.data_ptr())
-    out = {k: torch.empty((n, 3), dtype=torch.float32, device=dev) for k in SM.OUT_V3}
-    out.update({k: torch.empty(n, dtype=torch.float32, device=dev) for k in SM.OUT_F})
-    out.update({k: torch.empty(n, dtype=torch.bool, device=dev) for k in SM.OUT_B})
-    outs = _ShadeOut(**{k: v.data_ptr() for k, v in out.items()})
-    use_metal, use_diel, use_coat, use_aniso = (int(bool(g)) for g in gates)
-    args = _ShadeArgs(n, use_metal, use_diel, use_coat, use_aniso, int(bool(mis)),
-                      int(bool(any_lights)), int(bool(inp["depth0"])), int(bool(inp["rr_on"])),
-                      float(inp["reg_threshold"]), SM.FAVG15, SM.FAVG15 * SM.FAVG15)
+    out = empty_outputs(n, dev)
+    ins, outs, args = shade_structs(inp, gates, mis, any_lights, tables, out)
     with torch.cuda.device(dev):
-        err = _shade_fn()(ins, outs, args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"shade launch failed: cudaError {err}")
+        stream = torch.cuda.current_stream().cuda_stream
+    return Launch("shade", fn or _shade_fn(), (ins, outs, args, stream), out, dev)
+
+
+def shade_cuda(inp, gates, mis, any_lights, tables):
+    """Launch B5 on the current stream (counted); raises on input it does
+    not take or if the launch is refused. Returns the outputs of
+    `shade_plain`."""
+    out = prepare_shade(inp, gates, mis, any_lights, tables)()
     COUNTS_SHADE.launches += 1
     return out
+
+
+def lobe_keys(inp, gates, tables):
+    """Each lane's key as B5 orders a tile's lanes: the index in LOBES of
+    its picked lobe (`shade_math.lobe_pick`, the twin's own pick), or
+    "dead" for a lane neither active nor found. [N] int64."""
+    c = SM.components(inp)
+    fet = {}
+    if gates[2]:  # the pick reads the coat's two fetches
+        coords = SM.candidates(c, gates)["coords"]
+        fet = SM.run_fetches(tables, {k: coords[k] for k in ("eavg_c", "e_o_c")})
+    sel_coat, sel_metal, sel_diel = SM.lobe_pick(c, fet, gates)
+    key = torch.full(sel_coat.shape, LOBES.index("glossy"), dtype=torch.int64, device=sel_coat.device)
+    key = torch.where(sel_diel, LOBES.index("dielectric"), key)
+    key = torch.where(sel_metal, LOBES.index("metal"), key)
+    key = torch.where(sel_coat, LOBES.index("coat"), key)
+    return torch.where(inp["active"] | inp["found"], key, LOBES.index("dead"))
+
+
+def mixed_warps(keys, tile: int = SHADE_TILE) -> dict:
+    """Warps (32 lanes) that hold lanes of more than one key, in lane order
+    and after B5's grouping (each tile of `tile` lanes ordered by key, the
+    lanes of one key in lane order), and the lanes of each key. The last
+    tile's lanes past N count as no lane."""
+    n = keys.shape[0]
+    pad = (-n) % tile
+    k = torch.cat([keys.cpu(), torch.full((pad,), -1, dtype=keys.dtype)])
+    grouped = torch.sort(torch.where(k < 0, len(LOBES), k).view(-1, tile), dim=1, stable=True).values
+    grouped = torch.where(grouped == len(LOBES), -1, grouped).view(-1)
+
+    def mixed(a):
+        w = a.view(-1, 32)
+        first = w[:, :1]
+        return int(((w != first) & (w >= 0) & (first >= 0)).any(dim=1).sum())
+
+    return {"lanes": {name: int((keys == i).sum()) for i, name in enumerate(LOBES)},
+            "warps": (n + 31) // 32, "mixed_before": mixed(k), "mixed_after": mixed(grouped)}
 
 
 def shade(inp, gates, mis, any_lights, tables):

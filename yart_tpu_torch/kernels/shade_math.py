@@ -917,13 +917,12 @@ def bsdf_pdf_c(c, cand, fet, gates):
     return pdf
 
 
-def bsdf_sample_c(c, cand, fet, gates):
-    """One-sample layered BSDF sample (render/bsdf.py bsdf_sample,
-    parametric.cpp:179-258), wi in the LOCAL (unrotated) frame."""
-    use_metal, use_diel, use_coat, use_aniso = gates
+def lobe_pick(c, fet, gates):
+    """bsdf_sample_c's one-sample lobe pick (parametric.cpp:179-258):
+    (sel_coat, sel_metal, sel_diel) [N] bool; glossy where none holds.
+    Under the coat gate it reads the coat's fetches `eavg_c` and `e_o_c`."""
+    use_metal, use_diel, use_coat, _ = gates
     uc2 = c["uc2"]
-    zero = torch.zeros_like(c["metallic"])
-
     if use_coat:
         eavg_c = fet["eavg_c"]
         fms_c = FAVG15 * FAVG15 * eavg_c / torch.clamp_min(1.0 - FAVG15 * (1.0 - eavg_c), 1e-6)
@@ -931,7 +930,7 @@ def bsdf_sample_c(c, cand, fet, gates):
         kappa_c = 1.0 - (FAVG15 * e_o_c + fms_c * (1.0 - e_o_c))
         p_coat = c["clearcoat"] * (1.0 - kappa_c)
     else:
-        p_coat = zero
+        p_coat = torch.zeros_like(c["metallic"])
     p_metal = (1.0 - p_coat) * c["metallic"]
     p_diel = (1.0 - p_coat) * (c["metallic"] + (1.0 - c["metallic"]) * c["transmission"])
 
@@ -939,6 +938,15 @@ def bsdf_sample_c(c, cand, fet, gates):
     sel_coat = (uc2 < p_coat) if use_coat else false
     sel_metal = (~sel_coat & (uc2 < p_metal)) if use_metal else false
     sel_diel = (~sel_coat & ~sel_metal & (uc2 < p_diel)) if use_diel else false
+    return sel_coat, sel_metal, sel_diel
+
+
+def bsdf_sample_c(c, cand, fet, gates):
+    """One-sample layered BSDF sample (render/bsdf.py bsdf_sample,
+    parametric.cpp:179-258), wi in the LOCAL (unrotated) frame."""
+    use_metal, use_diel, use_coat, use_aniso = gates
+    zero = torch.zeros_like(c["metallic"])
+    sel_coat, sel_metal, sel_diel = lobe_pick(c, fet, gates)
     sel_glossy = ~sel_coat & ~sel_metal & ~sel_diel
 
     s = _sample_glossy_c(c, cand, fet)

@@ -16,9 +16,9 @@ prints one JSON line:
   the bounces it ran (one per depth per compaction stage) and the kernel
   launches per bounce, and the device's busy share there (kernel time /
   profiled wall; one stream, so kernels do not overlap);
-- kernel milliseconds grouped as the port's kernels B1-B6 (by their CUDA
-  function names), sorting, and the rest (PyTorch's own kernels), with
-  the 12 kernels of most device time;
+- kernel milliseconds and launches grouped as the port's kernels B1-B6
+  (by their CUDA function names), sorting, and the rest (PyTorch's own
+  kernels), with the 12 kernels of most device time;
 - the peak device memory of the profiled render (scene tables included);
 - bin-trace's phases (`render/bintrace.py`), from their profiler ranges:
   the collect loop (plain PyTorch) and the pair phase (layout, B4, the
@@ -136,9 +136,11 @@ def main(argv=None) -> int:
     launches = sum(n for n, _ in by_name.values())
     groups = collections.OrderedDict((g, 0.0) for g, _ in GROUPS)
     groups["other"] = 0.0
-    for name, (_, us) in by_name.items():
+    group_launches = collections.OrderedDict((g, 0) for g in groups)
+    for name, (n, us) in by_name.items():
         g = next((g for g, key in GROUPS if key in name.lower()), "other")
         groups[g] += us / 1e3
+        group_launches[g] += n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     if own.out:
         os.makedirs(own.out, exist_ok=True)
@@ -150,7 +152,7 @@ def main(argv=None) -> int:
         "kernel_launches": launches, "bounces": bounces, "launches_per_bounce": launches / max(bounces, 1),
         "kernel_ms": total_us / 1e3,
         "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
-        "kernel_ms_by_group": groups, "bintrace_phases": ranges, "peak_gib_profiled": peak_gib,
+        "kernel_ms_by_group": groups, "kernel_launches_by_group": group_launches, "bintrace_phases": ranges, "peak_gib_profiled": peak_gib,
         "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],
     }), flush=True)
     return 0
