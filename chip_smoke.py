@@ -134,7 +134,12 @@ exits non-zero and prints no final "ok" line:
                B7b test_clusters) on the bench scene (C = 128): B7a and B7b
                bitwise against their twins at 262,144 incoherent and
                coherent rays, at round 1 and at the first later round with
-               converged blocks, timed, with their bounds; the whole cast at
+               converged blocks, timed (the launch alone), with their
+               bounds and no-FMA floors (B7a's over the pairs its rays
+               enter and a bundle test per block and box, `b7a_bounds`,
+               and over the first design's sweep beside them), B7a's live
+               rays, kept boxes and live keys per block and B7b's columns
+               tested beside C x live slots; the whole cast at
                262,144 rays with every count set to 0 just before and read
                just after (B7a and B7b once per round, no twin, no B2/B3),
                converged within 512 rounds (the blocks the JAX default of 64
@@ -180,6 +185,11 @@ FLOPS_PLANE = 30  # B3 and B7b: one plane + barycentric ray-triangle test
 # min/max per axis pair, 4 across axes, the t_min max, 3 compares and the
 # running minimum over the block's rays).
 FLOPS_SELECT = 27
+# B7a as the bitwise contract builds it (--fmad=false): the same 27 float
+# instructions a (ray, box) test, each issued alone (no FMA pairs them), at
+# one instruction a lane a clock: the reachable floor beside B7a's bound.
+INSTR_SLAB_NOFMA = 27
+B7_K = 24  # the round-based path's default slots per block and round
 # B3 amask: the alpha-mask bit test (2 multiplies, 4 clamps, index, shift),
 # counted on the candidates that run it (B3's output column 7).
 FLOPS_AMASK = 6
@@ -750,22 +760,78 @@ def compare_gated(name, scene, meta, o, d, t_max, seeds, nee: bool, fused: bool 
     return rec
 
 
+def b7a_bounds(rays, box, w_key, act, n_clus: int, t_min: float, sel) -> dict:
+    """B7a's bounds from this call's data. `bound_ms` counts the work the
+    inputs need: one bundle test per (active block, box column) and one
+    slab test per (ray of an active block, box it enters: the twin's
+    `block_entries` below F32_MAX); `nofma_floor_ms` counts the same tests
+    at INSTR_SLAB_NOFMA instructions each. `sweep_bound_ms` counts a slab
+    test per (ray of an active block, real box) instead, the sweep of the
+    first B7a design. Bytes: the active blocks' rays, the real boxes, the
+    window keys and flags, the outputs `sel`."""
+    import torch
+
+    from yart_tpu_torch.kernels import blocktrace as legacy
+
+    n_blocks, cpad = act.shape[0], box.shape[1]
+    blocks = torch.nonzero(act != 0)[:, 0]
+    rays3, step = rays.view(n_blocks, legacy.BLOCK, 8), max(1, legacy.PLAIN_BUDGET // (legacy.BLOCK * cpad))
+    entered = sum(int((legacy.block_entries(rays3[blocks[i : i + step]], box, t_min) < legacy.F32_MAX).sum())
+                  for i in range(0, blocks.numel(), step))
+    live_blocks = int(blocks.numel())
+    tests, sweep = live_blocks * cpad + entered, live_blocks * legacy.BLOCK * n_clus
+    nb = nbytes(rays) * live_blocks // n_blocks + n_clus * box.shape[0] * 4 + nbytes(w_key, act, *sel)
+    ms, by = bound(FLOPS_SELECT * tests, nb)
+    sweep_ms, sweep_by = bound(FLOPS_SELECT * sweep, nb)
+    return {"bound_ms": ms, "bound_by": by, "nofma_floor_ms": INSTR_SLAB_NOFMA * tests / PEAK_FP32_INSTR * 1e3,
+            "sweep_bound_ms": sweep_ms, "sweep_bound_by": sweep_by, "bound_tests": tests, "entered": entered,
+            "sweep_tests": sweep}
+
+
+def b7b_bounds(rays, slots, out, counts, c: int) -> dict:
+    """B7b's bound over the block's rays against the real triangles of each
+    live slot's cluster (bytes: every ray in and out, the slot tables, pack
+    rows 0-3 of the real triangles of each cluster a live slot names), its
+    no-FMA floor, and the columns the kernel tests (each live slot's real
+    ones and the first after them, in whole 16-byte words) beside C x live
+    slots."""
+    slot_clus = slots[2][slots[0] != 0].long()
+    used = slot_clus.unique()
+    live_tris, used_tris = int(counts[slot_clus].sum()), int(counts[used].sum())
+    ms, by = bound(FLOPS_PLANE * 128 * live_tris, nbytes(rays, *slots, out) + used_tris * 4 * 3 * 4)
+    return {"bound_ms": ms, "bound_by": by, "nofma_floor_ms": INSTR_PLANE_NOFMA * 128 * live_tris / PEAK_FP32_INSTR * 1e3,
+            "live_slot_tris": live_tris, "columns_tested": int(((counts[slot_clus] + 4) // 4 * 4).clamp(max=c).sum()),
+            "columns_all": int(slot_clus.numel()) * c}
+
+
+def b7_round(scene, meta, o, d, later: bool):
+    """B7a's inputs (rays, w_key, act) and the round's number at round 1, or
+    with `later` the first round with both converged and active blocks, as
+    blocktrace.round_inputs captures them from the path (t_max 100, k = 24,
+    t_min = 1e-3)."""
+    from yart_tpu_torch.render import blocktrace
+
+    return blocktrace.round_inputs(scene, meta, o, d, 100.0, B7_K, later, 1e-3)
+
+
 def compare_legacy_kernels(name, scene, meta, o, d, later: bool):
     """B7a and B7b against their twins on the same card tensors, bitwise, at
-    one round of the round-based path with its default k = 24 (round 1, or
-    with `later` the first round with both converged and active blocks, as
-    blocktrace.round_inputs captures it from the path); timed, with their
-    bounds from this call's data.
-    Returns the phase record."""
+    one round of the round-based path with its default k = 24 (`b7_round`;
+    B7b with the clusters' counts, as the path calls it); timed (the launch
+    alone), with their bounds and no-FMA floors from this call's data, and
+    per active block B7a's live rays, kept boxes and live keys, and B7b's
+    columns tested beside C x live slots. Returns the phase record."""
     import torch
 
     from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.render import blocktrace
 
-    t_min, c, k = 1e-3, meta.cluster_size, 24
-    rays, w_key, act, rnd = blocktrace.round_inputs(scene, meta, o, d, 100.0, k, later, t_min)
+    t_min, c, k = 1e-3, meta.cluster_size, B7_K
+    rays, w_key, act, rnd = b7_round(scene, meta, o, d, later)
     box, pack = scene.clus_box, scene.clus_pack
-    sel = legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min)
+    counts = blocktrace.cluster_counts(scene, meta)
+    stats = torch.zeros((act.shape[0], 3), dtype=torch.int32, device=rays.device)
+    sel = legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min, stats=stats)
     sel_p = legacy.select_clusters_plain(rays, box, w_key, act, k, t_min)
     torch.cuda.synchronize()
     diff = [f for f, a, b in zip(("ids", "bound_key", "n_live"), sel, sel_p) if not torch.equal(a, b)]
@@ -773,8 +839,8 @@ def compare_legacy_kernels(name, scene, meta, o, d, later: bool):
     if diff:
         raise AssertionError(f"{name}: B7a kernel and plain twin differ in {diff} (max abs {sel_err})")
     slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
-    out = legacy.test_clusters_cuda(rays, pack, *slots, c, k, t_min)
-    out_p = legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min)
+    out = legacy.test_clusters_cuda(rays, pack, *slots, c, k, t_min, counts)
+    out_p = legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min, counts)
     torch.cuda.synchronize()
     hit = out[:, 4].view(torch.int32) >= 0
     test_err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
@@ -782,34 +848,31 @@ def compare_legacy_kernels(name, scene, meta, o, d, later: bool):
         cols = [i for i in range(8) if not bits_equal(out[:, i].contiguous(), out_p[:, i].contiguous())]
         raise AssertionError(f"{name}: B7b kernel and plain twin differ in columns {cols} "
                              f"(max abs t/u/v over hits {test_err})")
-    n_blocks, cpad, n_clus = act.shape[0], box.shape[1], blocktrace.n_clus(meta)
-    live_blocks, live_slots = int(act.sum()), int(slots[0].sum())
-    counts = blocktrace.cluster_counts(scene, meta)
-    slot_clus = slots[2][slots[0] != 0].long()
-    used = torch.unique(slot_clus)
-    live_tris, used_tris = int(counts[slot_clus].sum()), int(counts[used].sum())
+    n_clus = blocktrace.n_clus(meta)
+    on = act != 0
+    per_block = lambda a: {"mean": float(a.double().mean()), "min": int(a.min()), "max": int(a.max()),
+                           **{f"p{q}": float(a.double().quantile(q / 100)) for q in (50, 90, 99)}}
+    b7a, b7b = b7a_bounds(rays, box, w_key, act, n_clus, t_min, sel), b7b_bounds(rays, slots, out, counts, c)
     rec = {"case": name, "round": rnd, "k": k, "n_rays": int(o.shape[0]), "n_clusters": int(n_clus),
-           "cpad": int(cpad), "c": int(c), "bitwise_equal": True, "live_blocks": live_blocks,
-           "n_blocks": int(n_blocks), "live_slots": live_slots, "live_slot_tris": live_tris,
-           "blocks_overflowing_k": int((sel[1][act != 0] != legacy.KEY_DEAD).sum()),
-           "new_hits": int(hit.sum()), "select_max_abs_err": sel_err, "test_max_abs_err": test_err}
-    rec["select_ms"] = cuda_ms(lambda: legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min), reps=11)
+           "cpad": int(box.shape[1]), "c": int(c), "bitwise_equal": True, "live_blocks": int(on.sum()),
+           "n_blocks": int(act.shape[0]), "live_slots": int(slots[0].sum()), "live_slot_tris": b7b["live_slot_tris"],
+           "blocks_overflowing_k": int((sel[1][on] != legacy.KEY_DEAD).sum()),
+           "new_hits": int(hit.sum()), "select_max_abs_err": sel_err, "test_max_abs_err": test_err,
+           "select_live_rays_per_block": per_block(stats[on, 0]),
+           "select_kept_boxes_per_block": per_block(stats[on, 1]),
+           "select_live_keys_per_block": per_block(stats[on, 2]),
+           "select_exact_tests": int((stats[on, 0].long() * stats[on, 1].long()).sum()),
+           "select_bound_tests": b7a["bound_tests"], "select_entered": b7a["entered"],
+           "select_sweep_tests": b7a["sweep_tests"],
+           "test_columns_tested": b7b["columns_tested"], "test_columns_all": b7b["columns_all"]}
+    rec["select_ms"] = cuda_ms(legacy.prepare_select(rays, box, w_key, act, k, t_min), reps=11)
     rec["select_plain_ms"] = cuda_ms(lambda: legacy.select_clusters_plain(rays, box, w_key, act, k, t_min),
                                      reps=3)
-    # Work: the active blocks' rays against the real boxes (the pad boxes
-    # past n_clus can give no key). Bytes: those rays, the real boxes, the
-    # window keys and flags, the outputs.
-    rec["select_bound_ms"], rec["select_bound_by"] = bound(
-        FLOPS_SELECT * live_blocks * legacy.BLOCK * n_clus,
-        nbytes(rays) * live_blocks // n_blocks + n_clus * box.shape[0] * 4 + nbytes(w_key, act, *sel))
-    rec["test_ms"] = cuda_ms(lambda: legacy.test_clusters_cuda(rays, pack, *slots, c, k, t_min), reps=11)
-    rec["test_plain_ms"] = cuda_ms(lambda: legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min), reps=1,
-                                   warmup_s=0.0, warmup_calls=1)
-    # Work: the block's rays against the real triangles of each live slot's
-    # cluster. Bytes: every ray in and out, the slot tables, pack rows 0-3
-    # of the real triangles of each cluster a live slot names.
-    rec["test_bound_ms"], rec["test_bound_by"] = bound(
-        FLOPS_PLANE * legacy.BLOCK * live_tris, nbytes(rays, *slots, out) + used_tris * 4 * 3 * 4)
+    rec.update({f"select_{key}": b7a[key] for key in ("bound_ms", "bound_by", "nofma_floor_ms", "sweep_bound_ms")})
+    rec["test_ms"] = cuda_ms(legacy.prepare_test(rays, pack, *slots, c, k, t_min, counts), reps=11)
+    rec["test_plain_ms"] = cuda_ms(lambda: legacy.test_clusters_plain(rays, pack, *slots, c, k, t_min, counts),
+                                   reps=1, warmup_s=0.0, warmup_calls=1)
+    rec.update({f"test_{key}": b7b[key] for key in ("bound_ms", "bound_by", "nofma_floor_ms")})
     return rec
 
 
@@ -2051,7 +2114,10 @@ def main() -> int:
          "max_abs_err": max(r["select_max_abs_err"] for r in b7),
          "ms": b7[0]["select_ms"], "plain_ms": b7[0]["select_plain_ms"],
          "bound_ms": b7[0]["select_bound_ms"], "bound_by": b7[0]["select_bound_by"], "library_ms": None,
-         **{f"{r['case']}": {k: r[f"select_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+         "nofma_floor_ms": b7[0]["select_nofma_floor_ms"], "sweep_bound_ms": b7[0]["select_sweep_bound_ms"],
+         "ptxas": build.ptxas_report("select_clusters"),
+         **{f"{r['case']}": {k: r[f"select_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "nofma_floor_ms",
+                                                            "sweep_bound_ms")}
             for r in b7[1:]}},
         {"name": "test_clusters", "route": "cuda",
          "source": "yart_tpu_torch/csrc/test_clusters.cu",
@@ -2061,7 +2127,8 @@ def main() -> int:
          "max_abs_err": max(r["test_max_abs_err"] for r in b7),
          "ms": b7[0]["test_ms"], "plain_ms": b7[0]["test_plain_ms"],
          "bound_ms": b7[0]["test_bound_ms"], "bound_by": b7[0]["test_bound_by"], "library_ms": None,
-         **{f"{r['case']}": {k: r[f"test_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+         "nofma_floor_ms": b7[0]["test_nofma_floor_ms"], "ptxas": build.ptxas_report("test_clusters"),
+         **{f"{r['case']}": {k: r[f"test_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "nofma_floor_ms")}
             for r in b7[1:]}},
     ]}), flush=True)
     print(smi, flush=True)

@@ -10,8 +10,16 @@ every lobe gate on, dead blocks and mis off, at the edges of its
 lobe-grouped tiles (one lobe, interleaved lobes, dead tiles, ragged lane
 counts, inputs with a storage offset) and in each flag instance, within one
 wave of blocks and beyond it; B6 for ZSobol at even and odd
-log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 2 and
-24, a ragged lane count), the gated re-cast loop's (fused and
+log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 1, 2,
+24 and 128, a ragged lane count, B7b with the clusters' counts and
+without, and at the edges of their Hopper designs: B7a's culled blocks,
+pad lanes, NaN and zero directions, signed-zero entries at t_min = 0,
+entered pad boxes, cpad 128 and 8192, window edges, blocks with no key
+and with more keys than slots; B7b's clusters of 1 and C triangles,
+degenerate triangles, ties within and across slots, t_cur = inf, live
+flags that are no prefix, repeated ids, one block and 2,048 blocks, C =
+30), the
+gated re-cast loop's (fused and
 round-based), bin-trace's and the round-based block trace's kernel paths
 against their twin paths, torch.argmin's first-minimum rule on the card,
 and renders that go through them.
@@ -1055,25 +1063,244 @@ def test_fused_render_on_card_goes_through_b5_b6(dev):
 
 
 @pytest.mark.parametrize("windowed", [False, True], ids=["round1", "windowed"])
-@pytest.mark.parametrize("k", [2, 24])
+@pytest.mark.parametrize("k", [1, 2, 24, 128])
 @pytest.mark.parametrize("n_rays", [1000, 65536])
 def test_select_and_test_clusters_kernels_equal_plain(quad_soup, n_rays, k, windowed):
+    """B7a and B7b at a round of the path; B7b with the scene's cluster
+    counts (as the path calls it) and with every count C."""
     scene, meta = quad_soup
     o, d = _trace_rays(n_rays, 13 * n_rays, scene.clus_box.device)
     rays, w_key, act, _ = blocktrace.round_inputs(scene, meta, o, d, 100.0, k, windowed)
+    counts = blocktrace.cluster_counts(scene, meta)
+    every = torch.full_like(counts, meta.cluster_size)
     before = legacy.COUNTS_SELECT.launches, legacy.COUNTS_TEST.launches
     sel = legacy.select_clusters(rays, scene.clus_box, w_key, act, k, 1e-3)
     sel_p = legacy.select_clusters_plain(rays, scene.clus_box, w_key, act, k, 1e-3)
     slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
-    out = legacy.test_clusters(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3)
-    out_p = legacy.test_clusters_plain(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3)
+    out = legacy.test_clusters(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3, counts)
+    out_p = legacy.test_clusters_plain(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3, counts)
+    out_all = legacy.test_clusters(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3, every)
+    out_all_p = legacy.test_clusters_plain(rays, scene.clus_pack, *slots, meta.cluster_size, k, 1e-3, every)
     torch.cuda.synchronize()
-    assert (legacy.COUNTS_SELECT.launches, legacy.COUNTS_TEST.launches) == (before[0] + 1, before[1] + 1)
+    assert (legacy.COUNTS_SELECT.launches, legacy.COUNTS_TEST.launches) == (before[0] + 1, before[1] + 2)
     for a, b in zip(sel, sel_p):
         assert torch.equal(a, b)
-    assert _bits_equal(out, out_p)
+    assert _bits_equal(out, out_p) and _bits_equal(out_all, out_all_p) and _bits_equal(out, out_all)
     assert (out[:, 4].view(torch.int32) >= 0).any()
     assert (sel[2][act == 0] == 0).all()
+    if k == 1:
+        assert (sel[1][act != 0] != legacy.KEY_DEAD).any()  # more keys than slots: a bound
+
+
+B7A_EDGES = ("all_culled", "pad_lanes", "nan_zero_dirs", "tmin0_signed_zero", "far_tcur_pad_boxes", "cpad128",
+             "cpad8192", "window_edge", "live0_and_overflow")
+B7A_REAL = {"cpad128": 100, "cpad8192": 8000}  # real boxes of a case (1,566 of 2,048 otherwise, the bench scene's)
+
+
+def _b7a_boxes(rng, n_real: int, cpad: int):
+    """clus_box [8, cpad]: n_real random boxes in [-6, 7.5]^3, pad boxes at +3e38."""
+    box = np.full((8, cpad), 3.0e38, np.float32)
+    box[6:8] = 0.0
+    lo = rng.uniform(-6, 6, (n_real, 3))
+    box[0:3, :n_real] = lo.T
+    box[3:6, :n_real] = (lo + rng.uniform(0.05, 1.5, (n_real, 3))).T
+    return box
+
+
+def b7a_edge_case(case: str, dev):
+    """(rays, clus_box, w_key, act, k, t_min) of a B7a edge case: 8 blocks of
+    rays in random directions from [-8, 8]^3 at t_cur = 100 (block 3
+    inactive), made on the host from a seed and changed as the case says."""
+    rng = np.random.default_rng(B7A_EDGES.index(case) + 40)
+    n_blocks, k, t_min = 8, 24, 1e-3
+    n_real = B7A_REAL.get(case, 1566)
+    box = _b7a_boxes(rng, n_real, {"cpad128": 128, "cpad8192": 8192}.get(case, 2048))
+    n = n_blocks * 128
+    d = rng.normal(size=(n, 3))
+    rays = np.zeros((n, 8), np.float32)
+    rays[:, 0:3] = rng.uniform(-8, 8, (n, 3))
+    rays[:, 3:6] = d / np.linalg.norm(d, axis=1, keepdims=True)
+    rays[:, 6] = 100.0
+    w_key = np.full(n_blocks, -(1 << 31), np.int32)
+    act = np.ones(n_blocks, np.int32)
+    act[3] = 0
+    if case == "all_culled":  # every ray past the boxes in x, heading away
+        rays[:, 0] = rng.uniform(8, 12, n)
+        rays[:, 3] = np.abs(rays[:, 3]) + 0.05
+    elif case == "pad_lanes":  # block 0 retired (t_cur -1, 0, t_min), block 1 in part
+        rays[:128, 6] = np.resize(np.float32([-1.0, 0.0, 1e-3]), 128)
+        rays[128:192, 6] = -1.0
+    elif case == "nan_zero_dirs":
+        rays[0:40, 3] = np.nan
+        rays[40:80, 3:6] = 0.0
+        rays[80:120, 4] = 0.0
+        rays[120:160, 5] = -0.0
+        rays[160:170, 0] = np.nan
+        rays[170:180, 7] = np.nan
+        rays[180:200, 3:5] = 1e-30
+        rays[200:210, 1] = np.inf
+        rays[256:384, 3:5] = 0.0  # block 2: rays along z only
+        rays[256:384, 5] = np.sign(rays[256:384, 5]) + (rays[256:384, 5] == 0)
+    elif case == "tmin0_signed_zero":  # entries of +-0: origins on box faces, signed zero coordinates
+        t_min = 0.0
+        box[0:3, :64] = 0.0
+        box[3:6, :64] = rng.uniform(0.5, 2.0, (3, 64))
+        box[3:6, 64:128] = -0.0
+        box[0:3, 64:128] = -rng.uniform(0.5, 2.0, (3, 64))
+        rays[:256, 0:3] = 0.0
+        rays[:128, 0:3] *= -1.0
+        rays[256:512, 0:3] = box[0:3, rng.integers(0, 128, 256)].T
+        rays[512:640, 0:3] = box[3:6, rng.integers(0, 128, 128)].T
+    elif case == "far_tcur_pad_boxes":  # d = (2, 2, 2) from (c, c, c): every pad box entered at ~1.5e38
+        rays[:256, 0:3] = rng.uniform(-1, 1, (256, 1)) + np.float32([20.0] * 128 + [0.0] * 128)[:, None]
+        rays[:256, 3:6] = 2.0
+        rays[:256, 6] = np.resize(np.float32([np.inf, 3.3e38]), 256)
+        rays[256:512, 6] = 2.9e38
+    elif case == "live0_and_overflow":  # blocks 0-1 miss every box; the others have more keys than slots
+        k = 4
+        rays[:256, 0] = 20.0
+        rays[:256, 3] = np.abs(rays[:256, 3]) + 0.05
+    t = lambda a: torch.from_numpy(a).to(dev)
+    rays, box, w_key, act = t(rays), t(box), t(w_key), t(act)
+    if case == "window_edge":  # windows at a live key (kept) and one past it (dropped)
+        _, bound, _ = legacy.select_clusters_plain(rays, box, w_key, act, 3, t_min)
+        w_key = torch.where(act != 0, bound + (torch.arange(n_blocks, device=dev) % 2).to(torch.int32), w_key)
+    return rays, box, w_key, act, k, t_min
+
+
+@pytest.mark.parametrize("case", B7A_EDGES)
+def test_select_clusters_edges_equal_plain(dev, case):
+    """B7a at the edges of its design (the cull, the live rays, the pad
+    boxes, the two arithmetic paths, the selection), bitwise against its
+    twin; with the per-block records of live rays, kept boxes and keys."""
+    rays, box, w_key, act, k, t_min = b7a_edge_case(case, dev)
+    n_blocks = act.shape[0]
+    stats = torch.zeros((n_blocks, 3), dtype=torch.int32, device=dev)
+    got = legacy.select_clusters_cuda(rays, box, w_key, act, k, t_min, stats=stats)
+    want = legacy.select_clusters_plain(rays, box, w_key, act, k, t_min)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ids, bound_key, n_live = got
+    live_rays, kept, keys = stats.unbind(1)
+    assert (stats[act == 0] == 0).all() and (n_live == torch.clamp(keys, max=k)).all()
+    assert ((bound_key != legacy.KEY_DEAD) == (keys > k)).all()
+    if case == "all_culled":
+        assert (kept == 0).all() and (n_live == 0).all()
+    elif case == "pad_lanes":
+        assert live_rays[0] == 0 and n_live[0] == 0 and live_rays[1] == 64
+    elif case == "far_tcur_pad_boxes":
+        assert (ids[0] >= B7A_REAL.get(case, 1566)).all()  # block 0 sees the pad boxes alone
+    elif case == "live0_and_overflow":
+        assert (n_live[:2] == 0).all() and (bound_key[4:] != legacy.KEY_DEAD).all()
+    elif case == "window_edge":
+        assert (n_live[act != 0] > 0).all()
+    if case in ("pad_lanes", "live0_and_overflow"):  # a retired or missing block keeps no box
+        assert (kept[act != 0] < box.shape[1]).any() and (n_live > 0).any()
+
+
+B7B_EDGES = ("clusters_1_and_C", "degenerate", "ties", "tcur_inf", "live_not_prefix", "repeated_ids",
+             "one_block", "many_blocks", "c_30", "pad_columns_filled")
+
+
+def b7b_edge_case(case: str, dev):
+    """(rays, clus_pack, live, first, ids, c, k, t_min, counts) of a B7b edge
+    case: 12 clusters of random triangles (C = 64) packed by
+    `scene.clusters.woop_rows`, 4 blocks of rays toward them, k = 6 slots,
+    made on the host from a seed and changed as the case says (c_30: C = 30,
+    not a whole number of 16-byte words; pad_columns_filled: clusters of at
+    most C / 2 triangles whose columns past the count hold the next
+    cluster's triangles, so only the count keeps them out)."""
+    from yart_tpu_torch.scene.clusters import ClusterCut, woop_rows
+
+    rng = np.random.default_rng(B7B_EDGES.index(case) + 60)
+    c, k, n_clus = 30 if case == "c_30" else 64, 6, 12
+    n_blocks = {"one_block": 1, "many_blocks": 2048}.get(case, 4)
+    counts = rng.integers(1, c + 1, n_clus).astype(np.int32)
+    if case == "pad_columns_filled":
+        counts = np.maximum(counts // 2, 1)
+    if case == "clusters_1_and_C":
+        counts[:] = np.resize(np.int32([1, c]), n_clus)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    n_tri = int(counts.sum())
+    v0 = rng.uniform(-1.5, 1.5, (n_tri, 3))
+    v1 = v0 + rng.normal(0, 0.5, (n_tri, 3))
+    v2 = v0 + rng.normal(0, 0.5, (n_tri, 3))
+    if case == "degenerate":  # every third triangle collinear or a point
+        v1[::3] = v0[::3] + 0.3
+        v2[::3] = v0[::3] + 0.6
+        v1[1::6] = v2[1::6] = v0[1::6]
+    if case == "ties":  # cluster 1 repeats cluster 0; columns 1 and 3 repeat column 0 within it
+        counts[1] = counts[0] = max(counts[0], 4)
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+        n_tri = int(counts.sum())
+        v0, v1, v2 = (np.resize(a, (n_tri, 3)) for a in (v0, v1, v2))
+        for a in (v0, v1, v2):
+            a[[1, 3]] = a[0]
+            a[first[1] : first[1] + counts[1]] = a[: counts[0]]
+    cut = ClusterCut(first, counts, np.zeros((n_clus, 3), np.float32), np.zeros((n_clus, 3), np.float32))
+    pack = woop_rows(v0.astype(np.float32), v1.astype(np.float32), v2.astype(np.float32), cut, c)
+    if case == "pad_columns_filled":
+        real = pack.copy()
+        for i, n in enumerate(counts):
+            for p in range(3):  # the n, eu, ev column blocks of rows 0-3
+                pack[i, 0:4, p * c + n : (p + 1) * c] = real[(i + 1) % n_clus, 0:4, p * c : (p + 1) * c - n]
+    n = n_blocks * 128
+    o = rng.uniform(-3, 3, (n, 3))
+    d = rng.uniform(-1, 1, (n, 3)) - o
+    rays = np.zeros((n, 8), np.float32)
+    rays[:, 0:3] = o
+    rays[:, 3:6] = d / np.linalg.norm(d, axis=1, keepdims=True)
+    rays[:, 6] = 100.0
+    rays[::5, 7] = 1.0  # floors
+    ids = rng.integers(0, n_clus, (n_blocks, k)).astype(np.int32)
+    live = np.ones((n_blocks, k), np.int32)
+    if case == "live_not_prefix":
+        live = (rng.random((n_blocks, k)) < 0.5).astype(np.int32)
+        live[0] = [0, 1, 0, 0, 1, 0]
+    if case == "repeated_ids":
+        ids[:, 2] = ids[:, 0]
+        ids[:, 5] = ids[:, 0]
+    if case == "ties":
+        ids[:, 0], ids[:, 1] = 0, 1
+    if case == "tcur_inf":  # t_cur = inf; cluster 11 holds one column at t = 3.1e38 for d = (0, 0, 1)
+        rays[:, 6] = np.inf
+        rays[:64, 0:3] = np.c_[rng.uniform(-1, 1, (64, 2)), np.zeros(64)]
+        rays[:64, 3:6] = [0.0, 0.0, 1.0]
+        rays[:64, 7] = 0.0
+        counts[11] = 1
+        pack[11] = 0.0
+        pack[11, 2, 0] = 2e-12  # n.z
+        pack[11, 3, 0] = 6.2e26  # cn
+        pack[11, 3, c] = pack[11, 3, 2 * c] = -0.25  # cu, cv
+        ids[0, :3] = 11
+    if n_blocks > 1:
+        live[1, :] = 0  # a block with no live slot
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    flat = lambda a: t(a.reshape(-1))
+    return (t(rays), t(pack), flat(live), flat(first[ids]), flat(ids), c, k, 1e-3, t(counts))
+
+
+@pytest.mark.parametrize("case", B7B_EDGES)
+def test_test_clusters_edges_equal_plain(dev, case):
+    """B7b at the edges of its design (real columns only, slot walk,
+    staging), bitwise against its twin with the clusters' counts and with
+    every count C; the two agree on packs with zero columns past each count
+    and differ where those columns hold triangles."""
+    rays, pack, live, first, ids, c, k, t_min, counts = b7b_edge_case(case, dev)
+    outs = []
+    for cnt in (counts, torch.full_like(counts, c)):
+        got = legacy.test_clusters_cuda(rays, pack, live, first, ids, c, k, t_min, cnt)
+        want = legacy.test_clusters_plain(rays, pack, live, first, ids, c, k, t_min, cnt)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+        outs.append(got)
+    assert _bits_equal(outs[0], outs[1]) == (case != "pad_columns_filled")
+    tri = outs[0][:, 4].view(torch.int32)
+    assert (tri[128:256] == -1).all()  # block 1: no live slot
+    assert (tri >= 0).any()
+    if case == "tcur_inf":  # a block's every ray takes a pick (3e38 where nothing is valid)
+        assert (outs[0][:128, 0] <= 3e38).all() and (outs[0][:64, 0] == 3e38).any()
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -1181,8 +1408,9 @@ def test_launcher_loads_its_library_once(quad_soup, monkeypatch, mod, fn, lib):
         rin, w_key, act, _ = blocktrace.round_inputs(scene, meta, o, d, 100.0, 4, False)
         sel = legacy.select_clusters(rin, scene.clus_box, w_key, act, 4, 1e-3)
         slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
+        counts = blocktrace.cluster_counts(scene, meta)
         run = (lambda: legacy.select_clusters(rin, scene.clus_box, w_key, act, 4, 1e-3)) if lib == "select_clusters" \
-            else (lambda: legacy.test_clusters(rin, scene.clus_pack, *slots, meta.cluster_size, 4, 1e-3))
+            else (lambda: legacy.test_clusters(rin, scene.clus_pack, *slots, meta.cluster_size, 4, 1e-3, counts))
         calls.clear()
         getattr(mod, fn).cache_clear()
     run()

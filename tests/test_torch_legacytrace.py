@@ -161,7 +161,8 @@ def test_test_twin_equals_pallas(case, windowed):
     rays, w_key, act, _ = TBT.round_inputs(ts, tm, T(o), T(d), 100.0, k, windowed, T_MIN)
     ids, _, n_live = BK.select_clusters(rays, ts.clus_box, w_key, act, k, T_MIN)
     live, first, dma = TBT.round_slots(ts, ids, n_live, act)
-    got = BK.test_clusters(rays, ts.clus_pack, live, first, dma, tm.cluster_size, k, T_MIN).numpy()
+    every = torch.full((ts.clus_pack.shape[0],), tm.cluster_size, dtype=torch.int32)
+    got = BK.test_clusters(rays, ts.clus_pack, live, first, dma, tm.cluster_size, k, T_MIN, every).numpy()
     want = np.asarray(PB.test_clusters_pallas(
         jnp.asarray(rays.numpy()), js.clus_pack, jnp.asarray(live.numpy()), jnp.asarray(first.numpy()),
         jnp.asarray(dma.numpy()), tm.cluster_size, k, T_MIN, interpret=True))
@@ -175,6 +176,42 @@ def test_test_twin_equals_pallas(case, windowed):
     np.testing.assert_array_equal(got[same, 3], want[same, 3])
     np.testing.assert_array_equal(got[:, 5:], 0.0)
     np.testing.assert_array_equal(got[~m, 0], rays.numpy()[~m, 6])  # a miss keeps t_cur
+
+
+@pytest.mark.parametrize("windowed", [False, True], ids=["round1", "windowed"])
+def test_test_twin_counts(case, windowed):
+    """B7b's twin with the clusters' counts, as the path calls it: bitwise
+    equal to the twin with every count C (a cluster's columns past its
+    count are zeros) and to the same bar against `test_clusters_pallas` as without;
+    on a pack whose pad columns hold the next cluster's triangles, the
+    counts still keep every slot to its own cluster's triangles."""
+    js, _, ts, tm, o, d = case
+    k, c = 24, tm.cluster_size
+    rays, w_key, act, _ = TBT.round_inputs(ts, tm, T(o), T(d), 100.0, k, windowed, T_MIN)
+    ids, _, n_live = BK.select_clusters(rays, ts.clus_box, w_key, act, k, T_MIN)
+    slots = TBT.round_slots(ts, ids, n_live, act)
+    counts = TBT.cluster_counts(ts, tm)
+    assert (counts < c).any() and (counts >= 1).all()  # some clusters have pad columns
+    every = torch.full_like(counts, c)
+    got = BK.test_clusters(rays, ts.clus_pack, *slots, c, k, T_MIN, counts)
+    bits = lambda a: a.view(torch.int32)
+    assert torch.equal(bits(got), bits(BK.test_clusters(rays, ts.clus_pack, *slots, c, k, T_MIN, every)))
+    want = np.asarray(PB.test_clusters_pallas(
+        jnp.asarray(rays.numpy()), js.clus_pack, *(jnp.asarray(a.numpy()) for a in slots), c, k, T_MIN,
+        interpret=True))
+    tri_g, tri_w = got.numpy()[:, 4].view(np.int32), want[:, 4].view(np.int32)
+    np.testing.assert_array_equal(tri_g >= 0, tri_w >= 0)
+    assert ((tri_g == tri_w) & (tri_g >= 0)).sum() >= 0.999 * (tri_g >= 0).sum()
+    np.testing.assert_allclose(got.numpy()[:, 0], want[:, 0], rtol=2e-5, atol=2e-5)
+    poisoned = ts.clus_pack.clone()
+    n_clus = poisoned.shape[0]
+    for i in range(n_clus):
+        n = int(counts[i])
+        for p in range(3):  # the n, eu, ev column blocks of rows 0-3
+            poisoned[i, 0:4, p * c + n : (p + 1) * c] = ts.clus_pack[(i + 1) % n_clus, 0:4, p * c : p * c + c - n]
+    assert torch.equal(bits(BK.test_clusters(rays, poisoned, *slots, c, k, T_MIN, counts)), bits(got))
+    if not windowed:  # at round 1 (t_cur = 100) some ray meets a poisoned column with every count C
+        assert not torch.equal(bits(BK.test_clusters(rays, poisoned, *slots, c, k, T_MIN, every)), bits(got))
 
 
 @pytest.mark.parametrize("n", [2048, 1000])  # 1000: not a multiple of the 128-ray block

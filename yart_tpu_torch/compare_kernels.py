@@ -6,33 +6,41 @@
     python -m yart_tpu_torch.compare_kernels --kernel b3 OLD.cu yart_tpu_torch/csrc/fused_trace.cu
     python -m yart_tpu_torch.compare_kernels --kernel b2 OLD.cu yart_tpu_torch/csrc/presort_keys.cu
     python -m yart_tpu_torch.compare_kernels --kernel b4 OLD.cu yart_tpu_torch/csrc/cluster_pairs.cu@128
+    python -m yart_tpu_torch.compare_kernels --kernel b7a OLD.cu yart_tpu_torch/csrc/select_clusters.cu
+    python -m yart_tpu_torch.compare_kernels --kernel b7b OLD.cu yart_tpu_torch/csrc/test_clusters.cu
     ... [--sass DIR]
 
 Run from the root of a checkout: the scenes, rays, timer and bounds are
 chip_smoke.py's own. Each argument is a source of the kernel with the
 package's launcher (the same C signature as `csrc/brute_intersect.cu`
 (B1), `csrc/presort_keys.cu` (B2), `csrc/fused_trace.cu` (B3),
-`csrc/cluster_pairs.cu` (B4), `csrc/shade.cu` (B5) or `csrc/draws.cu`
-(B6)), built with the package's nvcc flags into `build/compare_kernels/`
-(a variant is a patched copy of the source, its local headers beside
-it). For B4 a source may
+`csrc/cluster_pairs.cu` (B4), `csrc/shade.cu` (B5), `csrc/draws.cu`
+(B6), `csrc/select_clusters.cu` (B7a) or `csrc/test_clusters.cu` (B7b)),
+built with the package's nvcc flags into `build/compare_kernels/` (a
+variant is a patched copy of the source, its local headers beside it).
+For B4 a source may
 also have the earlier padded-block launcher (block cid, first and live
 flags, recognised by its signature): its pairs are then laid out as that
 design laid them out (each cluster's pairs in whole blocks of 1024 rows,
 the rest empty rows) and its results are compared per pair. `@T` after a
 B4 source lays its pairs out in tiles of T (default `clusterpairs.TILE`).
+A B7a source may also have the first B7 design's launcher without the
+per-block records, and a B7b source that design's launcher without the
+cluster counts (each recognised by its signature); that B7b tests all C
+columns, and its output is compared with the twin's with the counts,
+which equals the twin's without them on the scene's packs.
 
 The first line names the card and each build's registers and spills
 (ptxas) and its build seconds. With `--sass DIR` each build's SASS
 (`cuobjdump -sass`) is written to DIR, and the line gives each kernel
 function's instruction count, its local loads and stores (LDL, STL) and
 its innermost loops: their instruction counts and those of the
-instructions that make a slab, plane or Moller-Trumbore test (B1's
-triangle loop). Then, for each case, one JSON line: the case's bounds
+instructions that make a slab (B2, B7a), plane (B4, B7b) or
+Moller-Trumbore test (B1's triangle loop). Then, for each case, one JSON line: the case's bounds
 (chip_smoke's `b1_work` and `b1_floor_ms`, `b2_bounds`, `b3_bounds`,
-`b4_work` and `b4_floor_ms`, `b5_bytes`, `b6_bound`: `bound_ms` over the work the
-inputs need, beside it the parent design's sweep bound or the no-FMA
-floor; B5's lobe mix, `kernels/shade.py` `mixed_warps`), and per source
+`b4_work` and `b4_floor_ms`, `b5_bytes`, `b6_bound`, `b7a_bounds`,
+`b7b_bounds`: `bound_ms` over the work the inputs need, beside it the
+parent design's sweep bound or the no-FMA floor; B5's lobe mix, `kernels/shade.py` `mixed_warps`), and per source
 whether its output equals the plain twin's bitwise and its median
 milliseconds (chip_smoke.cuda_ms, 11 launches, the launch alone: the
 wrapper's checks and allocations are made once before) at each of its
@@ -68,6 +76,10 @@ Cases:
   scene's incoherent and coherent rays, the spheres render's camera and
   shadow rays, atrium-ivy's camera rays and rays leaving their hits in
   random directions, atrium-inst's camera and sun shadow rays.
+- b7a, b7b: chip_smoke.py phase 3l's cases, the round-based path on the
+  bench scene at 262,144 incoherent and coherent rays, round 1 and the
+  first later round with converged blocks (`b7_round`); B7b on the slots
+  that B7a's twin picks, with the clusters' counts.
 - b4: bin-trace's rounds 1 and 2 of the dense atrium's 2^20 camera rays
   (atrium(density=3), built here: ~90 s on the host), round 1 of rays
   leaving their hits in random directions, and round 1 of the bench scene
@@ -193,18 +205,27 @@ class Source:
         if tile and kernel != "b4":
             raise SystemExit(f"{arg}: a tile size is a B4 source's option")
         with open(self.path) as f:
-            self.padded = kernel == "b4" and "block_live" in f.read()
+            text = f.read()
+        self.padded = kernel == "b4" and "block_live" in text
+        launcher = re.search(r'extern "C" int \w+_launch\(([^)]*)\)', text)
+        # The first B7 design's launchers: B7a without `stats`, B7b without `counts`.
+        self.first_b7 = kernel in ("b7a", "b7b") and launcher is not None and not re.search(
+            r"\b(stats|counts)\b", launcher.group(1))
         if tile and self.padded:
             raise SystemExit(f"{arg}: the padded-block B4 has no tiles")
         self.tile = int(tile) if tile else None
         self.lib = self.ptxas = self.fn = None
 
     def bind(self, kernel: str):
-        from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
+        from yart_tpu_torch.kernels import blocktrace, brute, clusterpairs, fusedtrace, presort, shade
 
         lib = ctypes.CDLL(self.lib)
         if self.padded:
             self.fn = bind_padded(lib)
+        elif self.first_b7:
+            self.fn = bind_first_b7(lib, kernel)
+        elif kernel in ("b7a", "b7b"):
+            self.fn = (blocktrace.bind_select if kernel == "b7a" else blocktrace.bind_test)(lib)
         else:
             self.fn = {"b1": brute.bind, "b2": presort.bind, "b3": fusedtrace.bind, "b4": clusterpairs.bind,
                        "b5": shade.bind_shade, "b6": shade.bind_draws}[kernel](lib)
@@ -217,6 +238,23 @@ def bind_padded(lib):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_float] + [ctypes.c_void_p] * 6
     return fn
+
+
+def bind_first_b7(lib, kernel: str):
+    """The first B7 design's B7a launcher (no per-block records) or B7b
+    launcher (no cluster counts), typed, behind the package launcher's
+    arguments: the argument it lacks is dropped."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if kernel == "b7a":
+        fn = lib.select_clusters_launch
+        fn.argtypes = [p, i, p, i, p, p, i, f, p, p, p, p]
+        drop = 11  # stats
+    else:
+        fn = lib.test_clusters_launch
+        fn.argtypes = [p, i, p, i, p, p, p, i, f, p, p]
+        drop = 4  # counts
+    fn.restype = ctypes.c_int
+    return lambda *args: fn(*args[:drop], *args[drop + 1:])
 
 
 def padded_layout(lay, clus_first):
@@ -348,6 +386,19 @@ def bench_rays(cs, dev):
         yield case, (bo, bd, bt)
 
 
+def b7_cases(cs, dev):
+    """(name, (scene, meta, rays, w_key, act)) of chip_smoke.py phase 3l's
+    B7a / B7b cases."""
+    import torch
+
+    big, big_meta = cs.big_scene(dev)
+    for case, coherent in (("incoherent", False), ("coherent", True)):
+        o, d = (torch.from_numpy(a).to(dev) for a in cs.make_rays(262144, coherent))
+        for later in (False, True):
+            rays, w_key, act, rnd = cs.b7_round(big, big_meta, o, d, later)
+            yield f"bigscene_{case}_{'later' if later else 'round1'}", (big, big_meta, rays, w_key, act, rnd)
+
+
 def b2_cases(cs, dev):
     """(name, (rays, clus_box, n_clus)) of B2's calls in chip_smoke.py's
     phases 3b-3f, rays in lane order as the block trace hands them over."""
@@ -465,6 +516,23 @@ def prepare(kernel: str, cs, case, sources):
         rec = {"n": n, "kind": setup.kind, **cs.b6_bound(setup, n)}
         calls = {s.arg: shade.prepare_draws(setup, n, fn=s.fn) for s in sources}
         return rec, calls, lambda out: all(cs.bits_equal(out[k], ref[k].contiguous()) for k in ref)
+    if kernel in ("b7a", "b7b"):
+        from yart_tpu_torch.kernels import blocktrace as legacy
+
+        scene, meta, rays, w_key, act, rnd = case
+        box, pack, c, k = scene.clus_box, scene.clus_pack, meta.cluster_size, cs.B7_K
+        sel = legacy.select_clusters_plain(rays, box, w_key, act, k, 1e-3)
+        rec = {"round": rnd, "live_blocks": int(act.sum())}
+        if kernel == "b7a":
+            rec.update(cs.b7a_bounds(rays, box, w_key, act, blocktrace.n_clus(meta), 1e-3, sel))
+            calls = {s.arg: legacy.prepare_select(rays, box, w_key, act, k, 1e-3, fn=s.fn) for s in sources}
+            return rec, calls, lambda out: all(torch.equal(a, b) for a, b in zip(out, sel))
+        counts = blocktrace.cluster_counts(scene, meta)
+        slots = blocktrace.round_slots(scene, sel[0], sel[2], act)
+        ref = legacy.test_clusters_plain(rays, pack, *slots, c, k, 1e-3, counts)
+        rec.update({"live_slots": int(slots[0].sum()), **cs.b7b_bounds(rays, slots, ref, counts, c)})
+        calls = {s.arg: legacy.prepare_test(rays, pack, *slots, c, k, 1e-3, counts, fn=s.fn) for s in sources}
+        return rec, calls, lambda out: cs.bits_equal(out, ref)
     if kernel == "b3":
         args = case
         ref = fusedtrace.fused_trace_plain(*args)
@@ -513,7 +581,7 @@ def prepare(kernel: str, cs, case, sources):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4", "b5", "b6"), required=True)
+    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4", "b5", "b6", "b7a", "b7b"), required=True)
     ap.add_argument("--sass", default=None, help="directory for each build's SASS and its loop counts")
     ap.add_argument("--rounds", type=int, default=1, help="rounds of turns (each A B .. B A)")
     ap.add_argument("sources", nargs="+", help="kernel sources (.cu), B4's with an optional @TILE")
@@ -545,7 +613,7 @@ def main(argv=None) -> int:
     print(json.dumps(head), flush=True)
     turns = (list(range(len(sources))) + list(reversed(range(len(sources))))) * args.rounds
     gen = {"b1": lambda cs, dev: ((n, a) for n, a, _ in cs.b1_cases(dev)),
-           "b2": b2_cases, "b3": b3_cases, "b4": b4_cases,
+           "b2": b2_cases, "b3": b3_cases, "b4": b4_cases, "b7a": b7_cases, "b7b": b7_cases,
            "b5": lambda cs, dev: ((n, a) for n, a, _ in cs.b5_cases(dev, twin=True)),
            "b6": lambda cs, dev: ((n, a) for n, a, _ in cs.b6_cases(dev))}[args.kernel](cs, dev)
     for name, case in gen:

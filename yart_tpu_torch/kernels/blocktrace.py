@@ -33,17 +33,19 @@ An inactive block gives ids -1, bound_key KEY_DEAD and n_live 0. The
 outputs are integers and the kernel repeats the twin's float operations
 one by one (--fmad=false), so the two agree exactly.
 
-B7b `test_clusters(rays, clus_pack, live, first, ids, c, k, t_min)`. Per
-block b the slots s = 0..K-1 run in order; `live`, `first` and `ids`
-[n_blocks * K] int32 hold each slot's flag, first triangle and cluster row
-of `clus_pack` [n_clus, 8, 3C]. Each ray starts at (t = t_cur, u = v =
-back = 0, tri = -1). A live slot tests the ray against the cluster's C
-triangles with the plane + barycentric test of `_test_kernel`
-(pallas_blocktrace.py:202-262), dot products formed (x r0 + y r1) + z r2:
+B7b `test_clusters(rays, clus_pack, live, first, ids, c, k, t_min,
+counts)`. Per block b the slots s = 0..K-1 run in order; `live`,
+`first` and `ids` [n_blocks * K] int32 hold each slot's flag, first
+triangle and cluster row of `clus_pack` [n_clus, 8, 3C]. Each ray starts at
+(t = t_cur, u = v = back = 0, tri = -1). A live slot tests the ray against
+the cluster's C columns with the plane + barycentric test of
+`_test_kernel` (pallas_blocktrace.py:202-262), dot products formed
+(x r0 + y r1) + z r2:
 
     t = (cn - no) / nd,  u = (uo + t ud) - cu,  v = (vo + t vd) - cv
     valid: |nd| >= EPS_DET, 0 <= u <= 1, v >= 0, u + v <= 1,
-           t > t_min, t > floor, t < the ray's current t
+           t > t_min, t > floor, t < the ray's current t,
+           column < counts[cluster row]
 
 and takes the lowest column of least t (F32_MAX where invalid); the ray's
 row becomes (t, u, v, back = nd > 0, tri = first + column) only if that t
@@ -53,9 +55,18 @@ masked sum takes them, which turns a picked -0.0 into +0.0. Output
 Ties: within a slot the lowest column wins, across slots the earlier slot
 (strict <); the fused path's B3 breaks bit-equal t by the lowest triangle
 index instead, so the two traversals may name different triangles there.
+`counts` [n_clus] int32 holds each cluster row's triangle count
+(render/blocktrace.py `cluster_counts`), and the kernel tests only those
+real columns. A scene's columns past the count are zeros (scene/clusters.py
+`woop_rows`), which |nd| >= EPS_DET rejects, so on a scene's packs the
+result is the same as with every count C.
 
 `COUNTS_SELECT` and `COUNTS_TEST` record kernel launches and plain-twin
-calls on CUDA tensors.
+calls on CUDA tensors. `prepare_select` and `prepare_test` check a call and
+return a `build.Launch` of a bound library's kernel (`bind_select` /
+`bind_test`; by default the package's), uncounted, for the card tools;
+`select_clusters_cuda(..., stats=)` also takes each block's live rays,
+kept boxes and live keys.
 """
 
 from __future__ import annotations
@@ -65,7 +76,7 @@ import functools
 
 import torch
 
-from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.build import Counts, Launch, load
 from yart_tpu_torch.kernels.presort import ID_MASK, KEY_DEAD, MAX_CLUSTERS
 
 BLOCK = 128  # rays per block
@@ -78,9 +89,8 @@ COUNTS_SELECT = Counts()
 COUNTS_TEST = Counts()
 
 
-@functools.cache  # loaded and bound once a process: `load` hashes the sources
-def _select_fn():
-    lib, _ = load("select_clusters")
+def bind_select(lib):
+    """`select_clusters_launch` of B7a library `lib`, typed."""
     fn = lib.select_clusters_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -89,25 +99,36 @@ def _select_fn():
         ctypes.c_void_p, ctypes.c_void_p,  # w_key, act
         ctypes.c_int, ctypes.c_float,  # k, t_min
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ids, bound_key, n_live
+        ctypes.c_void_p,  # stats (or null)
         ctypes.c_void_p,  # stream
     ]
     return fn
 
 
-@functools.cache  # loaded and bound once a process: `load` hashes the sources
-def _test_fn():
-    lib, _ = load("test_clusters")
+def bind_test(lib):
+    """`test_clusters_launch` of B7b library `lib`, typed."""
     fn = lib.test_clusters_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int,  # rays, n_blocks
         ctypes.c_void_p, ctypes.c_int,  # clus_pack, c
+        ctypes.c_void_p,  # counts
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # live, first, ids
         ctypes.c_int, ctypes.c_float,  # k, t_min
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # stream
     ]
     return fn
+
+
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
+def _select_fn():
+    return bind_select(load("select_clusters")[0])
+
+
+@functools.cache  # loaded and bound once a process: `load` hashes the sources
+def _test_fn():
+    return bind_test(load("test_clusters")[0])
 
 
 def _check_rays(rays):
@@ -139,7 +160,7 @@ def _check_select(rays, clus_box, w_key, act, k):
     _check_ints(rays.shape[0] // BLOCK, rays.device, w_key=w_key, act=act)
 
 
-def _check_test(rays, clus_pack, live, first, ids, c, k):
+def _check_test(rays, clus_pack, live, first, ids, c, k, counts):
     _check_rays(rays)
     if clus_pack.dim() != 3 or clus_pack.shape[1] != 8 or clus_pack.shape[2] != 3 * c:
         raise ValueError(f"clus_pack must be [n_clus, 8, 3C] with C={c}, got {tuple(clus_pack.shape)}")
@@ -150,6 +171,7 @@ def _check_test(rays, clus_pack, live, first, ids, c, k):
     if k < 1:
         raise ValueError(f"k={k} must be at least 1")
     _check_ints(rays.shape[0] // BLOCK * k, rays.device, live=live, first=first, ids=ids)
+    _check_ints(clus_pack.shape[0], rays.device, counts=counts)
 
 
 def block_entries(r, clus_box, t_min: float):
@@ -206,10 +228,11 @@ def _plus_zero(a):
     return torch.where(a == 0.0, 0.0, a)
 
 
-def test_clusters_plain(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float):
+def test_clusters_plain(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float, counts):
     """Plain PyTorch twin of B7b: [Np, 8] f32. Slot after slot, it tests
-    the blocks whose slot is live, in chunks of blocks."""
-    _check_test(rays, clus_pack, live, first, ids, c, k)
+    the blocks whose slot is live, in chunks of blocks; a column at or past
+    its cluster's count is never valid."""
+    _check_test(rays, clus_pack, live, first, ids, c, k, counts)
     if rays.is_cuda:
         COUNTS_TEST.plain_cuda += 1
     dev = rays.device
@@ -222,6 +245,7 @@ def test_clusters_plain(rays, clus_pack, live, first, ids, c: int, k: int, t_min
     rays3 = rays.view(n_blocks, BLOCK, 8)
     live2, first2, ids2 = live.view(n_blocks, k), first.view(n_blocks, k), ids.view(n_blocks, k)
     step = max(1, PLAIN_BUDGET // (BLOCK * 3 * c))
+    col = torch.arange(c, device=dev)
     for s in range(k):
         blocks = torch.nonzero(live2[:, s] != 0)[:, 0]
         for b0 in range(0, blocks.numel(), step):
@@ -240,21 +264,25 @@ def test_clusters_plain(rays, clus_pack, live, first, ids, c: int, k: int, t_min
             u = uo + t * ud - cu
             v = vo + t * vd - cv
             valid = ((nd.abs() >= EPS_DET) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-                     & (t > t_min) & (t > floor) & (t < t_best))
+                     & (t > t_min) & (t > floor) & (t < t_best) & (col < counts[ids2[b, s].long()][:, None, None]))
             tbig = torch.where(valid, t, F32_MAX)
-            col = torch.argmin(tbig, dim=2, keepdim=True)  # the lowest column of least t
-            take = lambda a: a.gather(2, col)
+            pick = torch.argmin(tbig, dim=2, keepdim=True)  # the lowest column of least t
+            take = lambda a: a.gather(2, pick)
             bt = take(tbig)
-            tri = (first2[b, s][:, None, None] + col.to(torch.int32)).view(torch.float32)
+            tri = (first2[b, s][:, None, None] + pick.to(torch.int32)).view(torch.float32)
             new = torch.cat([bt, _plus_zero(take(u)), _plus_zero(take(v)), (take(nd) > 0.0).float(), tri,
                              torch.zeros_like(old[..., 5:8])], dim=2)
             out3[b] = torch.where(bt < t_best, new, old)
     return out
 
 
-def select_clusters_cuda(rays, clus_box, w_key, act, k: int, t_min: float):
-    """Launch B7a on the current stream; raises on any input it does not
-    take or if the launch is refused."""
+def prepare_select(rays, clus_box, w_key, act, k: int, t_min: float, stats=None, fn=None) -> Launch:
+    """Check a B7a call and allocate its outputs; returns the `Launch` that
+    runs the launcher `fn` (`bind_select` of a B7a library; None: the
+    package's kernel) on the current stream, uncounted, giving (ids,
+    bound_key, n_live). `stats`, int32 [n_blocks, 3] or None, receives each
+    block's live rays, kept boxes and live keys. Raises on any input the
+    kernel does not take."""
     _check_select(rays, clus_box, w_key, act, k)
     if not rays.is_cuda:
         raise ValueError("select_clusters_cuda needs CUDA tensors")
@@ -262,45 +290,61 @@ def select_clusters_cuda(rays, clus_box, w_key, act, k: int, t_min: float):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n_blocks = rays.shape[0] // BLOCK
-    fn = _select_fn()
+    if stats is not None and (stats.shape != (n_blocks, 3) or stats.dtype != torch.int32
+                              or stats.device != rays.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous int32 [{n_blocks}, 3] on {rays.device}")
+    fn = fn or _select_fn()
     dev = rays.device
     ids = torch.empty((n_blocks, k), dtype=torch.int32, device=dev)
     bound_key = torch.empty(n_blocks, dtype=torch.int32, device=dev)
     n_live = torch.empty(n_blocks, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rays.data_ptr(), int(n_blocks), clus_box.data_ptr(), int(clus_box.shape[1]),
-                 w_key.data_ptr(), act.data_ptr(), int(k), float(t_min), ids.data_ptr(),
-                 bound_key.data_ptr(), n_live.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"select_clusters launch failed: cudaError {err}")
-    COUNTS_SELECT.launches += 1
-    return ids, bound_key, n_live
+    args = (rays.data_ptr(), int(n_blocks), clus_box.data_ptr(), int(clus_box.shape[1]), w_key.data_ptr(),
+            act.data_ptr(), int(k), float(t_min), ids.data_ptr(), bound_key.data_ptr(), n_live.data_ptr(),
+            None if stats is None else stats.data_ptr(), stream)
+    return Launch("select_clusters", fn, args, (ids, bound_key, n_live), dev, (rays, clus_box, w_key, act, stats))
 
 
-def test_clusters_cuda(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float):
-    """Launch B7b on the current stream; raises on any input it does not
-    take or if the launch is refused. `ids` must name a row of `clus_pack`
-    on every live slot."""
-    _check_test(rays, clus_pack, live, first, ids, c, k)
+def prepare_test(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float, counts, fn=None) -> Launch:
+    """Check a B7b call and allocate its output; returns the `Launch` that
+    runs the launcher `fn` (`bind_test` of a B7b library; None: the
+    package's kernel) on the current stream, uncounted. Raises on any input
+    the kernel does not take. `ids` must name a row of `clus_pack` on every
+    live slot."""
+    _check_test(rays, clus_pack, live, first, ids, c, k, counts)
     if not rays.is_cuda:
         raise ValueError("test_clusters_cuda needs CUDA tensors")
-    for name, a in (("rays", rays), ("clus_pack", clus_pack), ("live", live), ("first", first), ("ids", ids)):
+    for name, a in (("rays", rays), ("clus_pack", clus_pack), ("live", live), ("first", first), ("ids", ids),
+                    ("counts", counts)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if rays.data_ptr() % 16:
         raise ValueError("rays must be 16-byte aligned (the kernel loads its rows as float4)")
-    if 4 * 3 * c * 4 > 227 * 1024:
-        raise ValueError(f"C={c}: the cluster rows do not fit in shared memory")
-    n_blocks = rays.shape[0] // BLOCK
-    fn = _test_fn()
+    if 2 * 12 * (-(-c // 4) * 4) * 4 > 227 * 1024:
+        raise ValueError(f"C={c}: two buffers of the cluster rows do not fit in shared memory")
+    fn = fn or _test_fn()
     out = torch.empty_like(rays)
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rays.data_ptr(), int(n_blocks), clus_pack.data_ptr(), int(c), live.data_ptr(),
-                 first.data_ptr(), ids.data_ptr(), int(k), float(t_min), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"test_clusters launch failed: cudaError {err}")
+    args = (rays.data_ptr(), int(rays.shape[0] // BLOCK), clus_pack.data_ptr(), int(c),
+            counts.data_ptr(), live.data_ptr(), first.data_ptr(), ids.data_ptr(),
+            int(k), float(t_min), out.data_ptr(), stream)
+    return Launch("test_clusters", fn, args, out, rays.device, (rays, clus_pack, live, first, ids, counts))
+
+
+def select_clusters_cuda(rays, clus_box, w_key, act, k: int, t_min: float, stats=None):
+    """Launch B7a on the current stream (counted); raises on any input it
+    does not take or if the launch is refused."""
+    out = prepare_select(rays, clus_box, w_key, act, k, t_min, stats)()
+    COUNTS_SELECT.launches += 1
+    return out
+
+
+def test_clusters_cuda(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float, counts):
+    """Launch B7b on the current stream (counted); raises on any input it
+    does not take or if the launch is refused."""
+    out = prepare_test(rays, clus_pack, live, first, ids, c, k, t_min, counts)()
     COUNTS_TEST.launches += 1
     return out
 
@@ -313,9 +357,9 @@ def select_clusters(rays, clus_box, w_key, act, k: int, t_min: float):
     return select_clusters_plain(rays, clus_box, w_key, act, k, t_min)
 
 
-def test_clusters(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float):
+def test_clusters(rays, clus_pack, live, first, ids, c: int, k: int, t_min: float, counts):
     """B7b: closest hit of every ray over its block's live slots. CUDA
     tensors go to the kernel, CPU tensors to the plain twin."""
     if rays.is_cuda:
-        return test_clusters_cuda(rays, clus_pack, live, first, ids, c, k, t_min)
-    return test_clusters_plain(rays, clus_pack, live, first, ids, c, k, t_min)
+        return test_clusters_cuda(rays, clus_pack, live, first, ids, c, k, t_min, counts)
+    return test_clusters_plain(rays, clus_pack, live, first, ids, c, k, t_min, counts)

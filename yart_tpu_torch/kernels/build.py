@@ -68,12 +68,14 @@ class Launch:
     arguments (the stream among them) and its preallocated outputs. Calling
     it launches the kernel once, uncounted, and returns the outputs, so a
     timer around the call times the launch and not the wrapper's checks and
-    allocations (the wrappers' `prepare` functions make one)."""
+    allocations (the wrappers' `prepare` functions make one). `inputs` are
+    the tensors whose pointers `args` holds, kept alive with it."""
 
-    __slots__ = ("name", "fn", "args", "out", "device")
+    __slots__ = ("name", "fn", "args", "out", "device", "inputs")
 
-    def __init__(self, name: str, fn, args: tuple, out, device):
+    def __init__(self, name: str, fn, args: tuple, out, device, inputs: tuple = ()):
         self.name, self.fn, self.args, self.out, self.device = name, fn, args, out, device
+        self.inputs = inputs
 
     def __call__(self):
         with torch.cuda.device(self.device):

@@ -63,8 +63,8 @@ t_max = -1. Every round, for the blocks still active:
    its least entry over the block's rays and picks the K lexicographically
    smallest keys at or above the block's window key;
 2. B7b (`test_clusters`) tests the block's rays against those K clusters
-   in order, each ray from its best hit so far, and improved rays take the
-   new hit;
+   in order (each cluster's real triangles, `cluster_counts`), each ray
+   from its best hit so far, and improved rays take the new hit;
 3. the least key left over (`bound_key`) becomes the block's next window.
    A block is done when nothing was left over, or when every ray's best t
    is at or below that key's entry (the entry bits with the id cleared,
@@ -305,6 +305,7 @@ def _intersect_rounds(scene, meta, o, d, t_max, t_min, nee, floor, k, max_rounds
     w_key = torch.full((n_blocks,), -(1 << 31), dtype=torch.int32, device=dev)
     act = torch.ones(n_blocks, dtype=torch.bool, device=dev)
     tested = torch.zeros(n_blocks, dtype=torch.float32, device=dev)
+    counts = cluster_counts(scene, meta)
     LEGACY.calls += 1
     for _ in range(max_rounds):
         n_act = int(act.sum())
@@ -316,7 +317,7 @@ def _intersect_rounds(scene, meta, o, d, t_max, t_min, nee, floor, k, max_rounds
         rays = torch.cat([o_s, d_s, res[:, 0:1], floor_s[:, None]], dim=1)
         ids, w_key, n_live = _bk.select_clusters(rays, scene.clus_box, w_key, act.to(torch.int32), k, t_min)
         live, first, dma = round_slots(scene, ids, n_live, act)
-        out = _bk.test_clusters(rays, scene.clus_pack, live, first, dma, c, k, t_min)
+        out = _bk.test_clusters(rays, scene.clus_pack, live, first, dma, c, k, t_min, counts)
         res = torch.where((out[:, 4].view(torch.int32) >= 0)[:, None], out, res)
         tested += live.view(n_blocks, k).sum(dim=1)
         act = act & ~blocks_done(res[:, 0], res[:, 4].view(torch.int32), w_key, nee)
