@@ -150,11 +150,42 @@ exits non-zero and prints no final "ok" line:
                floored re-cast) and the gated loop with fused=False on
                atrium-ivy's 2^16 camera rays. No render of phases 4-4f
                may launch B7a or B7b.
+  6. fwdbwd — the differentiable path (`render_wave(differentiable=True)`
+               and the backward of the mean radiance) at bench.py's fwd+bwd
+               shapes, each record with the card's name and power limit:
+               6a cornell-mat 256x256, 8 spp (524,288 lanes), depth 6,
+               roulette off, w.r.t. base_color, each remat policy
+               ("trace_lut", "trace", "all") with shade "off" and "xla";
+               6b atrium-ivy 128x128, 4 spp, depth 6, compaction (4, 2),
+               w.r.t. base_color and the rgba atlas the alpha gate reads
+               (B2 + B3 amask); 6c atrium 128x128, 4 spp, depth 8,
+               roulette on, compaction "auto", w.r.t. base_color and the
+               env image; 6d roadster 128x128, 4 spp, depth 6, compaction
+               (2, 4), w.r.t. base_color, clearcoat and volume density;
+               6e atrium-inst 128x128, 2 spp, depth 4, w.r.t. the
+               prototype vertices (`proto_pos`, B3 instanced); 6f the
+               inverse render of tests/test_inverse.py at 64x64, 4 spp
+               (60 Adam steps: loss down > 95%, the wall within 0.05, the
+               frozen rows untouched); and atrium-ivy at 512x512, 4 spp
+               (2^20 lanes), depth 8, roulette on, "trace_lut". Each
+               records the forward-only and the fwd+bwd wall (the last of
+               two runs), Mrays/s over the rays the forward counts, their
+               ratio, peak memory and B1-B3's launches in the forward and
+               the backward. Raises unless the gradients are finite and
+               non-zero, the traversal kernels launched in every forward
+               and none in a backward, the differentiable forward equals
+               the plain render bitwise (6e: the refit's image on
+               average), the remat policies agree (radiance bitwise,
+               gradients within GRAD_REL_TOL of the largest entry), and,
+               in 6a, 6b and 6e, the kernel path agrees with the twin
+               path likewise (6b at 8x8, 4 spp and 6e at 16x16, 2 spp:
+               B2's and B3's twins are slow on the card).
 The kernels line lists B1-B7b with their launches on the main paths (B1:
 cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
 earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
 with "pallas", atrium-ivy beside it; B7a, B7b: the incoherent round-based
-cast of 3l, the coherent one beside it), times and bounds; then the card as
+cast of 3l, the coherent one beside it; B1-B3 also per phase-6 case,
+forward and backward), times and bounds; then the card as
 nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1624,6 +1655,330 @@ def instanced_vs_baked(inst, inst_meta, pos, fwd, dev):
             "mean_rtol": INSTANCED_MEAN_RTOL}
 
 
+# The differentiable path (phase 6): the kernel path's gradient against the
+# twin path's, and each remat policy's against the first, within this share
+# of the gradient's largest entry (the backward of a gather accumulates with
+# atomics on the card, so the last bits of a sum may differ between runs;
+# the radiance is compared bitwise).
+GRAD_REL_TOL = 1e-5
+
+
+def traversal_launches() -> dict:
+    """B1-B3 launches so far (B3's also by mode) and their twins' calls on
+    CUDA tensors."""
+    from yart_tpu_torch.kernels import brute, fusedtrace, presort
+
+    out = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
+           "fused_trace": fusedtrace.COUNTS.launches,
+           "plain_cuda": brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda}
+    out.update({f"fused_trace.{k}": v for k, v in fusedtrace.COUNTS.modes.items()})
+    return out
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a.get(k, 0) for k in b if b[k] - a.get(k, 0)}
+
+
+def diff_leaves(scene, names, cfg):
+    """({name: leaf that requires grad}, the scene rebuilt on them, cfg):
+    a material field by name, "env_image" (its rows rebuilt from it, as
+    `diff.env_grads` does), "tex_rgba" (its quad rows rebuilt, as
+    `diff.texture_grads`) or "proto_pos" (with diff_geometry on)."""
+    import dataclasses
+
+    from yart_tpu_torch.render.lights import env_rows_from_image
+    from yart_tpu_torch.render.texture import qrows_from_data
+
+    xs, mats = {}, {}
+    for k in names:
+        if k == "env_image":
+            x = xs[k] = scene.env_image.clone().requires_grad_(True)
+            scene = dataclasses.replace(scene, env_image=x, env_rows=env_rows_from_image(x, scene.env_rows[:, 12]))
+        elif k == "tex_rgba":
+            x = xs[k] = scene.tex_rgba.data.clone().requires_grad_(True)
+            scene = dataclasses.replace(scene, tex_rgba=scene.tex_rgba._replace(data=x, qrows=qrows_from_data(x)))
+        elif k == "proto_pos":
+            x = xs[k] = scene.proto_pos.clone().requires_grad_(True)
+            scene = dataclasses.replace(scene, proto_pos=x)
+            cfg = dataclasses.replace(cfg, diff_geometry=True)
+        else:
+            mats[k] = xs[k] = getattr(scene.materials, k).clone().requires_grad_(True)
+    if mats:
+        scene = dataclasses.replace(scene, materials=scene.materials._replace(**mats))
+    return xs, scene, cfg
+
+
+def fwdbwd_inputs(cam_cfg, spp: int, dev):
+    """(camera, ZSobol sampler, (px, py, sample index)) of every pixel and
+    sample of the square image of `cam_cfg`."""
+    import torch
+
+    from yart_tpu_torch.ops.qmc import make_sampler
+    from yart_tpu_torch.render.camera import build_camera
+
+    side = cam_cfg.image_size[0]
+    yy, xx = torch.meshgrid(torch.arange(side, device=dev), torch.arange(side, device=dev), indexing="ij")
+    lanes = (xx.reshape(-1).repeat_interleave(spp), yy.reshape(-1).repeat_interleave(spp),
+             torch.arange(spp, device=dev).repeat(side * side))
+    return build_camera(cam_cfg, dev), make_sampler("zsobol", spp, (side, side), 0, device=dev), lanes
+
+
+def fwdbwd_once(scene, meta, cam, sampler, cfg, lanes, leaves) -> dict:
+    """One differentiable render and the backward of its mean radiance
+    w.r.t. `leaves`, timed (host clock, synchronised); the B1-B3 launches
+    of the forward and of the backward."""
+    import torch
+
+    from yart_tpu_torch.render.integrator import render_wave
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xs, s, c = diff_leaves(scene, leaves, cfg)
+    l0 = traversal_launches()
+    rad, rays = render_wave(s, meta, cam, sampler, c, *lanes, differentiable=True)
+    loss = rad.mean()
+    l1 = traversal_launches()
+    grads = torch.autograd.grad(loss, list(xs.values()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rad": rad.detach(), "rays": float(rays), "grads": dict(zip(xs, grads)), "wall": wall,
+            "fwd": _delta(l0, l1), "bwd": _delta(l1, traversal_launches())}
+
+
+def grad_rel_err(a: dict, b: dict) -> dict:
+    """max |a - b| over the largest |b|, per leaf."""
+    return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), 1e-30) for k in b}
+
+
+def fwdbwd_case(name, scene, meta, cam_cfg, spp: int, dev, cfg, leaves, kernels, policies=None,
+                shade_kernels=("off",), twin: bool = False, reps: int = 2) -> dict:
+    """Phase 6's measurement of one fwd+bwd shape: the forward-only render
+    (`render_wave`, no grad) and, per shade kernel and remat policy, the
+    differentiable render with the backward of its mean radiance w.r.t.
+    `leaves`, each `reps` times (the last one timed: wall, Mrays/s over the
+    rays the forward counts, the ratio to the forward, peak memory). Raises
+    unless the gradients are finite and non-zero, every traversal kernel of
+    `kernels` launched in the forward, none of B1-B3 in a backward, no twin
+    on CUDA; and unless every policy's radiance equals the first's bitwise
+    and its gradients within GRAD_REL_TOL. With `twin`, the same for the
+    first configuration with the traversal forced to the plain twins, at
+    the case's shape (True) or at (side, spp)."""
+    import dataclasses
+
+    import torch
+
+    from yart_tpu_torch.render.integrator import render_wave
+
+    t_case = time.time()
+    side = cam_cfg.image_size[0]
+    cam, sampler, lanes = fwdbwd_inputs(cam_cfg, spp, dev)
+    rec = {"phase": "fwdbwd", "case": name, "smi": nvidia_smi(), "lanes": int(lanes[0].shape[0]),
+           "size": [side, side], "spp": spp, "max_depth": cfg.max_depth, "rr_start_depth": cfg.rr_start_depth,
+           "compact": [cfg.compact_depth, cfg.compact_factor], "leaves": list(leaves), "forward": {}, "runs": {}}
+    firsts = {}
+    for sk in shade_kernels:
+        fwd_walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                rad_f, rays_f = render_wave(scene, meta, cam, sampler, dataclasses.replace(cfg, shade_kernel=sk),
+                                            *lanes)
+            torch.cuda.synchronize()
+            fwd_walls.append(time.perf_counter() - t0)
+        rec["forward"][sk] = {"wall_s": round(fwd_walls[-1], 4), "rays": float(rays_f),
+                              "mrays_per_s": float(rays_f) / fwd_walls[-1] / 1e6}
+        for remat in policies or (cfg.remat,):
+            c = dataclasses.replace(cfg, shade_kernel=sk, remat=remat)
+            for _ in range(reps):
+                torch.cuda.reset_peak_memory_stats(dev)
+                r = fwdbwd_once(scene, meta, cam, sampler, c, lanes, leaves)
+            peak = torch.cuda.max_memory_allocated(dev)
+            key = f"{sk}/{remat}"
+            bad = [k for k, g in r["grads"].items() if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+            if bad:
+                raise AssertionError(f"{name} {key}: gradients not finite or all zero: {bad}")
+            if r["bwd"] or any(r["fwd"].get(k, 0) <= 0 for k in kernels) or r["fwd"].get("plain_cuda"):
+                raise AssertionError(f"{name} {key}: traversal launches forward {r['fwd']} backward {r['bwd']}")
+            if "proto_pos" in leaves:
+                # The refit re-solves t, u, v from the vertices (MT in world space
+                # against the traversal's cluster test: u and v move by up to ~2e-4
+                # at 20 m, and a texel edge can move with them), so the image is
+                # held to the plain one on average: mean |difference| within 1e-3
+                # of the mean radiance; the largest difference is recorded.
+                diff = (r["rad"] - rad_f).abs()
+                refit = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+                         "mean_radiance": float(rad_f.abs().mean())}
+                # A moved hit point can change a lane's later rays: the counts
+                # within 0.5%.
+                refit["rays"], refit["plain_rays"] = r["rays"], float(rays_f)
+                if abs(r["rays"] - float(rays_f)) > 5e-3 * float(rays_f) \
+                        or not refit["mean_abs"] <= 1e-3 * refit["mean_radiance"]:
+                    raise AssertionError(f"{name} {key}: the refit forward is off the plain render: {refit}")
+                rec["refit_vs_plain"] = refit
+            elif r["rays"] != float(rays_f) or not bits_equal(r["rad"], rad_f):
+                raise AssertionError(f"{name} {key}: the differentiable forward differs from the plain render")
+            run = {"wall_s": round(r["wall"], 4), "mrays_per_s": r["rays"] / r["wall"] / 1e6,
+                   "fwdbwd_over_forward": r["wall"] / fwd_walls[-1], "peak_mem_gib": peak / 2 ** 30,
+                   "launches_forward": r["fwd"], "launches_backward": r["bwd"],
+                   "grad_abs_max": {k: float(g.abs().max()) for k, g in r["grads"].items()}}
+            if sk not in firsts:
+                firsts[sk] = r
+            else:
+                run["grad_rel_err_vs_first_policy"] = err = grad_rel_err(r["grads"], firsts[sk]["grads"])
+                if not bits_equal(r["rad"], firsts[sk]["rad"]) or max(err.values()) > GRAD_REL_TOL:
+                    raise AssertionError(f"{name} {key}: differs from the first policy: {err}")
+            rec["runs"][key] = run
+    first = firsts[shade_kernels[0]]
+    rec["rays"] = first["rays"]
+    if len(shade_kernels) > 1:
+        # The fused shade math orders its floats otherwise, and at 524,288
+        # lanes over 6 bounces the gradients part by ~8e-4 of the largest
+        # entry on an H100 (PERF.md §5): a sanity bar of 5e-3.
+        rec["grad_rel_err_xla_vs_off"] = err = grad_rel_err(firsts[shade_kernels[1]]["grads"], first["grads"])
+        if max(err.values()) > 5e-3:
+            raise AssertionError(f"{name}: {shade_kernels[1]} against {shade_kernels[0]}: {err}")
+    if twin:
+        # The twins of B2 and B3 are slow on the card (6b's twin path took 678 s
+        # at its 65,536 lanes and 78 s at 1,024 on an H100): `twin` = (side,
+        # spp) compares the two paths at that smaller shape, True at the case's.
+        c = dataclasses.replace(cfg, shade_kernel=shade_kernels[0], remat=(policies or (cfg.remat,))[0])
+        t_in = (cam, sampler, lanes) if twin is True else fwdbwd_inputs(
+            dataclasses.replace(cam_cfg, image_size=(twin[0], twin[0])), twin[1], dev)
+        k = first if twin is True else fwdbwd_once(scene, meta, *t_in[:2], c, t_in[2], leaves)
+        with intersection_forced_to_plain():
+            t = fwdbwd_once(scene, meta, *t_in[:2], c, t_in[2], leaves)
+        err = grad_rel_err(t["grads"], k["grads"])
+        if any(t["fwd"].get(k_, 0) for k_ in kernels) or t["bwd"] or k["bwd"] or not bits_equal(t["rad"], k["rad"]) \
+                or max(err.values()) > GRAD_REL_TOL:
+            raise AssertionError(f"{name}: kernel path against twin path: rel err {err}, launches {t['fwd']}")
+        rec["twin"] = {"lanes": int(t_in[2][0].shape[0]), "radiance_bitwise": True, "grad_rel_err": err,
+                       "twin_wall_s": round(t["wall"], 4)}
+    rec["seconds"] = round(time.time() - t_case, 3)
+    emit(rec)
+    return rec
+
+
+def inverse_render_case(dev, side: int = 64, spp: int = 4, steps: int = 60) -> dict:
+    """Phase 6f: tests/test_inverse.py's problem on the card at 64x64, 4
+    spp, depth 3: the cornell red wall perturbed to (0.3, 0.3, 0.6), 60 Adam
+    steps at lr 0.05, only row 1 free. Raises unless the loss falls by more
+    than 95%, the colour comes back within 0.05 and the frozen rows stay
+    as they were; B1 launches exactly in the forwards (the autotune probe
+    and one per step), never in a backward. Emits and returns the record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.config import CameraConfig, RenderConfig
+    from yart_tpu_torch.render.integrator import render_wave
+    from yart_tpu_torch.scene.procedural import cornell_box
+    from yart_tpu_torch.tools.inverse_render import optimize_materials
+
+    scene, meta = cornell_box().compile(dev)
+    cam, sampler, lanes = fwdbwd_inputs(CameraConfig(image_size=(side, side), focal_length=28.0,
+                                                     position=(0, 1.0, 3.4), forward=(0, 0, -1)), spp, dev)
+    cfg = RenderConfig(samples=spp, max_depth=3, rr_start_depth=99)
+    l0 = traversal_launches()
+    with torch.no_grad():
+        target, _ = render_wave(scene, meta, cam, sampler, cfg, *lanes)
+    per_forward = _delta(l0, traversal_launches()).get("brute_intersect", 0)
+    bc_true = scene.materials.base_color.cpu().numpy()
+    bc_bad = bc_true.copy()
+    bc_bad[1, :3] = (0.3, 0.3, 0.6)
+    bad = dataclasses.replace(scene, materials=scene.materials._replace(base_color=torch.from_numpy(bc_bad).to(dev)))
+    mask = np.zeros(bc_bad.shape[0], bool)
+    mask[1] = True
+    torch.cuda.synchronize()
+    l0 = traversal_launches()
+    t0 = time.perf_counter()
+    res = optimize_materials(bad, meta, cam, sampler, cfg, *lanes, target, steps=steps, lr=0.05, mask=mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _delta(l0, traversal_launches())
+    got = res.base_color.cpu().numpy()
+    rec = {"phase": "fwdbwd", "case": "inverse_render", "smi": nvidia_smi(), "lanes": int(lanes[0].shape[0]),
+           "size": [side, side], "spp": spp, "max_depth": 3, "steps": steps, "wall_s": round(wall, 3),
+           "s_per_step": wall / steps, "loss_first": res.losses[0], "loss_last": res.losses[-1],
+           "loss_drop": 1.0 - res.losses[-1] / res.losses[0], "recovered": got[1, :3].tolist(),
+           "true": bc_true[1, :3].tolist(), "launches": launches, "b1_per_forward": per_forward}
+    if not (res.losses[-1] < 0.05 * res.losses[0] and np.abs(got[1, :3] - bc_true[1, :3]).max() <= 0.05
+            and np.array_equal(np.delete(got, 1, axis=0), np.delete(bc_bad, 1, axis=0))):
+        raise AssertionError(f"inverse render did not recover the wall: {rec}")
+    if launches != {"brute_intersect": (steps + 1) * per_forward}:
+        raise AssertionError(f"inverse render: B1 launched {launches}, not {steps + 1} forwards x {per_forward}")
+    emit(rec)
+    return rec
+
+
+def fwdbwd_launch_table(recs: dict, kernel: str) -> dict:
+    """{case: {"forward": launches, "backward": launches}} of `kernel` in
+    one fwd+bwd of each phase-6 case (its first configuration; the inverse
+    render's whole loop)."""
+    out = {}
+    for rec in recs.values():
+        if not isinstance(rec, dict):
+            continue
+        if "runs" in rec:
+            run = next(iter(rec["runs"].values()))
+            f, b = run["launches_forward"].get(kernel, 0), run["launches_backward"].get(kernel, 0)
+        else:
+            f, b = rec["launches"].get(kernel, 0), 0
+        if f or b:
+            out[rec["case"]] = {"forward": f, "backward": b}
+    return out
+
+
+def fwdbwd_phases(dev, scenes: dict) -> dict:
+    """Phase 6: the differentiable path on the card, shapes from bench.py's
+    fwd+bwd rows. `scenes` maps cornell-mat, atrium-ivy, atrium, roadster
+    and atrium-inst to (scene, meta, camera position, forward). Emits each
+    record as its case completes; returns them by case."""
+    from yart_tpu_torch.config import CameraConfig, RenderConfig
+
+    def cam(key, side, exposure=0.0):
+        pos, fwd = scenes[key][2:]
+        return CameraConfig(image_size=(side, side), focal_length=35.0, position=pos, forward=fwd,
+                            exposure=exposure)
+
+    recs = {}
+    t0 = time.time()
+    sc, mt = scenes["cornell-mat"][:2]
+    recs["6a"] = fwdbwd_case(
+        "cornell_fwdbwd", sc, mt, cam("cornell-mat", 256), 8, dev,
+        RenderConfig(samples=8, max_depth=6, rr_start_depth=99, compact_depth=None), ("base_color",),
+        ("brute_intersect",), policies=("trace_lut", "trace", "all"), shade_kernels=("off", "xla"), twin=True)
+    sc, mt = scenes["atrium-ivy"][:2]
+    recs["6b"] = fwdbwd_case(
+        "atrium_ivy_fwdbwd", sc, mt, cam("atrium-ivy", 128, 3.0), 4, dev,
+        RenderConfig(samples=4, max_depth=6, rr_start_depth=99, compact_depth=4, compact_factor=2),
+        ("base_color", "tex_rgba"), ("presort_keys", "fused_trace.amask"), twin=(8, 4))
+    sc, mt = scenes["atrium"][:2]
+    recs["6c"] = fwdbwd_case(
+        "atrium_fwdbwd_rr", sc, mt, cam("atrium", 128, 3.0), 4, dev,
+        RenderConfig(samples=4, max_depth=8, rr_start_depth=2, compact_depth="auto"),
+        ("base_color", "env_image"), ("presort_keys", "fused_trace.closest", "fused_trace.nee"))
+    sc, mt = scenes["roadster"][:2]
+    recs["6d"] = fwdbwd_case(
+        "roadster_fwdbwd", sc, mt, cam("roadster", 128, 1.0), 4, dev,
+        RenderConfig(samples=4, max_depth=6, rr_start_depth=99, compact_depth=2, compact_factor=4),
+        ("base_color", "clearcoat", "volume_density"), ("presort_keys", "fused_trace"))
+    sc, mt = scenes["atrium-inst"][:2]
+    recs["6e"] = fwdbwd_case(
+        "atrium_inst_geometry", sc, mt, cam("atrium-inst", 128, 3.0), 2, dev,
+        RenderConfig(samples=2, max_depth=4, rr_start_depth=99, compact_depth=None),
+        ("proto_pos",), ("presort_keys", "fused_trace.instanced", "fused_trace.instanced+nee"), twin=(16, 2))
+    recs["6f"] = inverse_render_case(dev)
+    sc, mt = scenes["atrium-ivy"][:2]
+    recs["full_width"] = fwdbwd_case(
+        "atrium_ivy_fwdbwd_2^20", sc, mt, cam("atrium-ivy", 512, 3.0), 4, dev,
+        RenderConfig(samples=4, max_depth=8, rr_start_depth=2, compact_depth="auto", remat="trace_lut"),
+        ("base_color",), ("presort_keys", "fused_trace.amask"), reps=1)
+    recs["seconds"] = round(time.time() - t0, 3)
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--spp", type=int, default=16, help="samples per pixel of the 512x512 renders (phases 4-4d)")
@@ -2028,12 +2383,28 @@ def main() -> int:
     emit(pallas_equals_xla("roadster", road, road_meta, CameraConfig(
         image_size=(64, 64), focal_length=35.0, position=road_pos, forward=road_fwd, exposure=1.0), dev))
 
+    # ---- 6. the differentiable path (fwd+bwd): B1-B3 in every forward ----
+    # bounce and in no backward pass, under every remat policy.
+    t0 = time.time()
+    atr, atr_meta = atrium().compile(dev)
+    emit({"phase": "scene", "scene": "atrium", "n_tris": atr_meta.n_tris, "build_s": round(time.time() - t0, 3)})
+    atr_pos, atr_target = CAMERAS["atrium"]
+    fwdbwd = fwdbwd_phases(dev, {
+        "cornell-mat": (scene, meta, cornell_cam.position, cornell_cam.forward),
+        "atrium-ivy": (ivy, ivy_meta, ivy_pos, ivy_fwd),
+        "atrium": (atr, atr_meta, atr_pos, tuple(t - p for p, t in zip(atr_pos, atr_target))),
+        "roadster": (road, road_meta, road_pos, road_fwd),
+        "atrium-inst": (inst, inst_meta, inst_pos, inst_fwd)})
+    emit({"phase": "fwdbwd_total", "seconds": fwdbwd["seconds"]})
+    del atr
+
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     print(json.dumps({"kernels": [
         {"name": "brute_intersect", "route": "cuda",
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
          "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
          "launches": launches_cornell["brute_intersect"],
+         "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "brute_intersect"),
          "max_abs_err": max(r["max_abs_err"] for r in b1),
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
          "bound_ms": rec_a["bound_ms"], "bound_by": rec_a["bound_by"], "library_ms": None,
@@ -2047,6 +2418,7 @@ def main() -> int:
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
                               "atrium-ivy": launches_ivy["presort_keys"],
                               "atrium-inst": launches_inst["presort_keys"]},
+         "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "presort_keys"),
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
          "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
          "bound_ms": rec_ic["b2_bound_ms"], "bound_by": rec_ic["b2_bound_by"], "library_ms": None,
@@ -2062,6 +2434,7 @@ def main() -> int:
          "launches_by_path": {"spheres": launches_spheres["fused_trace_modes"],
                               "atrium-ivy": launches_ivy["fused_trace_modes"],
                               "atrium-inst": launches_inst["fused_trace_modes"]},
+         "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "fused_trace"),
          "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]
                             + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),
          "ms": rec_ic["b3_ms"], "plain_ms": rec_ic["b3_plain_ms"],

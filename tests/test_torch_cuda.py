@@ -22,7 +22,9 @@ flags that are no prefix, repeated ids, one block and 2,048 blocks, C =
 gated re-cast loop's (fused and
 round-based), bin-trace's and the round-based block trace's kernel paths
 against their twin paths, torch.argmin's first-minimum rule on the card,
-and renders that go through them.
+renders that go through them, and the differentiable path (cornell-mat
+forward + backward under each remat policy: B1 in every forward bounce and
+never in a backward pass, kernel path against twin path).
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -31,6 +33,8 @@ without one. They import no JAX, so they also run where JAX is absent:
 
 The kernels are built with --fmad=false and repeat their twins' float
 operations in order, so kernel and twin must agree bitwise."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -41,6 +45,7 @@ from yart_tpu_torch.kernels import blocktrace as legacy
 from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
 from yart_tpu_torch.ops import lut, qmc
 from yart_tpu_torch.render import bintrace, blocktrace, integrator
+from yart_tpu_torch.render.camera import build_camera
 from yart_tpu_torch.render.renderer import Renderer
 from yart_tpu_torch.scene.builder import SceneBuilder
 from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres
@@ -1417,3 +1422,54 @@ def test_launcher_loads_its_library_once(quad_soup, monkeypatch, mod, fn, lib):
     run()
     torch.cuda.synchronize()
     assert calls.count(lib) == 1, calls
+
+
+def _cornell_fwdbwd(dev, remat, plain=False):
+    """One differentiable render of cornell-mat at 2^16 lanes (128x128, 4
+    spp, depth 6, roulette off) and its backward w.r.t. base_color:
+    (radiance, gradient, B1 launches forward, B1 launches backward, B1
+    twin calls on CUDA). `plain` routes B1's calls to its twin."""
+    scene, meta = cornell_box(extra_materials=True).compile(dev)
+    cfg = RenderConfig(samples=4, max_depth=6, rr_start_depth=99, compact_depth=None, remat=remat)
+    sampler = qmc.make_sampler("zsobol", 4, (128, 128), 0, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(128, device=dev), torch.arange(128, device=dev), indexing="ij")
+    px, py = xx.reshape(-1).repeat_interleave(4), yy.reshape(-1).repeat_interleave(4)
+    sidx = torch.arange(4, device=dev).repeat(128 * 128)
+    cam = build_camera(CameraConfig(image_size=(128, 128), focal_length=28.0, position=(0, 1.0, 3.4),
+                                    forward=(0, 0, -1)), dev)
+    bc = scene.materials.base_color.clone().requires_grad_(True)
+    s = dataclasses.replace(scene, materials=scene.materials._replace(base_color=bc))
+    real = brute.brute_intersect
+    if plain:
+        brute.brute_intersect = brute.brute_plain
+    try:
+        brute.COUNTS.reset()
+        rad, _ = integrator.render_wave(s, meta, cam, sampler, cfg, px, py, sidx, differentiable=True)
+        fwd = brute.COUNTS.launches
+        (g,) = torch.autograd.grad(rad.mean(), bc)
+        torch.cuda.synchronize()
+        bwd = brute.COUNTS.launches - fwd
+    finally:
+        brute.brute_intersect = real
+    return rad.detach(), g, fwd, bwd, brute.COUNTS.plain_cuda
+
+
+def test_cornell_fwdbwd_kernel_path_equals_twin_path(dev):
+    """The differentiable path on the card: B1 launches in every forward
+    bounce (camera and shadow rays) and never in the backward pass, under
+    each remat policy; the kernel path's radiance equals the twin path's
+    bitwise and its gradient agrees to 1e-5 of its largest entry (the
+    backward of the material gather accumulates with atomics, so the last
+    bits of a sum may differ between runs); the policies agree likewise."""
+    out = {remat: _cornell_fwdbwd(dev, remat) for remat in ("trace_lut", "trace", "all")}
+    rad_t, g_t, fwd_t, bwd_t, plain_cuda = _cornell_fwdbwd(dev, "trace_lut", plain=True)
+    assert fwd_t == bwd_t == 0 and plain_cuda > 0
+    ref_rad, ref_g = out["trace_lut"][:2]
+    scale = float(ref_g.abs().max())
+    assert torch.isfinite(ref_g).all() and scale > 0
+    assert torch.equal(ref_rad.view(torch.int32), rad_t.view(torch.int32))
+    assert float((ref_g - g_t).abs().max()) <= 1e-5 * scale
+    for remat, (rad, g, fwd, bwd, plain) in out.items():
+        assert fwd >= 6 and bwd == 0 and plain == 0, (remat, fwd, bwd, plain)
+        assert torch.equal(rad.view(torch.int32), ref_rad.view(torch.int32)), remat
+        assert float((g - ref_g).abs().max()) <= 1e-5 * scale, remat

@@ -257,8 +257,13 @@ def test_renderer_refusals(cornell_mat):
     cam, cfg = _golden_cfg(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Renderer(ts, tm, cam, cfg, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, diff_geometry=True), device="cpu").render()
+    # A plain render ignores diff_geometry (it only acts in differentiable
+    # mode), as the JAX Renderer does: the image is the one without it.
+    cam8 = dataclasses.replace(cam, image_size=(8, 8))
+    cfg4 = dataclasses.replace(cfg, samples=4, first_wave_samples=4, max_wave_samples=4, max_depth=3)
+    np.testing.assert_array_equal(
+        TR.Renderer(ts, tm, cam8, dataclasses.replace(cfg4, diff_geometry=True), device="cpu").render().hdr,
+        TR.Renderer(ts, tm, cam8, cfg4, device="cpu").render().hdr)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"), device="cpu")
     for fields in (dict(n_instances=2), dict(n_instances=2, any_alpha=True)):  # the instanced slice

@@ -161,11 +161,47 @@ def test_component_math_matches_jax(lanes, case):
 
 
 def test_finish_refuses_detach(lanes):
-    c = TSM.components(port_inp(lanes))
-    cand = TSM.candidates(c, GATES)
-    fet = TSM.run_fetches(TL.load_tables("cpu"), cand["coords"])
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TSM.finish(c, cand, fet, GATES, detach=True)
+    """finish(detach=True), the differentiable mode's cut (the name is from
+    when the port refused it): its outputs are finish()'s, and the gradient
+    of its radiance and throughput w.r.t. the lanes' material against the
+    JAX module's `jax.grad` through finish(detach=True), on the same lanes.
+    The gradient of each lane is its own, so lanes compare one by one with
+    the float bar of this module (rtol 1e-3, atol 1e-5, 99.5% of lanes)."""
+    diff_keys = ("base", "metallic", "roughness", "emission")
+
+    def port(detach, vals):
+        inp = dict(port_inp(lanes), **dict(zip(diff_keys, vals)))
+        c = TSM.components(inp)
+        cand = TSM.candidates(c, GATES)
+        out = TSM.finish(c, cand, TSM.run_fetches(TL.load_tables("cpu"), cand["coords"]), GATES,
+                         detach=detach)
+        return out, sum(torch.stack(out[k], -1).sum() for k in ("L_emit", "contrib", "atten"))
+
+    leaves = [torch.from_numpy(lanes[k]).requires_grad_(True) for k in diff_keys]
+    out, loss = port(True, leaves)
+    ref, _ = port(False, [x.detach() for x in leaves])
+    for k in ref:
+        a, b = out[k], ref[k]
+        a, b = (torch.stack(a, -1), torch.stack(b, -1)) if isinstance(a, tuple) else (a, b)
+        assert torch.equal(a.detach(), b), k
+    grads = torch.autograd.grad(loss, leaves)
+
+    def jloss(vals):
+        inp = dict(jax_inp(lanes), **dict(zip(diff_keys, vals)))
+        cand = JSM.candidates(inp, GATES)
+        o = JSM.finish(inp, cand, JSM.run_fetches(JL.load_tables(), cand["coords"]), GATES, detach=True)
+        return sum(jnp.sum(jnp.stack(o[k], -1)) for k in ("L_emit", "contrib", "atten"))
+
+    jvals = [(lambda v: (v[:, 0], v[:, 1], v[:, 2]) if v.ndim == 2 else v)(jnp.asarray(lanes[k]))
+             for k in diff_keys]
+    # Jitted with XLA:CPU's backend optimisation off: op by op, the JAX
+    # side's gradient took ~20 s (each op compiled alone).
+    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    jgrads = jax.jit(jax.grad(jloss)).lower(jvals).compile(compiler_options=opts)(jvals)
+    live = lanes["active"] | lanes["found"]
+    for k, g, jg in zip(diff_keys, grads, jgrads):
+        assert torch.isfinite(g).all() and g.abs().sum() > 0, k
+        _mostly_close(_np(jg)[live], g.numpy()[live], k)
 
 
 @pytest.mark.parametrize("sampler", ["zsobol_even", "zsobol_odd", "hash"])

@@ -134,11 +134,22 @@ def test_refusals(cornell_mat):
         _render(ts, tm, shade_kernel="pallas", regularize_specular=2)
     with pytest.raises(ValueError, match="shade_kernel"):
         _render(ts, tm, shade_kernel="mosaic")
+    # Differentiable mode: "pallas" has no backward and is refused with the
+    # JAX package's message; "xla" runs (kernels/shade_math.py finish(detach=True))
+    # and renders the forward's image.
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
-    for mode in ("xla", "pallas"):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            TI.li(ts, tm, None, None, o, d, RenderConfig(shade_kernel=mode), differentiable=True)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        TI.li(ts, tm, None, None, o, d, RenderConfig(shade_kernel="pallas"), differentiable=True)
+    from yart_tpu_torch.ops.qmc import make_sampler
+
+    sampler = make_sampler("zsobol", 1, (2, 2), 0, device="cpu")
+    lanes = sampler.init_lanes(torch.tensor([0, 1, 0, 1]), torch.tensor([0, 0, 1, 1]), torch.zeros(4, dtype=torch.int64))
+    o = torch.tensor([[0.0, 1.0, 3.4]]).repeat(4, 1)
+    cfg = RenderConfig(shade_kernel="xla", max_depth=3)
+    plain, rays = TI.li(ts, tm, sampler, lanes, o, d, cfg)
+    diff, rays_d = TI.li(ts, tm, sampler, lanes, o, d, cfg, differentiable=True)
+    assert torch.equal(plain, diff) and float(rays) == float(rays_d) and float(plain.sum()) > 0
     # "xla" carries the specular-chain regularization.
     img, _ = _render(ts, tm, shade_kernel="xla", regularize_specular=2)
     assert np.isfinite(img).all()

@@ -13,8 +13,12 @@ hand-written Hopper kernels: the brute-force intersection B1
 triangles, and above that the block trace (`render/blocktrace.py`) with
 its presort B2 (`kernels/presort.py`, `csrc/presort_keys.cu`) and fused
 closest-hit trace B3 (`kernels/fusedtrace.py`, `csrc/fused_trace.cu`).
-Entry points run on the card unless given `device="cpu"`. Everything else
-raises `NotImplementedError` naming its ROADMAP.md item.
+Later slices added textures, alpha gates, instancing, bin-trace, the fused
+shade tail and the round-based block trace (all eight TPU kernels have a
+Hopper counterpart in `csrc/`), and the differentiable path:
+`render/diff.py` and `tools/inverse_render.py` (README.md). Entry points
+run on the card unless given `device="cpu"`. Everything else raises
+`NotImplementedError` naming its ROADMAP.md item.
 
 This package imports torch and nothing of jax or of `yart_tpu`; its
 configuration dataclasses (`config.py`) mirror `yart_tpu/config.py`.

@@ -4,8 +4,7 @@ The port keeps its own copies so that it depends on nothing of the JAX
 package. Every field has the name and default of its counterpart in
 `yart_tpu/config.py` (tests/test_torch_render.py holds them equal), so a
 configuration written for one package reads the same in the other. Only
-the knobs the port reads are here; `diff_geometry` stays so that its
-unported value can be refused by name.
+the knobs the port reads are here.
 """
 
 from __future__ import annotations
@@ -63,4 +62,13 @@ class RenderConfig:
     # (sampler draws) + B5 (fused shade) as CUDA kernels on a CUDA device,
     # their plain twins on the CPU. The names are the JAX package's.
     shade_kernel: str = "off"
-    diff_geometry: bool = False  # only False is ported (no gradients yet)
+    # Differentiable mode only: re-solve each hit's (t, u, v) from the
+    # vertex positions so gradients reach `scene.positions` (or an
+    # instanced scene's `proto_pos`); a plain render ignores it.
+    diff_geometry: bool = False
+    # What the backward pass of a differentiable render keeps from its
+    # forward: "trace" checkpoints each bounce and keeps the traversal
+    # outputs (the backward recomputes the shading, never a traversal);
+    # "trace_lut" keeps the LUT and texture fetches too; "all" is plain
+    # autograd over every bounce (no recomputation, the most memory).
+    remat: str = "trace_lut"

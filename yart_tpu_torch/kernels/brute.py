@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from yart_tpu_torch.kernels.build import Counts, Launch, load
+from yart_tpu_torch.kernels.build import Counts, Launch, load, refuse_grad
 
 EPS_DET = 1e-12  # reference epsilon (math_base.hpp)
 MAX_TRIS = 4096  # the dispatcher's cap for the brute path (render/intersect.py)
@@ -196,6 +196,7 @@ def brute_intersect(tri_pack, o, d, t_max, n_tris: int, t_min: float):
     """Closest hit of every ray against the first `n_tris` rows of
     `tri_pack` [T, 12]; o, d [N, 3], t_max [N] float32. CUDA tensors go to
     the kernel, CPU tensors to the plain twin."""
+    refuse_grad("brute_intersect", tri_pack, o, d, t_max)
     if o.is_cuda:
         return brute_cuda(tri_pack, o, d, t_max, n_tris, t_min)
     return brute_plain(tri_pack, o, d, t_max, n_tris, t_min)

@@ -63,6 +63,24 @@ class Counts:
         self.modes = {}
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad. The kernels
+    read raw pointers and have no backward, so a gradient through one would
+    be lost without a word; the traversals take detached inputs under
+    `torch.no_grad()` (as a Pallas call without a VJP fails under
+    `jax.grad`). `tensors` may hold None and tuples of tensors."""
+    if not torch.is_grad_enabled():
+        return
+    flat = []
+    for t in tensors:
+        flat.extend(t if isinstance(t, (tuple, list)) else (t,))
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in flat):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the traversal has no backward; "
+            "call it on detached inputs under torch.no_grad()"
+        )
+
+
 class Launch:
     """One kernel call, checked and ready: its bound launcher, its ctypes
     arguments (the stream among them) and its preallocated outputs. Calling

@@ -74,7 +74,7 @@ import functools
 
 import torch
 
-from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.build import Counts, load, refuse_grad
 from yart_tpu_torch.kernels.presort import ID_MASK, KEY_DEAD, N_SLOTS, sweep_bounds
 
 EPS_DET = 1e-12
@@ -332,6 +332,7 @@ def fused_trace(rays, slots, clus_box, clus_pack, clus_count, blive, t_min: floa
     alpha masks; with `inst`, over instance clusters) of presorted `rays`
     [Np, 8] with their presort `slots` [Np, 4]; see the module docstring.
     CUDA tensors go to the kernel, CPU tensors to the plain twin."""
+    refuse_grad("fused_trace", rays, clus_box, clus_pack, inst)
     if rays.is_cuda:
         return fused_trace_cuda(rays, slots, clus_box, clus_pack, clus_count, blive, t_min, nee, amask,
                                 inst)

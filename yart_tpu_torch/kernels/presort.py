@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from yart_tpu_torch.kernels.build import Counts, load
+from yart_tpu_torch.kernels.build import Counts, load, refuse_grad
 
 ID_BITS = 13  # cluster-id bits of a packed key (pallas_blocktrace.py:51)
 ID_MASK = (1 << ID_BITS) - 1
@@ -184,6 +184,7 @@ def presort_keys(rays, clus_box, n_clus: int, t_min: float):
     """Presort rows of `rays` [N, 8] against the first `n_clus` boxes of
     `clus_box` [8, cpad]. CUDA tensors go to the kernel, CPU tensors to the
     plain twin."""
+    refuse_grad("presort_keys", rays, clus_box)
     if rays.is_cuda:
         return presort_cuda(rays, clus_box, n_clus, t_min)
     return presort_plain(rays, clus_box, n_clus, t_min)

@@ -11,7 +11,9 @@ float operations in the same order, so the two agree bit for bit on the
 card (built with --fmad=false). Three rules of PyTorch's CUDA ops that the
 kernel repeats: `tensor / python_float` multiplies by the float32
 reciprocal of the scalar, `python_float / tensor` is `reciprocal(t) * s`,
-and clamp / maximum / minimum return a NaN operand. Python-float constants
+and clamp / maximum / minimum return a NaN operand (the clamps are
+ops/vecmath.py's `maximum` / `minimum` / `clip`: clamp_min / clamp_max /
+clamp where no gradient flows, jnp's tie rule where one does). Python-float constants
 enter as float32, rounded from the double.
 
 The pipeline is the JAX module's:
@@ -43,6 +45,7 @@ import math
 import torch
 
 from yart_tpu_torch.ops import lut
+from yart_tpu_torch.ops.vecmath import clip, maximum
 
 PI = math.pi
 
@@ -218,7 +221,7 @@ def ggx_smooth(ax, ay):
 
 def _phi_terms(w):
     cos2t = w[2] * w[2]
-    sin2t = torch.clamp_min(1.0 - cos2t, 0.0)
+    sin2t = maximum(1.0 - cos2t, 0.0)
     safe = torch.where(sin2t > 1e-20, sin2t, 1.0)
     z = sin2t == 0.0
     cos2p = torch.where(z, 1.0, w[0] * w[0] / safe)
@@ -231,8 +234,8 @@ def ggx_mdf(ax, ay, w):
     ok = cos2t > 1e-12
     tan2t = torch.where(ok, sin2t, 0.0) / torch.where(ok, cos2t, 1.0)
     cos4t = torch.where(ok, cos2t * cos2t, 1.0)
-    ax = torch.clamp_min(ax, ALPHA_FLOOR)
-    ay = torch.clamp_min(ay, ALPHA_FLOOR)
+    ax = maximum(ax, ALPHA_FLOOR)
+    ay = maximum(ay, ALPHA_FLOOR)
     k = tan2t * (cos2p / (ax * ax) + sin2p / (ay * ay))
     k2 = (1.0 + k) * (1.0 + k)
     d = 1.0 / (PI * ax * ay * cos4t * k2)
@@ -259,7 +262,7 @@ def ggx_g(ax, ay, wo, wi):
 def ggx_vmdf(ax, ay, w, wm):
     return (
         ggx_g1(ax, ay, w)
-        / torch.clamp_min(w[2].abs(), 1e-20)
+        / maximum(w[2].abs(), 1e-20)
         * ggx_mdf(ax, ay, wm)
         * vdot(w, wm).abs()
     )
@@ -279,8 +282,8 @@ def sample_cosine_hemisphere(u0, u1):
 
 def sample_visible(ax, ay, w, u0, u1):
     """Heitz VNDF sampling (ops/ggx.py sample_visible, bsdf.hpp:243-271)."""
-    ax = torch.clamp_min(ax, ALPHA_FLOOR)
-    ay = torch.clamp_min(ay, ALPHA_FLOOR)
+    ax = maximum(ax, ALPHA_FLOOR)
+    ay = maximum(ay, ALPHA_FLOOR)
     wh = vnormalize((ax * w[0], ay * w[1], w[2]))
     wh = vwhere(wh[2] < 0.0, vneg(wh), wh)
     b_raw = vnormalize(vcross(_const3(wh[0], 0.0, 0.0, 1.0), wh))
@@ -292,7 +295,7 @@ def sample_visible(ax, ay, w, u0, u1):
     py = h + (py0 - h) * mix
     pz = safe_sqrt(1.0 - px * px - py * py)
     nh = vadd(vadd(vscale(b, px), vscale(t, py)), vscale(wh, pz))
-    return vnormalize((ax * nh[0], ay * nh[1], torch.clamp_min(nh[2], 1e-6)))
+    return vnormalize((ax * nh[0], ay * nh[1], maximum(nh[2], 1e-6)))
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +305,7 @@ def sample_visible(ax, ay, w, u0, u1):
 
 def fresnel_dielectric(cos_theta, ior):
     """`ior` is a tensor or a Python float (the coat's 1.5)."""
-    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    cos_theta = clip(cos_theta, -1.0, 1.0)
     below = cos_theta < 0.0
     if isinstance(ior, torch.Tensor):
         ior = torch.where(below, 1.0 / ior, ior)
@@ -333,7 +336,7 @@ def refract(wi, n, ior):
     eta = torch.where(below, 1.0 / ior, ior)
     cos_theta = cos_theta.abs()
     nn = vwhere(below, vneg(n), n)
-    sin2 = torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0)
+    sin2 = maximum(1.0 - cos_theta * cos_theta, 0.0)
     sin2_t = sin2 / (eta * eta)
     tir = sin2_t >= 1.0
     cos_t = safe_sqrt(1.0 - sin2_t)
@@ -367,7 +370,7 @@ FAVG15 = _favg_fit(1.5)  # the clearcoat's Favg fit, a Python float
 
 def roughen(r):
     """Path-regularization roughening (src/core/bsdf.hpp:16-18)."""
-    return torch.maximum(r, torch.clamp(r * 2.0, 0.1, 0.3))
+    return torch.maximum(r, clip(r * 2.0, 0.1, 0.3))
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +460,7 @@ def candidates(c, gates, force_reg=None):
         out["ac"] = (acx, acy)
         out["wm_coat"] = wm_coat
         coords["eavg_c"] = ("eavg", cr_s)
-        coords["e_o_c"] = ("e", torch.clamp(vdot(wo, wm_coat).abs(), 0.0, 1.0), cr_s)
+        coords["e_o_c"] = ("e", clip(vdot(wo, wm_coat).abs(), 0.0, 1.0), cr_s)
     out["coords"] = coords
     return out
 
@@ -507,17 +510,17 @@ def _sample_metallic_c(c, cand, fet):
     base = c["base"]
 
     wi_s = vmirror(wo)
-    f_s = vscale(fresnel_schlick3(base, wo[2]), 1.0 / torch.clamp_min(wo[2].abs(), 1e-12))
+    f_s = vscale(fresnel_schlick3(base, wo[2]), 1.0 / maximum(wo[2].abs(), 1e-12))
 
     wi = cand["wi_g"]
     valid = wo[2] * wi[2] >= 0.0
-    pdf = ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12)
+    pdf = ggx_vmdf(ax, ay, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12)
     cos_o = wo[2].abs()
     cos_i = wi[2].abs()
     fss = fresnel_schlick3(base, vdot(wo, wm).abs())
-    m_scalar = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    m_scalar = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
     mss = vscale(fss, m_scalar)
-    ess = torch.clamp_min(fet["e_o_abs_s"], 1e-4)
+    ess = maximum(fet["e_o_abs_s"], 1e-4)
     ms_gain = (1.0 - ess) / ess
     f = vmul(mss, vadd(vsplat(torch.ones_like(ess)), vscale(base, ms_gain)))
 
@@ -556,8 +559,8 @@ def _sample_dielectric_c(c, cand, fet):
     t_spec = 1.0 - f_spec
     f_s = vwhere(
         refl_s,
-        vsplat(f_spec / torch.clamp_min(wi_s_refl[2].abs(), 1e-12)),
-        vscale(base, t_spec / torch.clamp_min(wi_s_refr[2].abs(), 1e-12)),
+        vsplat(f_spec / maximum(wi_s_refl[2].abs(), 1e-12)),
+        vscale(base, t_spec / maximum(wi_s_refr[2].abs(), 1e-12)),
     )
     pdf_s = torch.where(refl_s, f_spec, t_spec)
     flags_s = _flags(refl_s, REFLECTED | SPECULAR,
@@ -566,23 +569,23 @@ def _sample_dielectric_c(c, cand, fet):
     # ---- rough case ----
     fss = fresnel_dielectric(vdot(wo, wm).abs(), ior_rel)
     cos_o = wo[2].abs()
-    e_o = torch.clamp_min(fet["glass_e_s"], 1e-4)
+    e_o = maximum(fet["glass_e_s"], 1e-4)
     refl = uc < fss
     dot_wo_wm = vdot(wo, wm)
-    vm = ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * dot_wo_wm.abs(), 1e-12)
+    vm = ggx_vmdf(ax, ay, wo, wm) / maximum(4 * dot_wo_wm.abs(), 1e-12)
 
     # reflection branch
     wi_r = cand["wi_g"]
     ok_r = wo[2] * wi_r[2] >= 0.0
     cos_i_r = wi_r[2].abs()
-    mss_r = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_r) / torch.clamp_min(4 * cos_o * cos_i_r, 1e-12)
+    mss_r = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_r) / maximum(4 * cos_o * cos_i_r, 1e-12)
     f_r = vsplat(fss * mss_r / e_o)
     pdf_r = vm * fss
 
     # thin transmission branch: reflect(wo, wm) * (1, 1, -1)
     wi_thin = (wi_r[0], wi_r[1], -wi_r[2])
     cos_i_t = wi_thin[2].abs()
-    tss_thin = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_thin) / torch.clamp_min(
+    tss_thin = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_thin) / maximum(
         4 * cos_o * cos_i_t, 1e-12)
     f_thin = vscale(base, (1.0 - fss) * tss_thin / e_o)
     pdf_thin = vm * (1.0 - fss)
@@ -592,7 +595,7 @@ def _sample_dielectric_c(c, cand, fet):
     bad_t = tir | (wo[2] * wi_t[2] > 0.0) | (wi_t[2] == 0.0)
     dot_wi_wm = vdot(wi_t, wm)
     temp = dot_wi_wm * ior_rel + dot_wo_wm
-    dwm_dwi = dot_wi_wm.abs() / torch.clamp_min(temp * temp, 1e-12)
+    dwm_dwi = dot_wi_wm.abs() / maximum(temp * temp, 1e-12)
     pdf_t = ggx_vmdf(ax, ay, wo, wm) * dwm_dwi * (1.0 - fss)
     tss = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_t) * _safe_div(
         dot_wi_wm * dot_wo_wm, wi_t[2] * wo[2] * temp * temp).abs()
@@ -629,7 +632,7 @@ def _sample_glossy_c(c, cand, fet):
     cos_o = wo[2]
     favg = _favg_fit(ior)
     eavg = fet["eavg_s"]
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
     e_o = fet["e_o_s_raw"]  # RAW sign-carrying cosine (backside extrapolation)
     kappa = 1.0 - (favg * e_o + fms * (1.0 - e_o))
     sel_diffuse = c["uc"] < kappa
@@ -639,7 +642,7 @@ def _sample_glossy_c(c, cand, fet):
     e_wo = fet["base_e_o_s"]
     e_wi = fet["base_e_i_d"]
     eavg_b = fet["base_eavg_s"]
-    c_diffuse = (1.0 - e_wo) * (1.0 - e_wi) / torch.clamp_min(PI * (1.0 - eavg_b), 1e-6)
+    c_diffuse = (1.0 - e_wo) * (1.0 - e_wi) / maximum(PI * (1.0 - eavg_b), 1e-6)
     f_d = vscale(base, c_diffuse)
     pdf_d = wi_d[2].abs() * c_diffuse
     emissive = vdot(emission, emission) > 0.0
@@ -648,19 +651,19 @@ def _sample_glossy_c(c, cand, fet):
     # ---- smooth specular ----
     f_spec = fresnel_dielectric(cos_o, ior)
     wi_s = vmirror(wo)
-    f_sv = vsplat(f_spec / torch.clamp_min(wi_s[2].abs(), 1e-12))
+    f_sv = vsplat(f_spec / maximum(wi_s[2].abs(), 1e-12))
 
     # ---- rough reflection ----
     wi_g = cand["wi_g"]
     cos_i_g = wi_g[2]
     ok_g = cos_o * cos_i_g >= 0.0
     fss = fresnel_dielectric(vdot(wo, wm), ior)
-    mss = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_g) / torch.clamp_min(
+    mss = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi_g) / maximum(
         (4 * cos_o * cos_i_g).abs(), 1e-12)
     e_i = fet["e_i_g"]
-    mms = (1.0 - e_o) * (1.0 - e_i) / torch.clamp_min(PI * (1.0 - eavg), 1e-6)
+    mms = (1.0 - e_o) * (1.0 - e_i) / maximum(PI * (1.0 - eavg), 1e-6)
     f_g = vsplat(fss * mss + fms * mms)
-    pdf_g = ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12) * fss
+    pdf_g = ggx_vmdf(ax, ay, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12) * fss
     flags_g = _flags(ok_g, REFLECTED | GLOSSY, ABSORBED)
 
     zero3 = vsplat(torch.zeros_like(cos_o))
@@ -690,14 +693,14 @@ def _sample_clearcoat_c(c, cand, fet):
     # smooth: the reference uses the MATERIAL ior here (parametric.cpp:804)
     f_spec = fresnel_dielectric(cos_o, c["ior"])
     wi_s = vmirror(wo)
-    f_sv = vsplat(f_spec / torch.clamp_min(wi_s[2].abs(), 1e-12))
+    f_sv = vsplat(f_spec / maximum(wi_s[2].abs(), 1e-12))
 
     wi = reflect_about(wo, wm)
     ok = cos_o * wi[2] >= 0.0
     fss = fresnel_dielectric(vdot(wo, wm), 1.5)
-    mss = ggx_mdf(acx, acy, wm) * ggx_g(acx, acy, wo, wi) / torch.clamp_min(
+    mss = ggx_mdf(acx, acy, wm) * ggx_g(acx, acy, wo, wi) / maximum(
         (4 * cos_o * wi[2]).abs(), 1e-12)
-    pdf = fss * ggx_vmdf(acx, acy, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12)
+    pdf = fss * ggx_vmdf(acx, acy, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12)
     f = vsplat(fss * mss)
     zero3 = vsplat(torch.zeros_like(cos_o))
     flags = _flags(ok, REFLECTED | GLOSSY, ABSORBED)
@@ -724,9 +727,9 @@ def _f_metallic_c(c, fet, ax, ay, wo, wi):
     wm, ok = _outward(vadd(wo, wi))
     ok = ok & (cos_o > 0) & (cos_i > 0) & ~ggx_smooth(ax, ay)
     fss = fresnel_schlick3(c["base"], vdot(wo, wm).abs())
-    m_scalar = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    m_scalar = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
     mss = vscale(fss, m_scalar)
-    ess = torch.clamp_min(fet["e_o_abs_raw"], 1e-4)
+    ess = maximum(fet["e_o_abs_raw"], 1e-4)
     mms = vscale(vmul(mss, c["base"]), (1.0 - ess) / ess)
     return vwhere(ok, vadd(mss, mms), vsplat(torch.zeros_like(cos_o)))
 
@@ -735,7 +738,7 @@ def _pdf_metallic_c(ax, ay, wo, wi):
     """(parametric.cpp:288-305)"""
     wm, ok = _outward(vadd(wo, wi))
     ok = ok & ~ggx_smooth(ax, ay)
-    pdf = ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12)
+    pdf = ggx_vmdf(ax, ay, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12)
     return torch.where(ok, pdf, 0.0)
 
 
@@ -753,9 +756,9 @@ def _f_dielectric_c(c, fet, ax, ay, wo, wi):
 
     fss = fresnel_dielectric(vdot(wo, wm).abs(), ior)
     t = 1.0 - fss
-    e_o = torch.clamp_min(fet["glass_e_f"], 1e-4)
+    e_o = maximum(fet["glass_e_f"], 1e-4)
     d_g = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi)
-    f_refl = fss * d_g / torch.clamp_min((4 * cos_o * cos_i).abs(), 1e-12)
+    f_refl = fss * d_g / maximum((4 * cos_o * cos_i).abs(), 1e-12)
 
     # SIGNED cos_o denominator: the reference's thin-transmission quirk
     # (parametric.cpp:399-402).
@@ -766,8 +769,8 @@ def _f_dielectric_c(c, fet, ax, ay, wo, wi):
         torch.ones_like(cos_o), 4 * cos_o * cos_ip, eps=1e-12)
 
     temp = vdot(wi, wm) * ior + vdot(wo, wm)
-    dwm_dwi = vdot(wi, wm).abs() * vdot(wo, wm).abs() / torch.clamp_min(temp * temp, 1e-12)
-    tss = d_g * dwm_dwi / torch.clamp_min((cos_i * cos_o).abs(), 1e-12)
+    dwm_dwi = vdot(wi, wm).abs() * vdot(wo, wm).abs() / maximum(temp * temp, 1e-12)
+    tss = d_g * dwm_dwi / maximum((cos_i * cos_o).abs(), 1e-12)
 
     trans_ss = torch.where(thin, torch.where(ok_thin, tss_thin, 0.0), tss)
     f_trans = vscale(c["base"], t * trans_ss)
@@ -790,15 +793,15 @@ def _pdf_dielectric_c(c, ax, ay, wo, wi):
     # NOTE: signed dot and the MATERIAL ior (parametric.cpp:438-440).
     f = fresnel_dielectric(vdot(wo, wm), c["ior"])
     t = 1.0 - f
-    pdf_refl = ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12) * f
+    pdf_refl = ggx_vmdf(ax, ay, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12) * f
 
     wip = (wi[0], wi[1], -wi[2])
     wm_thin, _ = _outward(vadd(wip, wo))
     pdf_thin = (ggx_vmdf(ax, ay, wo, wm_thin)
-                / torch.clamp_min(4 * vdot(wo, wm_thin).abs(), 1e-12) * t)
+                / maximum(4 * vdot(wo, wm_thin).abs(), 1e-12) * t)
 
     temp2 = vdot(wi, wm) + vdot(wo, wm) / ior
-    dwm_dwi2 = vdot(wo, wm).abs() / torch.clamp_min(temp2 * temp2, 1e-12)
+    dwm_dwi2 = vdot(wo, wm).abs() / maximum(temp2 * temp2, 1e-12)
     pdf_refr = ggx_vmdf(ax, ay, wo, wm) * dwm_dwi2 * t
 
     pdf = torch.where(is_refl, pdf_refl, torch.where(thin, pdf_thin, pdf_refr))
@@ -815,15 +818,15 @@ def _f_glossy_c(c, fet, ax, ay, wo, wi):
 
     ior = c["ior"]
     fss = fresnel_dielectric(vdot(wo, wm), ior)
-    mss = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    mss = ggx_mdf(ax, ay, wm) * ggx_g(ax, ay, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
     favg = _favg_fit(ior)
     eavg = fet["eavg_raw"]
     e_o = fet["e_o_abs_raw"]
     e_i = fet["e_i_l_abs"]
-    mms = (1.0 - e_o) * (1.0 - e_i) / torch.clamp_min(PI * (1.0 - eavg), 1e-6)
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    mms = (1.0 - e_o) * (1.0 - e_i) / maximum(PI * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
 
-    c_diffuse = (1.0 - fet["base_e_o_abs"]) * (1.0 - fet["base_e_i_l"]) / torch.clamp_min(
+    c_diffuse = (1.0 - fet["base_e_o_abs"]) * (1.0 - fet["base_e_i_l"]) / maximum(
         PI * (1.0 - fet["base_eavg_raw"]), 1e-6)
     diffuse = vscale(c["base"], c_diffuse)
     spec = torch.where(rough_ok, fss * mss + mms * fms, 0.0)
@@ -839,10 +842,10 @@ def _pdf_glossy_c(c, fet, ax, ay, wo, wi):
     fss = fresnel_dielectric(vdot(wo, wm), ior)
     favg = _favg_fit(ior)
     eavg = fet["eavg_raw"]
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
     e_o = fet["e_o_abs_raw"]
     kappa = 1.0 - (favg * e_o + fms * (1.0 - e_o))
-    spec_pdf = (fss + fms) * ggx_vmdf(ax, ay, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12)
+    spec_pdf = (fss + fms) * ggx_vmdf(ax, ay, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12)
     spec_pdf = torch.where(ok & ~ggx_smooth(ax, ay), spec_pdf, 0.0)
     return spec_pdf + cos_i * kappa
 
@@ -854,7 +857,7 @@ def _f_clearcoat_c(acx, acy, wo, wi):
     wm, ok = _outward(vadd(wo, wi))
     ok = ok & (cos_o > 0) & (cos_i > 0) & ~ggx_smooth(acx, acy)
     fss = fresnel_dielectric(vdot(wo, wm), 1.5)
-    mss = ggx_mdf(acx, acy, wm) * ggx_g(acx, acy, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    mss = ggx_mdf(acx, acy, wm) * ggx_g(acx, acy, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
     fc = torch.maximum(fresnel_dielectric(cos_o, 1.5), fresnel_dielectric(cos_i, 1.5))
     return torch.where(ok, fss * mss, 0.0), fc
 
@@ -864,7 +867,7 @@ def _pdf_clearcoat_c(acx, acy, wo, wi):
     wm, ok = _outward(vadd(wo, wi))
     ok = ok & ~ggx_smooth(acx, acy)
     fss = fresnel_dielectric(vdot(wo, wm), 1.5)
-    pdf = fss * ggx_vmdf(acx, acy, wo, wm) / torch.clamp_min(4 * vdot(wo, wm).abs(), 1e-12)
+    pdf = fss * ggx_vmdf(acx, acy, wo, wm) / maximum(4 * vdot(wo, wm).abs(), 1e-12)
     fc = torch.maximum(fresnel_dielectric(wo[2].abs(), 1.5), fresnel_dielectric(wi[2].abs(), 1.5))
     return torch.where(ok, pdf, 0.0), fc
 
@@ -925,7 +928,7 @@ def lobe_pick(c, fet, gates):
     uc2 = c["uc2"]
     if use_coat:
         eavg_c = fet["eavg_c"]
-        fms_c = FAVG15 * FAVG15 * eavg_c / torch.clamp_min(1.0 - FAVG15 * (1.0 - eavg_c), 1e-6)
+        fms_c = FAVG15 * FAVG15 * eavg_c / maximum(1.0 - FAVG15 * (1.0 - eavg_c), 1e-6)
         e_o_c = fet["e_o_c"]
         kappa_c = 1.0 - (FAVG15 * e_o_c + fms_c * (1.0 - e_o_c))
         p_coat = c["clearcoat"] * (1.0 - kappa_c)
@@ -981,11 +984,13 @@ def bsdf_sample_c(c, cand, fet, gates):
 def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
     """Sample pick + emitted MIS + NEE eval + throughput + roulette + state.
     Returns the dict of per-lane outputs (vectors as v3 tuples) that the
-    integrator consumes after the shadow traversal."""
-    if detach:
-        raise NotImplementedError(
-            "finish(detach=True): differentiable rendering is not ported yet (ROADMAP.md A.8)"
-        )
+    integrator consumes after the shadow traversal.
+
+    `detach=True` (differentiable mode) makes the same detached-sampling
+    cut as the classic bounce (JAX shade_math.py:1101-1135): the sampled
+    direction, its pdf and roughness become constants once the sample is
+    built, f and Le keep their parameter dependence, and the roulette
+    probability q is a constant, so its 1/(1-q) reweight is one too."""
     frame = cand["frame"]
     n, p, d, atten = c["n"], c["p"], c["d"], c["atten"]
     found = c["found"]
@@ -993,6 +998,9 @@ def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
     zero3 = vsplat(zero)
 
     smp = bsdf_sample_c(c, cand, fet, gates)
+    if detach:
+        smp = dict(smp, wi=tuple(w.detach() for w in smp["wi"]), pdf=smp["pdf"].detach(),
+                   roughness=smp["roughness"].detach())
     flags = smp["flags"]
     wi_world = local_to_world(smp["wi"], *frame)
 
@@ -1003,14 +1011,14 @@ def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
         dist2 = vdot(dp, dp)
         if any_lights:
             pdf_light = (c["pdf_area"] * dist2 * c["sel_p"]
-                         / torch.clamp_min(vdot(vneg(d), n).abs(), 1e-9))
+                         / maximum(vdot(vneg(d), n).abs(), 1e-9))
         else:
             pdf_light = zero
         if c["depth0"]:
             w_b = torch.ones_like(zero)
         else:
             w_b = torch.where(c["specular_prev"] | c["light_neg"], 1.0,
-                              c["last_pdf"] / torch.clamp_min(c["last_pdf"] + pdf_light, 1e-20))
+                              c["last_pdf"] / maximum(c["last_pdf"] + pdf_light, 1e-20))
     else:
         w_b = torch.ones_like(zero)
     L_emit = vwhere(emitted, vscale(vmul(atten, smp["Le"]), w_b), zero3)
@@ -1026,13 +1034,13 @@ def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
         nee_need = do_nee & c["ls_valid"] & (vdot(f_l, f_l) > 0.0)
         to_l = vsub(c["ls_p"], p)
         dist2_l = vdot(to_l, to_l)
-        dist_l = torch.sqrt(torch.clamp_min(dist2_l, 1e-20))
+        dist_l = torch.sqrt(maximum(dist2_l, 1e-20))
         shadow_d = vwhere(live, vscale(to_l, 1.0 / dist_l), zero3)
         shadow_tmax = torch.where(nee_need, dist_l - 1e-3, -1.0)
         pdf_l = (c["ls_select_p"] * c["ls_pdf"]
-                 / torch.clamp_min(vdot(c["ls_n"], c["ls_wi"]).abs(), 1e-9))
+                 / maximum(vdot(c["ls_n"], c["ls_wi"]).abs(), 1e-9))
         pdf_l = torch.where(c["ls_is_env"], pdf_l, pdf_l * dist2_l)
-        w_nee = vdot(c["ls_wi"], n).abs() / torch.clamp_min(pdf_b + pdf_l, 1e-20)
+        w_nee = vdot(c["ls_wi"], n).abs() / maximum(pdf_b + pdf_l, 1e-20)
         contrib = vwhere(live, vmul(atten, vscale(vmul(c["ls_Li"], f_l), w_nee)), zero3)
     else:
         nee_need = torch.zeros_like(found)
@@ -1042,7 +1050,7 @@ def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
 
     # ---- throughput update (mis-integrator.cpp:83-96) ----
     fcos = vscale(smp["f"], vdot(wi_world, n).abs())
-    atten_new = vmul(atten, vscale(fcos, 1.0 / torch.clamp_min(smp["pdf"], 1e-20)))
+    atten_new = vmul(atten, vscale(fcos, 1.0 / maximum(smp["pdf"], 1e-20)))
     vc = c["volume_color"]
     dens = c["volume_density"]
     t = c["hit_t"]
@@ -1056,12 +1064,14 @@ def finish(c, cand, fet, gates, mis=True, any_lights=True, detach=False):
 
     # ---- russian roulette (mis-integrator.cpp:98-102) ----
     if mis:
-        q = torch.clamp_min(
+        q = maximum(
             1.0 - torch.maximum(atten_new[0], torch.maximum(atten_new[1], atten_new[2])), 0.0)
+        if detach:
+            q = q.detach()
         rr_on = active if c["rr_on"] else torch.zeros_like(active)
         killed = rr_on & (c["u_rr"] < q)
         active = active & ~killed
-        scale = torch.where(rr_on & ~killed, 1.0 / torch.clamp_min(1.0 - q, 1e-9), 1.0)
+        scale = torch.where(rr_on & ~killed, 1.0 / maximum(1.0 - q, 1e-9), 1.0)
         atten_new = vscale(atten_new, scale)
 
     return dict(
@@ -1086,12 +1096,12 @@ def components(inp):
     return {k: split3(v) if k in V3_KEYS else v for k, v in inp.items()}
 
 
-def shade(inp, gates, mis, any_lights, tables, force_reg=None):
+def shade(inp, gates, mis, any_lights, tables, force_reg=None, detach=False):
     """candidates -> run_fetches -> finish: the `shade_kernel="xla"` bounce
-    tail and B5's plain twin. Returns finish's outputs with the vectors
-    stacked into [N, 3] tensors."""
+    tail and B5's plain twin (`detach` for differentiable mode, not B5's).
+    Returns finish's outputs with the vectors stacked into [N, 3] tensors."""
     c = components(inp)
     cand = candidates(c, gates, force_reg)
     fet = run_fetches(tables, cand["coords"])
-    out = finish(c, cand, fet, gates, mis=mis, any_lights=any_lights)
+    out = finish(c, cand, fet, gates, mis=mis, any_lights=any_lights, detach=detach)
     return {k: torch.stack(v, dim=-1) if k in OUT_V3 else v for k, v in out.items()}

@@ -9,7 +9,7 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.ops import warps
-from yart_tpu_torch.ops.vecmath import absdot, cross, normalize, safe_sqrt
+from yart_tpu_torch.ops.vecmath import absdot, cross, maximum, normalize, safe_sqrt
 
 PI = math.pi
 SMOOTH_ALPHA = 1e-3
@@ -43,7 +43,7 @@ def smooth(a: Alphas):
 
 def _phi_terms(w):
     cos2t = w[..., 2] * w[..., 2]
-    sin2t = torch.clamp_min(1.0 - cos2t, 0.0)
+    sin2t = maximum(1.0 - cos2t, 0.0)
     safe = torch.where(sin2t > 1e-20, sin2t, 1.0)
     zero = sin2t == 0.0
     cos2p = torch.where(zero, 1.0, w[..., 0] * w[..., 0] / safe)
@@ -57,8 +57,8 @@ def mdf(a: Alphas, w):
     ok = cos2t > 1e-12
     tan2t = torch.where(ok, sin2t, 0.0) / torch.where(ok, cos2t, 1.0)
     cos4t = torch.where(ok, cos2t * cos2t, 1.0)
-    ax = torch.clamp_min(a.ax, ALPHA_FLOOR)
-    ay = torch.clamp_min(a.ay, ALPHA_FLOOR)
+    ax = maximum(a.ax, ALPHA_FLOOR)
+    ay = maximum(a.ay, ALPHA_FLOOR)
     k = tan2t * (cos2p / (ax * ax) + sin2p / (ay * ay))
     k2 = (1.0 + k) * (1.0 + k)
     d = 1.0 / (PI * ax * ay * cos4t * k2)
@@ -87,13 +87,13 @@ def g(a: Alphas, wo, wi):
 
 def vmdf(a: Alphas, w, wm):
     """Visible-NDF pdf of wm seen from w (bsdf.hpp:232-237)."""
-    return g1(a, w) / torch.clamp_min(w[..., 2].abs(), 1e-20) * mdf(a, wm) * absdot(w, wm)
+    return g1(a, w) / maximum(w[..., 2].abs(), 1e-20) * mdf(a, wm) * absdot(w, wm)
 
 
 def sample_visible(a: Alphas, w, u):
     """Heitz VNDF sampling (bsdf.hpp:243-271); wm.z >= 1e-6."""
-    ax = torch.clamp_min(a.ax, ALPHA_FLOOR)
-    ay = torch.clamp_min(a.ay, ALPHA_FLOOR)
+    ax = maximum(a.ax, ALPHA_FLOOR)
+    ay = maximum(a.ay, ALPHA_FLOOR)
     wh = normalize(torch.stack([ax * w[..., 0], ay * w[..., 1], w[..., 2]], dim=-1))
     wh = torch.where(wh[..., 2:3] < 0.0, -wh, wh)
 
@@ -114,5 +114,5 @@ def sample_visible(a: Alphas, w, u):
     pz = safe_sqrt(1.0 - px * px - py * py)
     nh = px[..., None] * b + py[..., None] * t + pz[..., None] * wh
     return normalize(
-        torch.stack([ax * nh[..., 0], ay * nh[..., 1], torch.clamp_min(nh[..., 2], 1e-6)], dim=-1)
+        torch.stack([ax * nh[..., 0], ay * nh[..., 1], maximum(nh[..., 2], 1e-6)], dim=-1)
     )

@@ -3,7 +3,10 @@
 Port of `yart_tpu/ops/vecmath.py` (the subset the forward path uses):
 reflect/refract/fresnel (src/math/math.hpp:15-100), the octahedral map of
 the environment light (math.hpp:151-179) and the orthonormal shading
-frames (src/math/frame.hpp:21-59).
+frames (src/math/frame.hpp:21-59). `maximum`, `minimum` and `clip` are
+the shading code's clamps: they give the value of torch's clamps and the
+gradient of jnp.maximum / minimum / clip, which split it at a tie (a
+material often sits on a bound: metallic 0 or 1, a colour of 1.0).
 """
 
 from __future__ import annotations
@@ -11,6 +14,33 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-12
+
+
+def _grad_flows(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _bound(c, x):
+    # A Python bound as a 0-dim CPU tensor: a scalar operand on any device.
+    return c if isinstance(c, torch.Tensor) else torch.tensor(c, dtype=x.dtype)
+
+
+def maximum(x, c):
+    """max(x, c) with `jnp.maximum`'s gradient: at a tie x takes half the
+    gradient (`torch.clamp_min` gives it all). The value is clamp_min's,
+    bit for bit; without a gradient to carry it is clamp_min."""
+    return torch.maximum(x, _bound(c, x)) if _grad_flows(x) else torch.clamp_min(x, c)
+
+
+def minimum(x, c):
+    """min(x, c) with `jnp.minimum`'s gradient (see `maximum`)."""
+    return torch.minimum(x, _bound(c, x)) if _grad_flows(x) else torch.clamp_max(x, c)
+
+
+def clip(x, lo, hi):
+    """`jnp.clip` = minimum(maximum(x, lo), hi), with its gradient at the
+    bounds (half, where torch.clamp passes all of it)."""
+    return minimum(maximum(x, lo), hi) if _grad_flows(x) else torch.clamp(x, lo, hi)
 
 
 def dot(a, b, keepdim: bool = False):
@@ -64,7 +94,7 @@ def _sign_nz(x):
 def octahedral_uv(v):
     """Direction -> octahedral-map UV in [0, 1]^2 (math.hpp:151-166)."""
     s = v.abs().sum(dim=-1, keepdim=True)
-    v = v / torch.clamp_min(s, EPS)
+    v = v / maximum(s, EPS)
     vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
     lo_u = (1.0 - vz.abs()) * _sign_nz(vx)
     lo_v = (1.0 - vx.abs()) * _sign_nz(vz)
@@ -96,7 +126,7 @@ def refract(wi, n, ior):
     cos_theta = cos_theta.abs()
     n = torch.where(below[..., None], -n, n)
 
-    sin2 = torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0)
+    sin2 = maximum(1.0 - cos_theta * cos_theta, 0.0)
     sin2_t = sin2 / (eta * eta)
     tir = sin2_t >= 1.0
 
@@ -108,7 +138,7 @@ def refract(wi, n, ior):
 def fresnel_dielectric(cos_theta, ior):
     """Exact dielectric Fresnel (src/math/math.hpp:44-62); cos < 0 inverts
     the ior; 1 under total internal reflection."""
-    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    cos_theta = clip(cos_theta, -1.0, 1.0)
     below = cos_theta < 0.0
     if isinstance(ior, torch.Tensor):
         ior = torch.where(below, 1.0 / ior, ior)

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import torch
 
 from yart_tpu_torch.ops import ggx, lut, warps
-from yart_tpu_torch.ops.vecmath import absdot, dot, fresnel_dielectric, fresnel_schlick, refract
+from yart_tpu_torch.ops.vecmath import (absdot, clip, dot, fresnel_dielectric, fresnel_schlick, maximum,
+                                        refract)
 from yart_tpu_torch.render.texture import sample_stack
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
@@ -79,7 +80,7 @@ def _flags(cond, a: int, b):
 
 def roughen(r):
     """Path-regularization roughening (src/core/bsdf.hpp:16-18)."""
-    return torch.maximum(r, torch.clamp(r * 2.0, 0.1, 0.3))
+    return torch.maximum(r, clip(r * 2.0, 0.1, 0.3))
 
 
 def resolve_material(scene: CompiledScene, meta: SceneMeta, mat_idx, uv=None) -> LaneMaterial:
@@ -189,8 +190,8 @@ def _f_metallic(tables, mat, a, wo, wi):
     wm, ok = _outward(wo + wi)
     ok = ok & (cos_o > 0) & (cos_i > 0) & ~ggx.smooth(a)
     fss = fresnel_schlick(mat.base, absdot(wo, wm)[..., None])
-    mss = fss * (ggx.mdf(a, wm) * ggx.g(a, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12))[..., None]
-    ess = torch.clamp_min(lut.ggx_e(tables, cos_o, a.roughness), 1e-4)
+    mss = fss * (ggx.mdf(a, wm) * ggx.g(a, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12))[..., None]
+    ess = maximum(lut.ggx_e(tables, cos_o, a.roughness), 1e-4)
     mms = mss * mat.base * ((1.0 - ess) / ess)[..., None]
     return torch.where(ok[..., None], mss + mms, 0.0)
 
@@ -199,7 +200,7 @@ def _pdf_metallic(tables, mat, a, wo, wi):
     """(parametric.cpp:288-305)"""
     wm, ok = _outward(wo + wi)
     ok = ok & ~ggx.smooth(a)
-    pdf = ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12)
+    pdf = ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12)
     return torch.where(ok, pdf, 0.0)
 
 
@@ -216,10 +217,10 @@ def _f_dielectric(tables, mat, a, wo, wi):
 
     fss = fresnel_dielectric(absdot(wo, wm), ior)
     t = 1.0 - fss
-    e_o = torch.clamp_min(lut.ggx_glass_e(tables, ior, a.roughness, cos_o.abs()), 1e-4)
+    e_o = maximum(lut.ggx_glass_e(tables, ior, a.roughness, cos_o.abs()), 1e-4)
     d_g = ggx.mdf(a, wm) * ggx.g(a, wo, wi)
 
-    f_refl = fss * d_g / torch.clamp_min((4 * cos_o * cos_i).abs(), 1e-12)
+    f_refl = fss * d_g / maximum((4 * cos_o * cos_i).abs(), 1e-12)
 
     # Thin transmission: flip wi and evaluate as reflection. The reference
     # divides by the SIGNED cos_o (parametric.cpp:399-402), so backside
@@ -232,8 +233,8 @@ def _f_dielectric(tables, mat, a, wo, wi):
     )
 
     temp = dot(wi, wm) * ior + dot(wo, wm)
-    dwm_dwi = absdot(wi, wm) * absdot(wo, wm) / torch.clamp_min(temp * temp, 1e-12)
-    tss = d_g * dwm_dwi / torch.clamp_min((cos_i * cos_o).abs(), 1e-12)
+    dwm_dwi = absdot(wi, wm) * absdot(wo, wm) / maximum(temp * temp, 1e-12)
+    tss = d_g * dwm_dwi / maximum((cos_i * cos_o).abs(), 1e-12)
 
     trans_ss = torch.where(mat.thin, torch.where(ok_thin, tss_thin, 0.0), tss)
     f_trans = (t * trans_ss)[..., None] * mat.base
@@ -256,14 +257,14 @@ def _pdf_dielectric(tables, mat, a, wo, wi):
     # (parametric.cpp:438-440).
     f = fresnel_dielectric(dot(wo, wm), mat.ior)
     t = 1.0 - f
-    pdf_refl = ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12) * f
+    pdf_refl = ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12) * f
 
     wip = torch.stack([wi[..., 0], wi[..., 1], -wi[..., 2]], dim=-1)
     wm_thin, _ = _outward(wip + wo)
-    pdf_thin = ggx.vmdf(a, wo, wm_thin) / torch.clamp_min(4 * absdot(wo, wm_thin), 1e-12) * t
+    pdf_thin = ggx.vmdf(a, wo, wm_thin) / maximum(4 * absdot(wo, wm_thin), 1e-12) * t
 
     temp2 = dot(wi, wm) + dot(wo, wm) / ior
-    dwm_dwi2 = absdot(wo, wm) / torch.clamp_min(temp2 * temp2, 1e-12)
+    dwm_dwi2 = absdot(wo, wm) / maximum(temp2 * temp2, 1e-12)
     pdf_refr = ggx.vmdf(a, wo, wm) * dwm_dwi2 * t
 
     pdf = torch.where(is_refl, pdf_refl, torch.where(mat.thin, pdf_thin, pdf_refr))
@@ -277,7 +278,7 @@ def _glossy_diffuse_factor(tables, mat, a, cos_o, cos_i):
     e_wo = lut.ggx_base_e(tables, f0, a.roughness, cos_o)
     e_wi = lut.ggx_base_e(tables, f0, a.roughness, cos_i)
     eavg = lut.ggx_base_eavg(tables, f0, a.roughness)
-    return (1.0 - e_wo) * (1.0 - e_wi) / torch.clamp_min(PI * (1.0 - eavg), 1e-6)
+    return (1.0 - e_wo) * (1.0 - e_wi) / maximum(PI * (1.0 - eavg), 1e-6)
 
 
 def _f_glossy(tables, mat, a, wo, wi):
@@ -289,14 +290,14 @@ def _f_glossy(tables, mat, a, wo, wi):
     rough_ok = ok & ~ggx.smooth(a)
 
     fss = fresnel_dielectric(dot(wo, wm), mat.ior)
-    mss = ggx.mdf(a, wm) * ggx.g(a, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    mss = ggx.mdf(a, wm) * ggx.g(a, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
 
     favg = _favg_fit(mat.ior)
     eavg = lut.ggx_eavg(tables, a.roughness)
     e_o = lut.ggx_e(tables, cos_o, a.roughness)
     e_i = lut.ggx_e(tables, cos_i, a.roughness)
-    mms = (1.0 - e_o) * (1.0 - e_i) / torch.clamp_min(PI * (1.0 - eavg), 1e-6)
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    mms = (1.0 - e_o) * (1.0 - e_i) / maximum(PI * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
 
     c_diffuse = _glossy_diffuse_factor(tables, mat, a, cos_o, cos_i)
     diffuse = mat.base * c_diffuse[..., None]
@@ -313,11 +314,11 @@ def _pdf_glossy(tables, mat, a, wo, wi):
     fss = fresnel_dielectric(dot(wo, wm), mat.ior)
     favg = _favg_fit(mat.ior)
     eavg = lut.ggx_eavg(tables, a.roughness)
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
     e_o = lut.ggx_e(tables, cos_o, a.roughness)
     kappa = 1.0 - (favg * e_o + fms * (1.0 - e_o))
 
-    spec_pdf = (fss + fms) * ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12)
+    spec_pdf = (fss + fms) * ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12)
     spec_pdf = torch.where(ok & ~ggx.smooth(a), spec_pdf, 0.0)
     return spec_pdf + cos_i * kappa
 
@@ -329,7 +330,7 @@ def _f_clearcoat(tables, mat, a_coat, wo, wi):
     wm, ok = _outward(wo + wi)
     ok = ok & (cos_o > 0) & (cos_i > 0) & ~ggx.smooth(a_coat)
     fss = fresnel_dielectric(dot(wo, wm), 1.5)
-    mss = ggx.mdf(a_coat, wm) * ggx.g(a_coat, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12)
+    mss = ggx.mdf(a_coat, wm) * ggx.g(a_coat, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12)
     fc = torch.maximum(fresnel_dielectric(cos_o, 1.5), fresnel_dielectric(cos_i, 1.5))
     return torch.where(ok, fss * mss, 0.0), fc
 
@@ -339,7 +340,7 @@ def _pdf_clearcoat(tables, mat, a_coat, wo, wi):
     wm, ok = _outward(wo + wi)
     ok = ok & ~ggx.smooth(a_coat)
     fss = fresnel_dielectric(dot(wo, wm), 1.5)
-    pdf = fss * ggx.vmdf(a_coat, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12)
+    pdf = fss * ggx.vmdf(a_coat, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12)
     fc = torch.maximum(
         fresnel_dielectric(wo[..., 2].abs(), 1.5), fresnel_dielectric(wi[..., 2].abs(), 1.5)
     )
@@ -416,8 +417,8 @@ def bsdf_sample(tables, mat: LaneMaterial, wo, u, uc, uc2, regularized, meta=Non
         wm_coat = ggx.sample_visible(a_coat, wo, u)
         favg15 = _favg_fit(1.5)
         eavg_c = lut.ggx_eavg(tables, cr)
-        fms_c = favg15 * favg15 * eavg_c / torch.clamp_min(1.0 - favg15 * (1.0 - eavg_c), 1e-6)
-        e_o_c = lut.ggx_e(tables, torch.clamp(absdot(wo, wm_coat), 0, 1), cr)
+        fms_c = favg15 * favg15 * eavg_c / maximum(1.0 - favg15 * (1.0 - eavg_c), 1e-6)
+        e_o_c = lut.ggx_e(tables, clip(absdot(wo, wm_coat), 0, 1), cr)
         kappa_c = 1.0 - (favg15 * e_o_c + fms_c * (1.0 - e_o_c))
         p_coat = mat.clearcoat * (1.0 - kappa_c)
     else:
@@ -467,16 +468,16 @@ def bsdf_sample(tables, mat: LaneMaterial, wo, u, uc, uc2, regularized, meta=Non
 def _sample_metallic(tables, mat, a, smooth, wo, wm):
     """(parametric.cpp:307-352)"""
     wi_s = _mirror(wo)
-    f_s = fresnel_schlick(mat.base, wo[..., 2:3]) / torch.clamp_min(wo[..., 2:3].abs(), 1e-12)
+    f_s = fresnel_schlick(mat.base, wo[..., 2:3]) / maximum(wo[..., 2:3].abs(), 1e-12)
 
     wi = _reflect(wo, wm)
     valid = wo[..., 2] * wi[..., 2] >= 0.0
-    pdf = ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12)
+    pdf = ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12)
     cos_o = wo[..., 2].abs()
     cos_i = wi[..., 2].abs()
     fss = fresnel_schlick(mat.base, absdot(wo, wm)[..., None])
-    mss = fss * (ggx.mdf(a, wm) * ggx.g(a, wo, wi) / torch.clamp_min(4 * cos_o * cos_i, 1e-12))[..., None]
-    ess = torch.clamp_min(lut.ggx_e(tables, cos_o, a.roughness), 1e-4)
+    mss = fss * (ggx.mdf(a, wm) * ggx.g(a, wo, wi) / maximum(4 * cos_o * cos_i, 1e-12))[..., None]
+    ess = maximum(lut.ggx_e(tables, cos_o, a.roughness), 1e-4)
     f = mss * (1.0 + mat.base * ((1.0 - ess) / ess)[..., None])
 
     flags_r = _flags(valid, REFLECTED | GLOSSY, ABSORBED)
@@ -507,8 +508,8 @@ def _sample_dielectric(tables, mat, a, smooth, wo, wm, uc):
     t_spec = 1.0 - f_spec
     f_s = torch.where(
         refl_s[..., None],
-        (f_spec / torch.clamp_min(wi_s_refl[..., 2].abs(), 1e-12))[..., None],
-        (t_spec / torch.clamp_min(wi_s_refr[..., 2].abs(), 1e-12))[..., None] * mat.base,
+        (f_spec / maximum(wi_s_refl[..., 2].abs(), 1e-12))[..., None],
+        (t_spec / maximum(wi_s_refr[..., 2].abs(), 1e-12))[..., None] * mat.base,
     )
     pdf_s = torch.where(refl_s, f_spec, t_spec)
     flags_s = _flags(refl_s, REFLECTED | SPECULAR, _flags(tir_s, ABSORBED, TRANSMITTED | SPECULAR))
@@ -516,21 +517,21 @@ def _sample_dielectric(tables, mat, a, smooth, wo, wm, uc):
     # ---- rough case ----
     fss = fresnel_dielectric(absdot(wo, wm), ior_rel)
     cos_o = wo[..., 2].abs()
-    e_o = torch.clamp_min(lut.ggx_glass_e(tables, ior_rel, a.roughness, cos_o), 1e-4)
+    e_o = maximum(lut.ggx_glass_e(tables, ior_rel, a.roughness, cos_o), 1e-4)
     refl = uc < fss
-    vis = ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12)
+    vis = ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12)
 
     wi_r = _reflect(wo, wm)
     ok_r = wo[..., 2] * wi_r[..., 2] >= 0.0
     cos_i_r = wi_r[..., 2].abs()
-    mss_r = ggx.mdf(a, wm) * ggx.g(a, wo, wi_r) / torch.clamp_min(4 * cos_o * cos_i_r, 1e-12)
+    mss_r = ggx.mdf(a, wm) * ggx.g(a, wo, wi_r) / maximum(4 * cos_o * cos_i_r, 1e-12)
     f_r = (fss * mss_r / e_o)[..., None]
     pdf_r = vis * fss
 
     # thin transmission: reflect(wo, wm) * (1, 1, -1)
     wi_thin = torch.stack([wi_r[..., 0], wi_r[..., 1], -wi_r[..., 2]], dim=-1)
     cos_i_t = wi_thin[..., 2].abs()
-    tss_thin = ggx.mdf(a, wm) * ggx.g(a, wo, wi_thin) / torch.clamp_min(4 * cos_o * cos_i_t, 1e-12)
+    tss_thin = ggx.mdf(a, wm) * ggx.g(a, wo, wi_thin) / maximum(4 * cos_o * cos_i_t, 1e-12)
     f_thin = ((1.0 - fss) * tss_thin / e_o)[..., None] * mat.base
     pdf_thin = vis * (1.0 - fss)
 
@@ -538,7 +539,7 @@ def _sample_dielectric(tables, mat, a, smooth, wo, wm, uc):
     wi_t, tir = refract(wo, wm, mat.ior)
     bad_t = tir | (wo[..., 2] * wi_t[..., 2] > 0.0) | (wi_t[..., 2] == 0.0)
     temp = dot(wi_t, wm) * ior_rel + dot(wo, wm)
-    dwm_dwi = absdot(wi_t, wm) / torch.clamp_min(temp * temp, 1e-12)
+    dwm_dwi = absdot(wi_t, wm) / maximum(temp * temp, 1e-12)
     pdf_t = ggx.vmdf(a, wo, wm) * dwm_dwi * (1.0 - fss)
     tss = ggx.mdf(a, wm) * ggx.g(a, wo, wi_t) * _safe_div(
         dot(wi_t, wm) * dot(wo, wm), wi_t[..., 2] * wo[..., 2] * temp * temp
@@ -569,7 +570,7 @@ def _sample_glossy(tables, mat, a, smooth, wo, wm, u, uc):
     cos_o = wo[..., 2]
     favg = _favg_fit(mat.ior)
     eavg = lut.ggx_eavg(tables, a.roughness)
-    fms = favg * favg * eavg / torch.clamp_min(1.0 - favg * (1.0 - eavg), 1e-6)
+    fms = favg * favg * eavg / maximum(1.0 - favg * (1.0 - eavg), 1e-6)
     # RAW sign-carrying cosine, like parametric.cpp:658-662: backside
     # evaluations extrapolate off the LUT edge.
     e_o = lut.ggx_e(tables, cos_o, a.roughness)
@@ -589,18 +590,18 @@ def _sample_glossy(tables, mat, a, smooth, wo, wm, u, uc):
     # ---- smooth specular ----
     f_spec = fresnel_dielectric(cos_o, mat.ior)
     wi_s = _mirror(wo)
-    f_s = (f_spec / torch.clamp_min(wi_s[..., 2].abs(), 1e-12))[..., None]
+    f_s = (f_spec / maximum(wi_s[..., 2].abs(), 1e-12))[..., None]
 
     # ---- rough reflection ----
     wi_g = _reflect(wo, wm)
     cos_i_g = wi_g[..., 2]
     ok_g = cos_o * cos_i_g >= 0.0
     fss = fresnel_dielectric(dot(wo, wm), mat.ior)
-    mss = ggx.mdf(a, wm) * ggx.g(a, wo, wi_g) / torch.clamp_min((4 * cos_o * cos_i_g).abs(), 1e-12)
+    mss = ggx.mdf(a, wm) * ggx.g(a, wo, wi_g) / maximum((4 * cos_o * cos_i_g).abs(), 1e-12)
     e_i = lut.ggx_e(tables, cos_i_g, a.roughness)
-    mms = (1.0 - e_o) * (1.0 - e_i) / torch.clamp_min(PI * (1.0 - eavg), 1e-6)
+    mms = (1.0 - e_o) * (1.0 - e_i) / maximum(PI * (1.0 - eavg), 1e-6)
     f_g = (fss * mss + fms * mms)[..., None]
-    pdf_g = ggx.vmdf(a, wo, wm) / torch.clamp_min(4 * absdot(wo, wm), 1e-12) * fss
+    pdf_g = ggx.vmdf(a, wo, wm) / maximum(4 * absdot(wo, wm), 1e-12) * fss
     flags_g = _flags(ok_g, REFLECTED | GLOSSY, ABSORBED)
 
     # combine: diffuse < smooth specular < rough glossy
@@ -627,15 +628,15 @@ def _sample_clearcoat(tables, mat, a_coat, wo, wm_coat, cr):
     # (parametric.cpp:804).
     f_spec = fresnel_dielectric(cos_o, mat.ior)
     wi_s = _mirror(wo)
-    f_s = (f_spec / torch.clamp_min(wi_s[..., 2].abs(), 1e-12))[..., None]
+    f_s = (f_spec / maximum(wi_s[..., 2].abs(), 1e-12))[..., None]
 
     wi = _reflect(wo, wm_coat)
     ok = cos_o * wi[..., 2] >= 0.0
     fss = fresnel_dielectric(dot(wo, wm_coat), 1.5)
-    mss = ggx.mdf(a_coat, wm_coat) * ggx.g(a_coat, wo, wi) / torch.clamp_min(
+    mss = ggx.mdf(a_coat, wm_coat) * ggx.g(a_coat, wo, wi) / maximum(
         (4 * cos_o * wi[..., 2]).abs(), 1e-12
     )
-    pdf = fss * ggx.vmdf(a_coat, wo, wm_coat) / torch.clamp_min(4 * absdot(wo, wm_coat), 1e-12)
+    pdf = fss * ggx.vmdf(a_coat, wo, wm_coat) / maximum(4 * absdot(wo, wm_coat), 1e-12)
     f = (fss * mss)[..., None]
     return BSDFSample(
         flags=_flags(smooth, REFLECTED | SPECULAR, _flags(ok, REFLECTED | GLOSSY, ABSORBED)),

@@ -14,6 +14,18 @@ stream and results do not depend on which lanes run together. Scenes with
 per-hit gates (alpha, transparent shadows) key their alpha tests with a
 per-bounce seed from the sampler's lane seed, which travels with the lane
 state through compaction too.
+
+`li(differentiable=True)` is the detached-sampling estimator of the JAX
+package (integrator.py:407-888): traversals run under `torch.no_grad()` on
+detached rays and their hits are constants; the sampled direction, its
+pdf and roughness and the roulette probability are detached; f, Le, the
+env and texture lookups and (with `cfg.diff_geometry`) the re-solved hit
+parameters keep their gradients. `cfg.remat` sets what the backward pass
+keeps: "all" is plain autograd; "trace" and "trace_lut" checkpoint each
+bounce (`torch.utils.checkpoint`, non-reentrant) and its recomputation
+replays the bounce's recorded traversal outputs (and, for "trace_lut", its
+LUT and texture gathers) instead of running them again, so no traversal
+kernel runs in a backward pass.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from yart_tpu_torch.config import RenderConfig
 from yart_tpu_torch.kernels import shade as SK
@@ -30,10 +43,13 @@ from yart_tpu_torch.ops import lut
 from yart_tpu_torch.ops.qmc import M32
 from yart_tpu_torch.ops.vecmath import (
     absdot,
+    cross,
     frame_from_normal_tangent,
     local_to_world,
     mat3_rows,
     max_component,
+    maximum,
+    minimum,
     normalize,
     shading_tangent,
     world_to_local,
@@ -53,6 +69,13 @@ PALLAS_REG_SPECULAR = (
     "regularize_specular is wired into the XLA shade paths only; the Pallas "
     "shade kernel's packed-row layout does not carry the force_reg lane input"
 )
+# The JAX package's refusal of differentiable "pallas" (integrator.py:437-443).
+PALLAS_NO_VJP = (
+    "shade_kernel='pallas': the Pallas shade kernel has no VJP; use shade_kernel='xla' (same math, "
+    "detached-sampling gradients, kernels/shade_math.py finish(detach=True)) or 'off' for "
+    "differentiable rendering"
+)
+REMATS = ("trace", "trace_lut", "all")
 
 
 class Shading(NamedTuple):
@@ -165,25 +188,88 @@ class _Counters:
 
 
 def _check_supported(meta: SceneMeta, cfg: RenderConfig, differentiable: bool) -> None:
-    if differentiable or cfg.diff_geometry:
-        raise NotImplementedError(
-            "differentiable rendering is not ported yet (ROADMAP.md A.8)"
-        )
+    if differentiable and cfg.shade_kernel == "pallas":
+        raise NotImplementedError(PALLAS_NO_VJP)
+    if differentiable and cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r}: expected one of {REMATS}")
     if cfg.shade_kernel not in SHADE_KERNELS:
         raise ValueError(f"shade_kernel={cfg.shade_kernel!r}: expected one of {SHADE_KERNELS}")
     if cfg.shade_kernel == "pallas" and cfg.regularize_specular is not None:
         raise NotImplementedError(PALLAS_REG_SPECULAR)
 
 
-def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters, mis: bool) -> _State:
-    """One bounce of every lane in `st` (the body of li's loop)."""
-    BOUNCES.bounces += 1
+def _traverse(trace, fn, *rays):
+    """fn(*rays) -> Hit. Without a recorder (the plain forward) it is just
+    the call. A differentiable bounce passes its recorder: the traversal
+    runs on detached rays under `torch.no_grad()` (its hits are constants,
+    and the kernels refuse inputs that require grad) with the LUT recorder
+    off, and a recomputation reads the recorded hits back."""
+    if trace is None:
+        return fn(*rays)
+
+    def run():
+        with torch.no_grad(), lut.named_residuals(None):
+            return fn(*(r.detach() for r in rays))
+
+    return trace.fetch(run)
+
+
+def _refit_hit(scene: CompiledScene, meta: SceneMeta, hit, o, d):
+    """The differentiable (t, u, v) of the triangle the traversal found
+    (JAX integrator.py:316-382): Moller-Trumbore re-solved against
+    `scene.positions[tri_v[tri]]`, so t, u and v (and with them the hit
+    point, the NEE geometry and the interpolated attributes) carry
+    gradients to the vertex positions; which triangle was hit stays
+    detached. An instanced scene maps the virtual triangle through
+    `tri_aux` to its prototype's object-space vertices (`proto_tri`,
+    `proto_pos`) and the instance's forward 3x4, so the gradient reaches
+    the shared prototype, summed over its instances. A lane keeps the
+    traversal's values where it missed, |det| < 1e-12 or t <= 0."""
+    tri = torch.clamp(hit.tri, 0, meta.n_tris - 1).long()
+    if meta.n_instances:
+        aux = scene.tri_aux[tri].long()
+        idx = scene.proto_tri[aux[:, 0]].long()
+        f = scene.inst_rows[aux[:, 1]][:, 12:24]  # forward 3x4, row by row
+
+        def to_world(vo):
+            return torch.stack([(f[:, 4 * r : 4 * r + 3] * vo).sum(dim=-1) + f[:, 4 * r + 3]
+                                for r in range(3)], dim=-1)
+
+        v0, v1, v2 = (to_world(scene.proto_pos[idx[:, k]]) for k in range(3))
+    else:
+        idx = scene.tri_v[tri].long()
+        v0, v1, v2 = (scene.positions[idx[:, k]] for k in range(3))
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pv = cross(d, e2)
+    det = (e1 * pv).sum(dim=-1)
+    small = det.abs() < 1e-12
+    inv = 1.0 / torch.where(small, torch.where(det < 0, -1e-12, 1e-12), det)
+    tv = o - v0
+    u = (tv * pv).sum(dim=-1) * inv
+    qv = cross(tv, e1)
+    v = (d * qv).sum(dim=-1) * inv
+    t = (e2 * qv).sum(dim=-1) * inv
+    ok = hit.mask & ~small & (t > 0.0)
+    return hit._replace(t=torch.where(ok, t, hit.t), u=torch.where(ok, u, hit.u),
+                        v=torch.where(ok, v, hit.v))
+
+
+def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt, mis: bool,
+            trace=None) -> _State:
+    """One bounce of every lane in `st` (the body of li's loop). A
+    differentiable bounce passes `trace`, the recorder of its traversals;
+    `cnt` is None when such a bounce is recomputed (it counted its rays the
+    first time)."""
+    differentiable = trace is not None
     n = st.active.shape[0]
     depth = st.depth
     dim0 = 4 + depth * 8
-    n_act = st.active.sum().to(torch.float64)
-    cnt.rays += n_act
-    cnt.live[depth] += n_act
+    if cnt is not None:
+        BOUNCES.bounces += 1
+        n_act = st.active.sum().to(torch.float64)
+        cnt.rays += n_act
+        cnt.live[depth] += n_act
 
     # Fresh alpha-test stream per bounce (integrator.py:481); only gated
     # scenes draw from it.
@@ -193,7 +279,11 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
 
     # Retired lanes trace with t_max = -1: instant misses.
     tmax_lane = torch.where(st.active, INF, -1.0)
-    hit = intersect(scene, meta, st.o, st.d, tmax_lane, t_min=RAY_EPS, alpha_seed=bounce_seed)
+    hit = _traverse(trace, lambda o, d, tm: intersect(scene, meta, o, d, tm, t_min=RAY_EPS,
+                                                      alpha_seed=bounce_seed),
+                    st.o, st.d, tmax_lane)
+    if differentiable and cfg.diff_geometry:
+        hit = _refit_hit(scene, meta, hit, st.o, st.d)
     found = hit.mask & st.active
 
     # ---- miss: environment + background (mis-integrator.cpp:27-43) ----
@@ -204,7 +294,7 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
         env_l = st.atten * le
         if mis and depth > 0:
             w_bsdf = torch.where(
-                st.specular, 1.0, st.last_pdf / torch.clamp_min(st.last_pdf + pdf_env, 1e-20)
+                st.specular, 1.0, st.last_pdf / maximum(st.last_pdf + pdf_env, 1e-20)
             )
             env_l = env_l * w_bsdf[..., None]
         L = L + torch.where(miss[..., None], env_l, 0.0)
@@ -215,7 +305,7 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     mat = B.resolve_material(scene, meta, sh.mat, sh.uv)
     if cfg.shade_kernel != "off":
         return _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st, cnt, hit, sh,
-                                  mat, found, L, dim0, bounce_seed, mis)
+                                  mat, found, L, dim0, bounce_seed, mis, trace)
     u = sampler.get2d(lane_state, dim0)
     uc = sampler.get1d(lane_state, dim0 + 2)
     uc2 = sampler.get1d(lane_state, dim0 + 3)
@@ -226,6 +316,11 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     fx, fy, fz = frame_from_normal_tangent(sh.n, sh.tg)
     wo_local = world_to_local(-st.d, fx, fy, fz)
     smp = B.bsdf_sample(tables, mat, wo_local, u, uc, uc2, regularized, meta=meta)
+    if differentiable:
+        # Detached sampling: direction, pdf and lobe choice are constants;
+        # f and Le keep their parameter dependence.
+        smp = smp._replace(wi=smp.wi.detach(), pdf=smp.pdf.detach(),
+                           roughness=smp.roughness.detach())
     wi_world = local_to_world(smp.wi, fx, fy, fz)
 
     # ---- emitted radiance (mis-integrator.cpp:60-74) ----
@@ -234,17 +329,17 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
         dist2 = ((st.last_p - sh.p) ** 2).sum(dim=-1)
         if meta.n_lights:
             lidx = torch.clamp(sh.light, 0, meta.n_lights - 1).long()
-            pdf_area = 1.0 / torch.clamp_min(scene.light_area[lidx], 1e-20)
+            pdf_area = 1.0 / maximum(scene.light_area[lidx], 1e-20)
             sel_p = lights.select_p_area(scene, meta, lidx, kind=cfg.light_sampler)
         else:
             pdf_area = torch.zeros(n, dtype=torch.float32, device=L.device)
             sel_p = pdf_area
-        pdf_light = pdf_area * dist2 * sel_p / torch.clamp_min(absdot(-st.d, sh.n), 1e-9)
+        pdf_light = pdf_area * dist2 * sel_p / maximum(absdot(-st.d, sh.n), 1e-9)
         first = depth == 0
         w_b = torch.where(
             st.specular | (sh.light < 0) | first,
             1.0,
-            st.last_pdf / torch.clamp_min(st.last_pdf + pdf_light, 1e-20),
+            st.last_pdf / maximum(st.last_pdf + pdf_light, 1e-20),
         )
         L = L + torch.where(emitted[..., None], st.atten * smp.Le * w_b[..., None], 0.0)
     else:
@@ -264,24 +359,27 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
         pdf_b = B.bsdf_pdf(tables, mat, wo_local, wi_l_local, meta=meta)
         to_l = ls.p - sh.p
         dist2_l = (to_l * to_l).sum(dim=-1)
-        dist_l = torch.sqrt(torch.clamp_min(dist2_l, 1e-20))
+        dist_l = torch.sqrt(maximum(dist2_l, 1e-20))
         nee_need = do_nee & ls.valid & ((f_l * f_l).sum(dim=-1) > 0.0)
         shadow_d = to_l / dist_l[..., None]
         shadow_tmax = torch.where(nee_need, dist_l - 1e-3, -1.0)
-        occ = intersect(scene, meta, sh.p, shadow_d, shadow_tmax, t_min=RAY_EPS, nee=True,
-                        alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667)
-        cnt.rays += nee_need.sum().to(torch.float64)
+        occ = _traverse(trace, lambda o, d, tm: intersect(
+            scene, meta, o, d, tm, t_min=RAY_EPS, nee=True,
+            alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667),
+            sh.p, shadow_d, shadow_tmax)
+        if cnt is not None:
+            cnt.rays += nee_need.sum().to(torch.float64)
 
-        pdf_light = ls.select_p * ls.pdf / torch.clamp_min(absdot(ls.n, ls.wi), 1e-9)
+        pdf_light = ls.select_p * ls.pdf / maximum(absdot(ls.n, ls.wi), 1e-9)
         pdf_light = torch.where(ls.is_env, pdf_light, pdf_light * dist2_l)
         contrib = (ls.Li * f_l * occ.attenuation
-                   * (absdot(ls.wi, sh.n) / torch.clamp_min(pdf_b + pdf_light, 1e-20))[..., None])
+                   * (absdot(ls.wi, sh.n) / maximum(pdf_b + pdf_light, 1e-20))[..., None])
         ok = nee_need & ~occ.mask
         L = L + torch.where(ok[..., None], st.atten * contrib, 0.0)
 
     # ---- throughput update (mis-integrator.cpp:83-96) ----
     fcos = smp.f * absdot(wi_world, sh.n)[..., None]
-    atten = st.atten * fcos / torch.clamp_min(smp.pdf, 1e-20)[..., None]
+    atten = st.atten * fcos / maximum(smp.pdf, 1e-20)[..., None]
     vol = B.volume_attenuation(mat, hit.t)
     atten = torch.where((sh.back & scattered)[..., None], atten * vol, atten)
 
@@ -293,9 +391,13 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     # ---- russian roulette (mis-integrator.cpp:98-102) ----
     if mis and depth_new >= cfg.rr_start_depth:
         u_rr = sampler.get1d(lane_state, dim0 + 7)
-        q = torch.clamp_min(1.0 - max_component(atten), 0.0)
+        q = maximum(1.0 - max_component(atten), 0.0)
+        if differentiable:
+            # Detached-sampling roulette: with q a constant, E[d(f/(1-q)) 1{survive}]
+            # = f' exactly (JAX integrator.py:666-684).
+            q = q.detach()
         active = active & ~(u_rr < q)
-        scale = torch.where(active, 1.0 / torch.clamp_min(1.0 - q, 1e-9), 1.0)
+        scale = torch.where(active, 1.0 / maximum(1.0 - q, 1e-9), 1.0)
         atten = atten * scale[..., None]
 
     atten = torch.where(active[..., None], atten, st.atten)
@@ -317,8 +419,9 @@ def _bounce(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Cou
     )
 
 
-def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt: _Counters,
-                       hit, sh: Shading, mat, found, L, dim0: int, bounce_seed, mis: bool) -> _State:
+def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State, cnt,
+                       hit, sh: Shading, mat, found, L, dim0: int, bounce_seed, mis: bool,
+                       trace=None) -> _State:
     """The fused-shade bounce tail (JAX integrator.py:141-313): the whole
     post-intersect bounce goes through kernels/shade_math.py, assembled in
     plain PyTorch (`shade_kernel="xla"`) or as B6 (the sampler draws) and
@@ -348,7 +451,7 @@ def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State
     # 1 / n_total, or its power share).
     if mis and meta.n_lights:
         lidx = torch.clamp(sh.light, 0, meta.n_lights - 1).long()
-        pdf_area = 1.0 / torch.clamp_min(scene.light_area[lidx], 1e-20)
+        pdf_area = 1.0 / maximum(scene.light_area[lidx], 1e-20)
         sel_p = lights.select_p_area(scene, meta, lidx, kind=cfg.light_sampler)
     else:
         pdf_area = sel_p = zero
@@ -381,13 +484,16 @@ def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State
         force_reg = None
         if cfg.regularize_specular is not None:
             force_reg = st.spec_depth >= cfg.regularize_specular
-        out = SM.shade(inp, gates, mis, any_lights, tables, force_reg=force_reg)
+        out = SM.shade(inp, gates, mis, any_lights, tables, force_reg=force_reg, detach=trace is not None)
 
     L = L + out["L_emit"]
     if mis and any_lights:
-        occ = intersect(scene, meta, sh.p, out["shadow_d"], out["shadow_tmax"], t_min=RAY_EPS, nee=True,
-                        alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667)
-        cnt.rays += out["nee_need"].sum().to(torch.float64)
+        occ = _traverse(trace, lambda o, d, tm: intersect(
+            scene, meta, o, d, tm, t_min=RAY_EPS, nee=True,
+            alpha_seed=None if bounce_seed is None else bounce_seed ^ 0x6A09E667),
+            sh.p, out["shadow_d"], out["shadow_tmax"])
+        if cnt is not None:
+            cnt.rays += out["nee_need"].sum().to(torch.float64)
         ok = out["nee_need"] & ~occ.mask
         L = L + torch.where(ok[..., None], out["contrib"] * occ.attenuation, 0.0)
 
@@ -402,6 +508,42 @@ def _shade_kernel_body(scene, meta, sampler, lane_state, cfg, tables, st: _State
     )
 
 
+def _diff_step(scene, meta, sampler, cfg, tables, cnt, mis: bool):
+    """-> step(st, lanes): one differentiable bounce under `cfg.remat`.
+
+    "all" runs the bounce under plain autograd. "trace" / "trace_lut" run
+    it inside a non-reentrant `checkpoint`, which keeps the bounce's input
+    state and drops its intermediates; the backward pass recomputes them by
+    running the bounce again, and that run reads its traversal outputs
+    (and, for "trace_lut", its LUT and texture gathers) from the records
+    of the first, so it launches no traversal kernel and counts nothing.
+    (The kernels are bound through ctypes, not as `torch.library` ops, so
+    selective checkpointing cannot mark them; the replay stands in for the
+    JAX package's `checkpoint_name` policies.)"""
+    def step(st: _State, lanes) -> _State:
+        if cfg.remat == "all":
+            return _bounce(scene, meta, sampler, lanes, cfg, tables, st, cnt, mis,
+                           trace=lut.Residuals(record=False))
+        trace = lut.Residuals()
+        luts = lut.Residuals() if cfg.remat == "trace_lut" else None
+        depth = st.depth
+
+        def body(*tensors):
+            replay = trace.start()
+            if luts is not None:
+                luts.start()
+            with lut.named_residuals(luts):
+                out = _bounce(scene, meta, sampler, lanes, cfg, tables, _State(*tensors, depth=depth),
+                              None if replay else cnt, mis, trace=trace)
+            return tuple(getattr(out, f) for f in _State._LANE_FIELDS)
+
+        outs = checkpoint(body, *(getattr(st, f) for f in _State._LANE_FIELDS),
+                          use_reentrant=False, preserve_rng_state=False)
+        return _State(*outs, depth=depth + 1)
+
+    return step
+
+
 def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: RenderConfig,
        mis: bool = True, return_live: bool = False, differentiable: bool = False):
     """Trace radiance for a wavefront of camera rays.
@@ -410,8 +552,10 @@ def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: Re
     active-lane counts when `return_live` (the compaction autotune probe).
     `lane_state` comes from `sampler.init_lanes`. `cfg.shade_kernel`
     picks the bounce tail: "off" (the classic body), "xla" or "pallas"
-    (the fused shade body). `differentiable=True` is refused: the
-    gradient path is a later slice.
+    (the fused shade body). `differentiable=True` makes L reverse-
+    differentiable w.r.t. the scene's tensors by detached sampling (module
+    doc); "pallas" has no backward and is refused there, as in the JAX
+    package.
     """
     _check_supported(meta, cfg, differentiable)
     n = o.shape[0]
@@ -430,17 +574,28 @@ def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: Re
         last_p=torch.zeros((n, 3), dtype=torch.float32, device=dev),
         spec_depth=torch.zeros(n, dtype=torch.int32, device=dev),
     )
+    if differentiable:
+        step = _diff_step(scene, meta, sampler, cfg, tables, cnt, mis)
+    else:
+        def step(st, lanes):
+            return _bounce(scene, meta, sampler, lanes, cfg, tables, st, cnt, mis)
 
     def run(st, lanes, stop):
+        # The JAX scan of a differentiable render always runs max_depth
+        # bounces; one with no active lane adds nothing to L or to its
+        # gradient, so both flavours stop there.
         while st.depth < stop and bool(st.active.any()):
-            st = _bounce(scene, meta, sampler, lanes, cfg, tables, st, cnt, mis)
+            st = step(st, lanes)
         return st
 
     split = cfg.compact_depth
     if split == "auto":
         # Env-lit scenes retire most lanes within two bounces; closed scenes
-        # keep too many survivors for the cap (integrator.py:834-839).
-        split = 2 if meta.has_env else None
+        # keep too many survivors for the cap (integrator.py:834-839). The
+        # differentiable flavour also needs roulette live (:792-802): without
+        # it an env scene keeps ~60% of its lanes at depth 2.
+        rr_live = cfg.rr_start_depth < cfg.max_depth
+        split = 2 if meta.has_env and (rr_live or not differentiable) else None
     cap = 0
     if split and split < cfg.max_depth:
         cap = max(128, (n // max(cfg.compact_factor, 2)) // 128 * 128)
@@ -451,7 +606,9 @@ def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: Re
         # bounces the survivors move into `cap` lanes (stable sort: active
         # lanes first, in lane order) with their sampler state, so every
         # draw and hence the image is unchanged; active lanes beyond the cap
-        # drain afterwards at full width from depth `split`.
+        # drain afterwards at full width from depth `split`. In
+        # differentiable mode the gather and the merge carry gradients
+        # (:787-831); the indices are constants.
         st = run(st, lane_state, split)
         idx = torch.argsort((~st.active).to(torch.uint8), stable=True)[:cap]
         st_c = run(st.take(idx), lane_state[idx], cfg.max_depth)
@@ -466,17 +623,19 @@ def li(scene: CompiledScene, meta: SceneMeta, sampler, lane_state, o, d, cfg: Re
 
 
 def render_wave(scene: CompiledScene, meta: SceneMeta, cam: CameraParams, sampler,
-                cfg: RenderConfig, px, py, sample_idx, return_live: bool = False):
+                cfg: RenderConfig, px, py, sample_idx, return_live: bool = False,
+                differentiable: bool = False):
     """Camera raygen + Li for a batch of (pixel, sample) lanes. px, py: [N]
     int pixel coords; sample_idx: [N] global sample indices. Returns
-    (radiance [N, 3] scaled by exposure, ray count) (+ live counts)."""
+    (radiance [N, 3] scaled by exposure, ray count) (+ live counts);
+    `differentiable` as in `li`."""
     lane_state = sampler.init_lanes(px, py, sample_idx)
     u_film = sampler.get2d(lane_state, 0)
     u_lens = sampler.get2d(lane_state, 2)
     o, d = generate_rays(cam, px, py, u_film, u_lens)
     out = li(scene, meta, sampler, lane_state, o, d, cfg,
-             mis=cfg.integrator == "mis", return_live=return_live)
+             mis=cfg.integrator == "mis", return_live=return_live, differentiable=differentiable)
     L = out[0]
     if cfg.clamp is not None:
-        L = torch.clamp_max(L, float(cfg.clamp))
+        L = minimum(L, float(cfg.clamp))
     return (L * cam.exposure_scale,) + tuple(out[1:])

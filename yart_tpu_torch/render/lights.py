@@ -24,7 +24,7 @@ import torch
 
 from yart_tpu_torch.ops import warps
 from yart_tpu_torch.ops.distribution import ONE_MINUS_EPS, sample_alias_rows
-from yart_tpu_torch.ops.vecmath import inv_octahedral_uv, normalize, octahedral_uv
+from yart_tpu_torch.ops.vecmath import inv_octahedral_uv, maximum, normalize, octahedral_uv
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 FOUR_PI = 4.0 * math.pi
@@ -45,18 +45,22 @@ class LightSample(NamedTuple):
 
 def env_rows_from_image(env_image: torch.Tensor, pdf_cells: torch.Tensor) -> torch.Tensor:
     """The [K, 16] env row table: per bilinear base cell its 2x2 texel quad
-    (radiance) and its sampling density."""
+    (radiance) and its sampling density. Plain tensor ops, so an env image
+    that requires grad passes its gradient to the radiance fetches
+    (render/diff.py `env_grads` rebuilds the rows from it)."""
     h, w = env_image.shape[:2]
     wc, hc = max(w - 1, 1), max(h - 1, 1)
-    x1 = torch.clamp_max(torch.arange(wc) + 1, w - 1)
-    y1 = torch.clamp_max(torch.arange(hc) + 1, h - 1)
+    dev = env_image.device
+    x1 = torch.clamp_max(torch.arange(wc, device=dev) + 1, w - 1)
+    y1 = torch.clamp_max(torch.arange(hc, device=dev) + 1, h - 1)
     s00 = env_image[:hc, :wc]
     s10 = env_image[:hc, x1]
     s01 = env_image[y1, :wc]
     s11 = env_image[y1][:, x1]
     quad = torch.cat([s00, s10, s01, s11], dim=-1).reshape(hc * wc, 12)
     return torch.cat(
-        [quad, pdf_cells.reshape(-1, 1), torch.zeros((hc * wc, 3), dtype=env_image.dtype)], dim=1
+        [quad, pdf_cells.reshape(-1, 1).to(dev), torch.zeros((hc * wc, 3), dtype=env_image.dtype, device=dev)],
+        dim=1
     )
 
 
@@ -117,7 +121,7 @@ def select_p_area(scene: CompiledScene, meta: SceneMeta, light_idx, kind: str = 
         n_total = meta.n_lights + (1 if meta.has_env else 0)
         return torch.full(light_idx.shape, 1.0 / max(n_total, 1),
                           dtype=torch.float32, device=light_idx.device)
-    total = torch.clamp_min(scene.light_cdf[-1], 1e-20)
+    total = maximum(scene.light_cdf[-1], 1e-20)
     return scene.light_power[light_idx] / total * (1.0 - p_infinite(meta))
 
 
@@ -157,12 +161,12 @@ def sample_light(scene: CompiledScene, meta: SceneMeta, p, uc, u, kind: str = "p
         pos = b0 * verts[:, 0] + b1 * verts[:, 1] + b2 * verts[:, 2]
         nrm = b0 * norms[:, 0] + b1 * norms[:, 1] + b2 * norms[:, 2]
         wi_area = normalize(pos - p)
-        pdf_area = 1.0 / torch.clamp_min(scene.light_area[li], 1e-20)
+        pdf_area = 1.0 / maximum(scene.light_area[li], 1e-20)
         li_rgb = scene.light_emission[li]
         if kind == "uniform":
             sel_area = uniform_sel
         else:
-            total = torch.clamp_min(scene.light_cdf[-1], 1e-20)
+            total = maximum(scene.light_cdf[-1], 1e-20)
             sel_area = scene.light_power[li] / total * (1.0 - p_inf)
     else:
         pos = nrm = wi_area = li_rgb = zero3

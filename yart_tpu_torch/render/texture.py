@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from yart_tpu_torch.ops import lut
 from yart_tpu_torch.scene.types import TextureStack
 
 
@@ -25,27 +26,39 @@ def qrows_from_data(data: torch.Tensor) -> torch.Tensor:
     return quad.reshape(h * w, -1)
 
 
-def sample_stack(stack: TextureStack, idx: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Sample textures `idx` ([N] int) at `uv` ([N, 2]); returns [N, C].
-    Lanes with idx < 0 return zeros, and so does every lane of an empty
-    stack."""
-    c = stack.data.shape[-1]
-    if stack.table.shape[0] == 0:
-        return torch.zeros(idx.shape + (c,), dtype=torch.float32, device=uv.device)
+def _gather(stack: TextureStack, idx: torch.Tensor, uv: torch.Tensor):
+    """The parts of a fetch that carry no gradient: the rect's (w - 1, h -
+    1), the base texel (x, y) and the flat row of each lane's quad, and the
+    quad rows themselves unless they are being differentiated."""
     safe = torch.clamp(idx.long(), 0, stack.table.shape[0] - 1)
     rect = stack.table[safe].to(torch.float32)  # [N, 4]
     w, h = rect[..., 2], rect[..., 3]
-    u = uv[..., 0] - torch.floor(uv[..., 0])
-    v = uv[..., 1] - torch.floor(uv[..., 1])
-    u = u * (w - 1.0)
-    v = v * (h - 1.0)
+    u = (uv[..., 0] - torch.floor(uv[..., 0])) * (w - 1.0)
+    v = (uv[..., 1] - torch.floor(uv[..., 1])) * (h - 1.0)
     x = torch.clamp_min(torch.minimum(w - 2.0, torch.floor(u)), 0.0)
     y = torch.clamp_min(torch.minimum(h - 2.0, torch.floor(v)), 0.0)
-    fu = (u - x)[..., None]
-    fv = (v - y)[..., None]
     xi = (rect[..., 0] + x).long()
     yi = (rect[..., 1] + y).long()
-    q = stack.qrows[yi * stack.data.shape[1] + xi]  # [N, 4C]
+    row = yi * stack.data.shape[1] + xi
+    q = None if stack.qrows.requires_grad else stack.qrows[row]
+    return w - 1.0, h - 1.0, x, y, row, q
+
+
+def sample_stack(stack: TextureStack, idx: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample textures `idx` ([N] int) at `uv` ([N, 2]); returns [N, C].
+    Lanes with idx < 0 return zeros, and so does every lane of an empty
+    stack. The gather goes through `ops.lut.named` (kept across a
+    differentiable bounce's recomputation under `remat="trace_lut"`)."""
+    c = stack.data.shape[-1]
+    if stack.table.shape[0] == 0:
+        return torch.zeros(idx.shape + (c,), dtype=torch.float32, device=uv.device)
+    wm1, hm1, x, y, row, q = lut.named(lambda: _gather(stack, idx, uv))
+    if q is None:
+        q = stack.qrows[row]  # [N, 4C]
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    fu = (u * wm1 - x)[..., None]
+    fv = (v * hm1 - y)[..., None]
     s00, s10, s01, s11 = q[..., 0:c], q[..., c : 2 * c], q[..., 2 * c : 3 * c], q[..., 3 * c :]
     out = (s00 * (1 - fv) + s01 * fv) * (1 - fu) + (s10 * (1 - fv) + s11 * fv) * fu
     return torch.where((idx >= 0)[..., None], out, 0.0)

@@ -385,6 +385,8 @@ class SceneBuilder:
         env_rows = env_rows_from_image(env_img, torch.from_numpy(env["pdf_cells"]))
         return (InstancedScene if extra else CompiledScene)(
             tri_pack=t(geo["tri_pack"]),
+            positions=t(geo["positions"], np.float32),
+            tri_v=t(geo["tri_v"], np.int32),
             shade_pack=t(geo["shade_pack"]),
             tri_mat=t(geo["tri_mat"]),
             tri_light=t(geo["tri_light"]),
@@ -617,6 +619,7 @@ class SceneBuilder:
 
         z1 = np.zeros(1, np.int32)
         tables = dict(tri_pack=np.zeros((1, 12), np.float32),
+                      positions=np.zeros((1, 3), np.float32), tri_v=np.zeros((1, 3), np.int32),
                       shade_pack=np.concatenate([g["shade_pack"] for g in geo]),
                       tri_mat=z1, tri_light=z1,
                       clus_pack=np.concatenate([g["clus_pack"] for g in geo]),

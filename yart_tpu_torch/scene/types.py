@@ -70,6 +70,12 @@ class CompiledScene:
     """The scene as tensors; `.to(device)` moves all of them."""
 
     tri_pack: torch.Tensor  # [T, 12] f32: v0 v1 v2, mat bits, light bits, pad
+    # Vertex positions and each triangle's vertex ids in the leaf order of
+    # `tri_pack`: only the differentiable path reads them, re-solving hits
+    # against vertices that can carry gradients (`cfg.diff_geometry`).
+    # An instanced scene holds the JAX builder's one-row placeholders.
+    positions: torch.Tensor  # [V, 3] f32
+    tri_v: torch.Tensor  # [T, 3] int32 into positions
     shade_pack: torch.Tensor  # [T, 32] f32: n0 n1 n2 uv0 uv1 uv2 t0 t1 t2 mat light
     tri_mat: torch.Tensor  # [T] int32
     tri_light: torch.Tensor  # [T] int32, -1 = not emissive
@@ -128,9 +134,8 @@ class InstancedScene(CompiledScene):
     clus_inst: torch.Tensor  # [n_ic_pad] int32 instance of each instance cluster
     clus_fid: torch.Tensor  # [n_ic_pad] int32 first virtual triangle of each instance cluster
     inst_flat: torch.Tensor  # [I * 12] f32 the inverse 3x4 rows, flat
-    # Object-space prototype vertices and leaf-ordered triangles, carried
-    # for the differentiable path (ROADMAP.md A.8); the forward path does
-    # not read them.
+    # Object-space prototype vertices and leaf-ordered triangles: the
+    # differentiable path's `positions` / `tri_v` of an instanced scene.
     proto_pos: torch.Tensor  # [sum V_p, 3] f32
     proto_tri: torch.Tensor  # [sum T_p, 3] int32 into proto_pos
 
