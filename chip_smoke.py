@@ -106,7 +106,7 @@ exits non-zero and prints no final "ok" line:
                other mode, no twin may run on CUDA; the host's scene build
                seconds are reported.
   4e. render — this slice's main path: the dense atrium 512x512, depth 30,
-               +3 EV, 16 spp (DENSE_SPP), through bin-trace: B4 must
+               +3 EV, 4 spp (DENSE_SPP), through bin-trace: B4 must
                launch and B1, B2 and B3 must not; rounds per call and
                collect iterations per round, the host build seconds.
   4f. render — this slice's main path: cornell-mat and atrium-ivy
@@ -180,12 +180,38 @@ exits non-zero and prints no final "ok" line:
                in 6a, 6b and 6e, the kernel path agrees with the twin
                path likewise (6b at 8x8, 4 spp and 6e at 16x16, 2 spp:
                B2's and B3's twins are slow on the card).
+  7. stack  — the stack traversals and the per-instance loop
+               (`stack_phases`): 7a atrium(ivy=True, density=3) built on
+               the host (1,103,508 triangles, 14,044 clusters: gated past
+               the cap; BVH8 depth, groups, leaves at triangle >= 2^20,
+               the SAH build and BVH8 collapse seconds), 2^20 camera rays
+               from the CLI's camera and their sun shadow rays through
+               `intersect_bvh_sorted` (after a warm-up cast of 2^17), with
+               every count set to 0 just before: no kernel launch, the
+               iterations and the working set at each host check, the
+               wall; 4,096 lanes of each (half on triangles >= 2^20) held
+               against the gated brute on the card (masks exact, t, u, v
+               bitwise where the triangle agrees, other triangles only on
+               ties in t, unoccluded attenuation within rtol 1e-4 / atol
+               1e-5); 7b its render at 256x256, 4 spp, depth 8 with
+               shade_kernel="pallas" (B5 and B6 once per bounce, no
+               B1-B4/B7), and "pallas" against "off" at 64x64, 2 spp,
+               depth 4 at _assert_images_equivalent's bar; 7c
+               atrium(density=3, instanced=True) built on the host (95
+               instances, 12,055 instance clusters), the per-instance
+               loop's kernel path against its twin path bitwise on every
+               Hit field at 2^16 camera rays and their sun shadow rays
+               (B1/B2/B3 launches a cast), and its render at 256x256, 4
+               spp, depth 8 with channel means within 0.5% of the baked
+               dense atrium's (phase 3h's scene, bin-trace) at the same
+               camera and settings.
 The kernels line lists B1-B7b with their launches on the main paths (B1:
 cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
 earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
 with "pallas", atrium-ivy beside it; B7a, B7b: the incoherent round-based
 cast of 3l, the coherent one beside it; B1-B3 also per phase-6 case,
-forward and backward), times and bounds; then the card as
+forward and backward, and per cast of the per-instance loop (7c); B5, B6
+also on the dense ivy atrium's render, 7b), times and bounds; then the card as
 nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -248,7 +274,10 @@ INSTR_MT_NOFMA = 69
 INSTANCED_MEAN_RTOL = 5e-3  # instanced vs baked atrium (tests/test_instancing.py:120-136)
 INSTANCED_PIXEL_TOL = 2e-2
 INSTANCED_PIXEL_SHARE = 0.98
-DENSE_SPP = 16  # samples per pixel of the dense atrium render (phase 4e)
+DENSE_SPP = 4  # samples per pixel of the dense atrium render (phase 4e; 16 until phase 7 came)
+# How the plain twins that take seconds are timed (`timed_call`): not
+# comparable with the warm medians taken before phase 7 came.
+PLAIN_ONE_CALL = "one cold call, the one held against the kernel"
 B3_KEYS = ("b3_ms", "b3_plain_ms", "b3_bound_ms", "b3_bound_by", "b3_sweep_bound_ms")  # B3's timed records
 B2_KEYS = ("b2_ms", "b2_plain_ms", "b2_bound_ms", "b2_bound_by", "b2_sweep_bound_ms")  # B2's timed records
 B4_ROWS = ("tiles", "live_pairs", "rows_touched", "parent_layout_rows")  # B4's layout records
@@ -291,6 +320,21 @@ def cuda_ms(fn, reps: int = 5, warmup_s: float = 0.25, warmup_calls: int = 2) ->
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def timed_call(fn):
+    """(fn(), its milliseconds from CUDA events) of one call: how the plain
+    twins that take seconds are timed, on the call whose result the kernel
+    is held against (a warm-up call would double their cost)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def bound(flops: float, nbytes: float):
@@ -655,8 +699,7 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
     if b2_rows:
         raise AssertionError(f"{name}: B2 kernel and plain twin differ on {b2_rows} rows (max abs {b2_err})")
     out = fusedtrace.fused_trace_cuda(*args)
-    out_p = fusedtrace.fused_trace_plain(*args)
-    torch.cuda.synchronize()
+    out_p, plain_ms = timed_call(lambda: fusedtrace.fused_trace_plain(*args))
     hit = out[:, 4].contiguous().view(torch.int32) >= 0
     b3_err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
     if not bits_equal(out, out_p):
@@ -675,8 +718,8 @@ def compare_blocktrace(name, scene, meta, o, d, t_max, timed: bool, nee: bool = 
     if timed:
         rec.update(b2_timed(rays, box, n_clus, t_min, pk))
         rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args), reps=11)
-        rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args), reps=1,
-                                     warmup_s=0.0, warmup_calls=1)
+        rec["b3_plain_ms"] = plain_ms
+        rec["b3_plain_timing"] = PLAIN_ONE_CALL
         rec.update(b3_bounds(args, out))
         rec["pipeline_ms"] = cuda_ms(
             lambda: blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, nee=nee), reps=11)
@@ -717,8 +760,7 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
     def cast(tag, rays_s, blive):
         args = (rays_s.contiguous(), slots, box, scene.clus_pack, counts, blive, t_min, False, True, inst)
         out = fusedtrace.fused_trace_cuda(*args)
-        out_p = fusedtrace.fused_trace_plain(*args)
-        torch.cuda.synchronize()
+        out_p, plain_ms = timed_call(lambda: fusedtrace.fused_trace_plain(*args))
         hit = out[:, 4].contiguous().view(torch.int32) >= 0
         err = max(float((out[hit, i] - out_p[hit, i]).abs().max()) if hit.any() else 0.0 for i in range(3))
         if not bits_equal(out, out_p):
@@ -731,11 +773,11 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
                       "clusters_tested": float(out[:, 5].double().sum()),
                       "tris_tested": float(out[:, 6].double().sum()),
                       "mask_tests": float(out[:, 7].double().sum())})
-        return args, out
+        return args, out, plain_ms
 
-    args0, out0 = cast("cast0", rays[order], blive0)
+    args0, out0, plain0 = cast("cast0", rays[order], blive0)
     rays1, blive1, hit, passthru = amask_cast1(scene, meta, o, d, seeds, order, blive0, out0)
-    args1, out1 = cast("cast1", rays1, blive1)
+    args1, out1, _ = cast("cast1", rays1, blive1)
     floor_ok = out1[:, 4].contiguous().view(torch.int32) >= 0
     if not bool((out1[floor_ok, 0] > rays1[floor_ok, 7]).all()):
         raise AssertionError(f"{name}: a cast-1 hit lies at or below its floor")
@@ -748,8 +790,8 @@ def compare_amask(name, scene, meta, o, d, seeds, timed: bool = True):
     rec["b3_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0), reps=11)
     rec["b3_closest_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args0[:8], False, inst), reps=11)
     rec["b3_cast1_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_cuda(*args1), reps=11)
-    rec["b3_plain_ms"] = cuda_ms(lambda: fusedtrace.fused_trace_plain(*args0), reps=1,
-                                 warmup_s=0.0, warmup_calls=1)
+    rec["b3_plain_ms"] = plain0
+    rec["b3_plain_timing"] = PLAIN_ONE_CALL
     rec.update(b3_bounds(args0, out0))
     rec.update(b3_bounds(args1, out1, "b3_cast1_"))
     return rec
@@ -1465,9 +1507,9 @@ def intersection_forced_to_plain():
 def reset_counts():
     from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
-    from yart_tpu_torch.render import bintrace, blocktrace, integrator
+    from yart_tpu_torch.render import bintrace, blocktrace, integrator, stacktrace
 
-    for m in (brute, presort, fusedtrace, clusterpairs, bintrace):
+    for m in (brute, presort, fusedtrace, clusterpairs, bintrace, stacktrace):
         m.COUNTS.reset()
     shade.COUNTS_SHADE.reset()
     shade.COUNTS_DRAWS.reset()
@@ -1489,7 +1531,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
     from yart_tpu_torch.io.image import write_png
     from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
-    from yart_tpu_torch.render import bintrace, blocktrace, integrator
+    from yart_tpu_torch.render import bintrace, blocktrace, integrator, stacktrace
     from yart_tpu_torch.render.renderer import Renderer
 
     # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
@@ -1510,10 +1552,7 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
     )
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
-                "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches,
-                "shade": shade.COUNTS_SHADE.launches, "draws": shade.COUNTS_DRAWS.launches,
-                "select_clusters": legacy.COUNTS_SELECT.launches, "test_clusters": legacy.COUNTS_TEST.launches}
+    launches = dict(kernel_launches(), shade=shade.COUNTS_SHADE.launches, draws=shade.COUNTS_DRAWS.launches)
     bounces = integrator.BOUNCES.bounces
     modes = dict(fusedtrace.COUNTS.modes)
     gated = {"calls": blocktrace.GATED.calls, "casts": blocktrace.GATED.casts,
@@ -1522,6 +1561,9 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
     bins = {"calls": bt.calls, "rounds": bt.rounds, "rounds_per_call": bt.rounds / max(bt.calls, 1),
             "collect_iters_per_round": sum(bt.iters) / max(len(bt.iters), 1),
             "collect_iters_max": max(bt.iters, default=0)}
+    sc = stacktrace.COUNTS
+    stack = {"calls": sc.calls, "iters_per_call": sum(sc.iters) / max(sc.calls, 1),
+             "iters_max": max(sc.iters, default=0)}
     plain_cuda = (brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
                   + clusterpairs.COUNTS.plain_cuda + shade.COUNTS_SHADE.plain_cuda + shade.COUNTS_DRAWS.plain_cuda
                   + legacy.COUNTS_SELECT.plain_cuda + legacy.COUNTS_TEST.plain_cuda)
@@ -1541,9 +1583,9 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
            "wall_s": round(wall, 3), "rays": res.total_rays,
            "mrays_per_s": res.total_rays / wall / 1e6, "peak_mem_gib": peak / 2 ** 30,
            "launches": launches, "bounces": bounces, "fused_trace_modes": modes, "gated": gated,
-           "bintrace": bins, "plain_calls_on_cuda": plain_cuda, "waves": waves,
+           "bintrace": bins, "stack": stack, "plain_calls_on_cuda": plain_cuda, "waves": waves,
            "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))], "png": os.path.relpath(png, ROOT)}
-    return rec, dict(launches, fused_trace_modes=modes, bounces=bounces, rays=res.total_rays), hdr
+    return rec, dict(launches, fused_trace_modes=modes, bounces=bounces, rays=res.total_rays, stack=stack), hdr
 
 
 def images_equivalent(a, b, rays_a, rays_b) -> dict:
@@ -1979,6 +2021,257 @@ def fwdbwd_phases(dev, scenes: dict) -> dict:
     return recs
 
 
+# ---- phase 7: the stack traversals and the per-instance loop --------------
+
+
+def kernel_launches() -> dict:
+    """Launches of B1-B4, B7a and B7b so far."""
+    from yart_tpu_torch.kernels import blocktrace as legacy
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort
+
+    return {"brute_intersect": brute.COUNTS.launches, "presort_keys": presort.COUNTS.launches,
+            "fused_trace": fusedtrace.COUNTS.launches, "cluster_pairs": clusterpairs.COUNTS.launches,
+            "select_clusters": legacy.COUNTS_SELECT.launches, "test_clusters": legacy.COUNTS_TEST.launches}
+
+
+def timed_cast(scene, meta, o, d, t_max, **kw):
+    """intersect() with every count set to 0 just before: (Hit, wall ms,
+    kernel launches, stack-traversal calls, iterations and working sets)."""
+    import torch
+
+    from yart_tpu_torch.render import stacktrace
+    from yart_tpu_torch.render.intersect import intersect
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    h = intersect(scene, meta, o, d, t_max, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    sc = stacktrace.COUNTS
+    return h, ms, kernel_launches(), {"calls": sc.calls, "iters": list(sc.iters), "working_sets": list(sc.sets)}
+
+
+def leaf_refs_past(wide_pack, first: int) -> int:
+    """Leaves of a triangle BVH8 whose first triangle is >= `first`."""
+    import torch
+
+    enc = wide_pack[:, 48:56].contiguous().view(torch.int32).long()
+    v = -(enc + 2)
+    return int(((enc <= -2) & ((v >> 4) >= first)).sum())
+
+
+def hold_against_gated_brute(name, scene, meta, o, d, t_max, seeds, h, nee: bool, n: int = 4096):
+    """The stack traversal's hits `h` on `n` of its lanes (half of them, as
+    far as there are, hits on triangles >= 2^20) against the port's gated
+    brute on the same lanes, on the card: masks exact; t bitwise where the
+    triangle agrees (the same Moller-Trumbore arithmetic); a differing
+    triangle only where two triangles tie in t; for shadow rays the
+    unoccluded attenuation within rtol 1e-4 / atol 1e-5. Returns the
+    record."""
+    import torch
+
+    from yart_tpu_torch.render.intersect import intersect_brute
+
+    dev = o.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    high = torch.nonzero(h.mask & (h.tri >= (1 << 20)))[:, 0]
+    high = high[torch.randperm(high.numel(), generator=gen, device=dev)[: n // 2]]
+    rest = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+    rest[high] = False
+    rest = torch.nonzero(rest)[:, 0]
+    idx = torch.cat([high, rest[torch.randperm(rest.numel(), generator=gen, device=dev)[: n - high.numel()]]])
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (o.shape[0],))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = intersect_brute(scene, meta, o[idx].contiguous(), d[idx].contiguous(), t_max[idx], nee=nee,
+                        alpha_seed=seeds[idx])
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    s = {f: getattr(h, f)[idx] for f in h._fields}
+    m = b.mask
+    if not torch.equal(s["mask"], m):
+        raise AssertionError(f"{name}: masks differ from the gated brute on {int((s['mask'] != m).sum())} lanes")
+    rec = {"case": name, "nee": nee, "lanes": n, "lanes_hitting_tri_ge_2^20": int(high.numel()),
+           "hits": int(m.sum()), "gated_brute_s": brute_s, "masks_equal": True}
+    if nee:
+        un = ~m
+        if not torch.allclose(s["attenuation"][un], b.attenuation[un], rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"{name}: unoccluded attenuation differs from the gated brute")
+        rec.update(unoccluded=int(un.sum()), attenuated=int((b.attenuation[un] < 1.0).any(dim=1).sum()),
+                   attenuation_max_abs_err=float((s["attenuation"][un] - b.attenuation[un]).abs().max())
+                   if un.any() else 0.0)
+        return rec
+    same = m & (s["tri"] == b.tri)
+    t_bits = s["t"].view(torch.int32) == b.t.view(torch.int32)
+    diff = m & ~same
+    ties = diff & t_bits
+    if not bool(t_bits[same].all()) or bool((diff & ~t_bits).any()):
+        raise AssertionError(f"{name}: t differs from the gated brute on {int((same & ~t_bits).sum())} lanes with "
+                             f"the same triangle, {int((diff & ~t_bits).sum())} with another")
+    rec.update(t_bitwise_where_tri_equal=True, tri_equal=int(same.sum()), tri_ties=int(ties.sum()),
+               u_v_bitwise_where_tri_equal=bool(torch.equal(s["u"][same].view(torch.int32),
+                                                            b.u[same].view(torch.int32))
+                                                and torch.equal(s["v"][same].view(torch.int32),
+                                                                b.v[same].view(torch.int32))))
+    return rec
+
+
+def stack_phases(dev, dense, dense_meta) -> dict:
+    """Phase 7: 7a the dense ivy atrium through the stack traversals, 7b
+    its render, 7c the dense instanced atrium through the per-instance loop
+    (the baked dense atrium of phase 3h, `dense`, beside it). Emits each
+    record; returns what the kernels line needs."""
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.cli import CAMERAS
+    from yart_tpu_torch.config import CameraConfig
+    from yart_tpu_torch.render import blocktrace
+    from yart_tpu_torch.render.intersect import intersect
+    from yart_tpu_torch.scene.showcase import atrium
+
+    out = {}
+    t_phase = time.time()
+    pos, target = CAMERAS["atrium-ivy"]
+    fwd = tuple(t - p for p, t in zip(pos, target))
+
+    # ---- 7a. the dense ivy atrium through the stack traversals ----------
+    t0 = time.time()
+    builder = atrium(ivy=True, density=3)
+    author_s = time.time() - t0
+    t0 = time.time()
+    ivy3, ivy3_meta = builder.compile(dev)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t0
+    timings = builder.timings
+    del builder
+    past = leaf_refs_past(ivy3.wide_pack, 1 << 20)
+    emit({"phase": "scene", "scene": "atrium(ivy=True, density=3)", "n_tris": ivy3_meta.n_tris,
+          "n_clusters": ivy3_meta.n_clusters, "any_alpha": ivy3_meta.any_alpha,
+          "any_transparent": ivy3_meta.any_transparent, "wide_depth": ivy3_meta.wide_depth,
+          "bvh_depth": ivy3_meta.bvh_depth, "bvh8_groups": int(ivy3.wide_pack.shape[0]),
+          "leaves_first_ge_2^20": past, "textures_and_meshes_s": round(author_s, 3),
+          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3),
+          "sah_build_s": timings["bvh_s"], "bvh8_collapse_s": timings["collapse_s"],
+          "tables_s": timings["tables_s"], "collapse_share_of_compile": timings["collapse_s"] / compile_s})
+    if ivy3_meta.n_clusters <= blocktrace.MAX_CLUSTERS or not ivy3_meta.any_alpha or past == 0:
+        raise AssertionError("the dense ivy atrium is not a gated scene past the cluster cap with leaves at 2^20")
+    o, d, seeds = camera_rays(CameraConfig(image_size=(1024, 1024), focal_length=35.0, position=pos, forward=fwd),
+                              dev, seeds=True)
+    # The process's first stack traversal loads PyTorch's kernels for it:
+    # time a cast of 131,072 of the rays (the sorted path) first.
+    first_ms = timed_cast(ivy3, ivy3_meta, o[: 1 << 17], d[: 1 << 17], 1e30, alpha_seed=seeds[: 1 << 17])[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    h, ms, launches, stack = timed_cast(ivy3, ivy3_meta, o, d, 1e30, alpha_seed=seeds)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    sh_o, sh_d, sh_t = shadow_rays(o, d, h.t, h.mask, SUN)
+    sh_seeds = seeds ^ 0x6A09E667
+    hn, ms_n, launches_n, stack_n = timed_cast(ivy3, ivy3_meta, sh_o, sh_d, sh_t, nee=True, alpha_seed=sh_seeds)
+    for lk in (launches, launches_n):
+        if any(lk.values()):
+            raise AssertionError(f"the stack traversal launched a kernel: {lk}")
+    if stack["calls"] != 1 or stack_n["calls"] != 1:
+        raise AssertionError(f"2^20 rays took {stack['calls']} / {stack_n['calls']} stack traversals, not 1")
+    casts = {}
+    for case, nee, rays, hh, cms, st in (("camera_2^20", False, (o, d, 1e30, seeds), h, ms, stack),
+                                          ("sun_shadow_2^20", True, (sh_o, sh_d, sh_t, sh_seeds), hn, ms_n,
+                                           stack_n)):
+        rec = hold_against_gated_brute(f"atrium_ivy_dense_{case}", ivy3, ivy3_meta, *rays, hh, nee)
+        rec.update({"phase": "stack", "path": "intersect_bvh_sorted", "wall_ms": cms, "iterations": st["iters"][0],
+                    "working_set_per_check": st["working_sets"][0], "kernel_launches": 0,
+                    "hit_frac": float(hh.mask.float().mean()),
+                    "hits_tri_ge_2^20": int((hh.mask & (hh.tri >= 1 << 20)).sum())})
+        if not nee:
+            rec.update({"peak_gib_above_scene": peak, "first_cast_2^17_wall_ms": first_ms})
+        emit(rec)
+        casts[case] = rec
+    out["7a"] = casts
+    del h, hn, sh_o, sh_d, sh_t, o, d, seeds, sh_seeds
+
+    # ---- 7b. its render with the fused shade tail (B5 + B6) -------------
+    cam = CameraConfig(image_size=(256, 256), focal_length=35.0, position=pos, forward=fwd, exposure=3.0)
+    rec, lp, _ = render_main_path("atrium-ivy-dense", ivy3, ivy3_meta, cam, 4, dev, shade_kernel="pallas",
+                                  max_depth=8)
+    rec["scene_build_s"] = round(author_s + compile_s, 3)
+    if lp["bounces"] <= 0 or lp["shade"] != lp["bounces"] or lp["draws"] != lp["bounces"]:
+        raise AssertionError(f"dense ivy: B5 / B6 launched {lp['shade']} / {lp['draws']} over {lp['bounces']} bounces")
+    if any(lp[k] for k in ("brute_intersect", "presort_keys", "fused_trace", "cluster_pairs", "select_clusters",
+                           "test_clusters")) or lp["stack"]["calls"] <= 0:
+        raise AssertionError(f"dense ivy: the render left the stack traversals: {lp}")
+    small = CameraConfig(image_size=(64, 64), focal_length=35.0, position=pos, forward=fwd, exposure=3.0)
+    _, l_off, i_off = render_main_path("atrium-ivy-dense", ivy3, ivy3_meta, small, 2, dev, max_depth=4)
+    _, l_pal, i_pal = render_main_path("atrium-ivy-dense", ivy3, ivy3_meta, small, 2, dev, shade_kernel="pallas",
+                                       max_depth=4)
+    rec["vs_off_64_2spp_depth4"] = images_equivalent(i_off, i_pal, l_off["rays"], l_pal["rays"])
+    emit(rec)
+    if not rec["vs_off_64_2spp_depth4"]["meets_bar"]:
+        raise AssertionError(f"dense ivy: pallas against off misses the bar: {rec['vs_off_64_2spp_depth4']}")
+    out["7b"] = (rec, lp)
+    del ivy3
+
+    # ---- 7c. the dense instanced atrium through the per-instance loop ---
+    t0 = time.time()
+    builder = atrium(density=3, instanced=True)
+    author_s = time.time() - t0
+    t0 = time.time()
+    inst3, inst3_meta = builder.compile(dev)
+    torch.cuda.synchronize()
+    compile_s = time.time() - t0
+    del builder
+    emit({"phase": "scene", "scene": "atrium(density=3, instanced=True)", "n_tris": inst3_meta.n_tris,
+          "n_instances": inst3_meta.n_instances, "n_prototypes": len(inst3.protos),
+          "n_inst_clusters": inst3_meta.n_inst_clusters, "textures_and_meshes_s": round(author_s, 3),
+          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3)})
+    if inst3_meta.n_inst_clusters <= blocktrace.MAX_CLUSTERS:
+        raise AssertionError("the dense instanced atrium fits the block trace's cap")
+    pos, target = CAMERAS["atrium-inst"]
+    fwd = tuple(t - p for p, t in zip(pos, target))
+    o, d = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=pos, forward=fwd), dev)
+    loop = {}
+    hk = None
+    for case, nee in (("camera_2^16", False), ("sun_shadow_2^16", True)):
+        if nee:
+            o, d, t_max = shadow_rays(o, d, hk.t, hk.mask, SUN)
+        else:
+            t_max = torch.full((o.shape[0],), 1e30, device=dev)
+        hk, ms, lk, st = timed_cast(inst3, inst3_meta, o, d, t_max, nee=nee)
+        t0 = time.perf_counter()
+        with intersection_forced_to_plain():
+            hp = intersect(inst3, inst3_meta, o, d, t_max, nee=nee)
+        twin_s = time.perf_counter() - t0
+        diff = [f for f in hk._fields if not bits_equal(getattr(hk, f), getattr(hp, f))]
+        if diff:
+            raise AssertionError(f"dense instanced loop {case}: kernel path and twin path differ in {diff}")
+        if st["calls"] or lk["cluster_pairs"] or lk["select_clusters"] or lk["test_clusters"] \
+                or not (lk["brute_intersect"] and lk["presort_keys"] and lk["fused_trace"]):
+            raise AssertionError(f"dense instanced loop {case}: unexpected kernels {lk}, stack {st}")
+        loop[case] = {"phase": "instanced_loop", "case": case, "nee": nee, "n_rays": int(o.shape[0]),
+                      "bitwise_equal": True, "wall_ms": ms, "twin_path_s": twin_s, "launches_per_cast": lk,
+                      "hit_frac": float(hk.mask.float().mean())}
+        emit(loop[case])
+    out["7c"] = loop
+    cam = CameraConfig(image_size=(256, 256), focal_length=35.0, position=pos, forward=fwd, exposure=3.0)
+    rec_i, lp_i, img_i = render_main_path("atrium-inst-dense", inst3, inst3_meta, cam, 4, dev, max_depth=8)
+    rec_i["scene_build_s"] = round(author_s + compile_s, 3)
+    rec_b, lp_b, img_b = render_main_path("atrium-dense-256", dense, dense_meta, cam, 4, dev, max_depth=8)
+    mi, mb = img_i.mean(axis=(0, 1)), img_b.mean(axis=(0, 1))
+    rel = np.abs(mi - mb) / np.abs(mb)
+    rec_i["vs_baked_dense"] = {"mean": [float(x) for x in mi], "baked_mean": [float(x) for x in mb],
+                               "rel_err": [float(x) for x in rel], "mean_rtol": INSTANCED_MEAN_RTOL,
+                               "baked_wall_s": rec_b["wall_s"], "baked_launches": rec_b["launches"]}
+    emit(rec_i)
+    if not (rel <= INSTANCED_MEAN_RTOL).all():
+        raise AssertionError(f"dense instanced atrium against the baked one: channel means rel {rel}")
+    if lp_i["cluster_pairs"] or lp_i["stack"]["calls"] or not lp_i["brute_intersect"] or not lp_i["fused_trace"]:
+        raise AssertionError(f"dense instanced render: unexpected kernels {lp_i}")
+    out["7c_render"] = (rec_i, lp_i)
+    del inst3
+    emit({"phase": "stack_total", "seconds": round(time.time() - t_phase, 3)})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--spp", type=int, default=16, help="samples per pixel of the 512x512 renders (phases 4-4d)")
@@ -2398,12 +2691,27 @@ def main() -> int:
     emit({"phase": "fwdbwd_total", "seconds": fwdbwd["seconds"]})
     del atr
 
+    # ---- 7. the stack traversals and the per-instance loop --------------
+    # The dense ivy atrium (gated, past the cluster cap) through
+    # intersect_bvh_sorted and held against the gated brute; its render
+    # with "pallas"; the dense instanced atrium through the per-instance
+    # loop, kernel path against twin path, its render against the baked
+    # dense atrium's.
+    p7 = stack_phases(dev, dense, dense_meta)
+
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
+    fused["atrium-ivy-dense"] = p7["7b"]
+
+    def loop_launches(kernel):  # the per-instance loop's launches of B1-B3 (phase 7c)
+        return {f"instanced loop, {case} cast": r["launches_per_cast"][kernel] for case, r in p7["7c"].items()} | {
+            "atrium-inst-dense render": p7["7c_render"][1][kernel]}
+
     print(json.dumps({"kernels": [
         {"name": "brute_intersect", "route": "cuda",
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
          "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
          "launches": launches_cornell["brute_intersect"],
+         "launches_by_path": {"cornell-mat": launches_cornell["brute_intersect"], **loop_launches("brute_intersect")},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "brute_intersect"),
          "max_abs_err": max(r["max_abs_err"] for r in b1),
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
@@ -2417,7 +2725,7 @@ def main() -> int:
          "launches": launches_inst["presort_keys"],
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
                               "atrium-ivy": launches_ivy["presort_keys"],
-                              "atrium-inst": launches_inst["presort_keys"]},
+                              "atrium-inst": launches_inst["presort_keys"], **loop_launches("presort_keys")},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "presort_keys"),
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
          "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
@@ -2433,7 +2741,7 @@ def main() -> int:
          "modes": launches_inst["fused_trace_modes"],
          "launches_by_path": {"spheres": launches_spheres["fused_trace_modes"],
                               "atrium-ivy": launches_ivy["fused_trace_modes"],
-                              "atrium-inst": launches_inst["fused_trace_modes"]},
+                              "atrium-inst": launches_inst["fused_trace_modes"], **loop_launches("fused_trace")},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "fused_trace"),
          "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]
                             + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),

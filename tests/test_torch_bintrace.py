@@ -32,8 +32,8 @@ Checks and tolerances:
   mask, tri and back equal, t, u and v within rtol/atol 1e-5;
 - dispatch: a quad soup past 8192 clusters (C = 4; `from_numpy` carries
   its coarse tables bit for bit) goes through the real `intersect` to
-  bin-trace (the brute twin's closest hits agree); with alpha gates it is
-  refused naming the stack traversals (ROADMAP.md A.9);
+  bin-trace (the brute twin's closest hits agree); with alpha gates it
+  takes the stack traversal instead, with the same hits;
 - a 24x24, 2 spp, depth 2 env-lit render (one wave) of that soup against
   the JAX Renderer (which takes bin-trace on the CPU for any ungated scene
   past 4096 triangles) at the port's image bar: >= 95% of pixels within
@@ -63,6 +63,7 @@ from yart_tpu_torch.kernels import clusterpairs
 from yart_tpu_torch.render import bintrace as TBT
 from yart_tpu_torch.render import blocktrace
 from yart_tpu_torch.render import intersect as TIn
+from yart_tpu_torch.render import stacktrace as TST
 from yart_tpu_torch.render.renderer import Renderer
 from yart_tpu_torch.scene import bvh as TB
 from yart_tpu_torch.scene import clusters as TCl
@@ -304,9 +305,15 @@ def test_dispatch_routes_past_the_cap_to_bintrace(big):
     _eq(h.mask.numpy(), ref.mask.numpy(), "mask")
     np.testing.assert_allclose(h.t.numpy(), ref.t.numpy(), rtol=2e-4, atol=2e-4)  # plane vs Moller-Trumbore
     assert (h.tri == ref.tri).float().mean() >= 0.995
+    # The same scene gated (alpha on, no material with an alpha texture, so
+    # every hit passes) takes the stack traversal, with the same hits.
     gated = dataclasses.replace(tm, any_alpha=True)
-    with pytest.raises(NotImplementedError, match="intersect_bvh8.*A.9"):
-        TIn.intersect(ts, gated, T(o), T(d), t_max)
+    TST.COUNTS.reset()
+    hg = TIn.intersect(ts, gated, T(o), T(d), t_max)
+    assert TST.COUNTS.calls == 1 and TBT.COUNTS.calls == 1
+    _eq(hg.mask.numpy(), ref.mask.numpy(), "mask")
+    np.testing.assert_allclose(hg.t.numpy(), ref.t.numpy(), rtol=2e-5, atol=2e-5)
+    assert (hg.tri == ref.tri).float().mean() >= 0.995
 
 
 def test_render_matches_jax_renderer(big):

@@ -65,8 +65,10 @@ def test_clusters_equal_jax(soup, c):
 
 
 def _jax_numpy_compile(builder, monkeypatch, **kw):
-    """The JAX builder on its numpy BVH path (native build switched off)."""
+    """The JAX builder on its numpy BVH path (native build and BVH8 collapse
+    switched off)."""
     monkeypatch.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
+    monkeypatch.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
     js, jm = builder.compile(**kw)
     return jax.tree_util.tree_map(np.asarray, js), jm
 
@@ -84,7 +86,7 @@ def _check_tables(ts, tm, js, jm):
             _eq(x.view(np.uint8), y.view(np.uint8), name)
     for f in ("n_tris", "n_lights", "has_env", "env_sampleable", "env_portal", "env_wc",
               "env_hc", "n_clusters", "cluster_size", "n_clus_pad", "coarse_depth",
-              "coarse_max_leaf", "bintrace_k"):
+              "coarse_max_leaf", "bintrace_k", "max_leaf", "bvh_depth", "wide_depth"):
         assert getattr(tm, f) == getattr(jm, f), f
 
 

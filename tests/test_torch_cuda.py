@@ -20,8 +20,9 @@ degenerate triangles, ties within and across slots, t_cur = inf, live
 flags that are no prefix, repeated ids, one block and 2,048 blocks, C =
 30), the
 gated re-cast loop's (fused and
-round-based), bin-trace's and the round-based block trace's kernel paths
-against their twin paths, torch.argmin's first-minimum rule on the card,
+round-based), bin-trace's, the round-based block trace's and the
+per-instance loop's kernel paths against their twin paths, the stack
+traversal against the gated brute, torch.argmin's first-minimum rule on the card,
 renders that go through them, and the differentiable path (cornell-mat
 forward + backward under each remat policy: B1 in every forward bounce and
 never in a backward pass, kernel path against twin path).
@@ -522,6 +523,71 @@ def test_gated_instanced_loop_kernel_path_equals_plain_path(inst_leaves, nee):
     for a, b in zip(k, p):
         assert _bits_equal(a, b)
     assert trace_k == trace_p and len(trace_k) >= 2
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_stack_traversal_equals_gated_brute(ivy_soup, nee):
+    """The 8-wide stack traversal (plain PyTorch, no kernel) against the
+    gated brute on 4,096 lanes of the gated ivy, on the card: masks exact;
+    closest hits: t, u and v bitwise where the triangle agrees (the same
+    Moller-Trumbore arithmetic), another triangle only where two tie in t;
+    and the coherence-sorted variant lane-exact to it."""
+    from yart_tpu_torch.render import stacktrace
+    from yart_tpu_torch.render.intersect import intersect_brute
+
+    scene, meta, o, d, seed = ivy_soup
+    o, d, seed = o[:4096].contiguous(), d[:4096].contiguous(), seed[:4096].contiguous()
+    t_max = torch.full((4096,), 6.0 if nee else 100.0, device=o.device)
+    s = stacktrace.intersect_bvh8(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed)
+    b = intersect_brute(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(s.mask, b.mask) and s.mask.any() and not s.mask.all()  # hits and misses
+    if not nee:
+        same = s.mask & (s.tri == b.tri)
+        assert same.sum() >= 0.995 * s.mask.sum()
+        for f in ("t", "u", "v"):
+            assert _bits_equal(getattr(s, f)[same], getattr(b, f)[same]), f
+        assert _bits_equal(s.t[s.mask], b.t[b.mask])  # a differing triangle ties in t
+    srt = stacktrace.intersect_bvh_sorted(scene, meta, o, d, t_max, nee=nee, alpha_seed=seed, chunk=1000)
+    for a, c in zip(srt, s):
+        assert _bits_equal(a, c)
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_instanced_loop_kernel_path_equals_plain_path(nee):
+    """The per-instance loop over the dense instanced atrium (95 instances
+    of 41 prototypes, 12,055 instance clusters): B1 for the small
+    prototypes and B2 + B3 for the big ones, kernel path against twin path
+    bitwise on every Hit field."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is False)")
+    from yart_tpu_torch.render.intersect import intersect
+    from yart_tpu_torch.scene.showcase import atrium
+
+    scene, meta = atrium(density=3, instanced=True).compile(device="cuda")
+    assert meta.n_inst_clusters > blocktrace.MAX_CLUSTERS
+    rng = np.random.default_rng(5)
+    n = 8192
+    o = torch.from_numpy(np.asarray([-10.0, 1.8, 0.0], np.float32) + rng.normal(size=(n, 3)).astype(np.float32))
+    target = np.stack([rng.uniform(-8, 8, n), rng.uniform(0, 6, n), rng.uniform(-6, 6, n)], 1)
+    d = torch.from_numpy(target.astype(np.float32)) - o
+    o, d = o.cuda(), (d / d.norm(dim=1, keepdim=True)).cuda()
+    t_max = torch.full((n,), 6.0 if nee else 1e30, device="cuda")
+    before = (brute.COUNTS.launches, presort.COUNTS.launches, fusedtrace.COUNTS.launches)
+    k = intersect(scene, meta, o, d, t_max, nee=nee)
+    after = (brute.COUNTS.launches, presort.COUNTS.launches, fusedtrace.COUNTS.launches)
+    assert all(a > b for a, b in zip(after, before))
+    saved = brute.brute_intersect, fusedtrace.fused_trace, presort.presort_keys
+    brute.brute_intersect, fusedtrace.fused_trace, presort.presort_keys = (
+        brute.brute_plain, fusedtrace.fused_trace_plain, presort.presort_plain)
+    try:
+        p = intersect(scene, meta, o, d, t_max, nee=nee)
+    finally:
+        brute.brute_intersect, fusedtrace.fused_trace, presort.presort_keys = saved
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _bits_equal(a, b)
+    assert 0.05 < k.mask.float().mean()
 
 
 def tie_soup(seed: int = 3, n_soup: int = 500, n_dup: int = 100):

@@ -1,6 +1,6 @@
 """B1's plain twin (yart_tpu_torch.kernels.brute) against the JAX package's
 `intersect_brute` and against `brute_pallas` run in interpret mode, plus
-the dispatcher's refusals and the CPU/CUDA routing of the wrapper.
+the dispatcher's routes and the CPU/CUDA routing of the wrapper.
 
 Tolerances (as tests/test_pallas.py holds the Pallas kernel): hit masks
 are exact; the hit triangle agrees on >= 99.9% of hit lanes (two
@@ -20,6 +20,7 @@ from tests.test_intersect import make_scene, random_rays
 from yart_tpu.render.intersect import intersect_brute, intersect_brute_pallas
 from yart_tpu_torch.kernels import brute
 from yart_tpu_torch.render import intersect as TI
+from yart_tpu_torch.render import stacktrace
 from yart_tpu_torch.scene.convert import from_numpy
 from yart_tpu_torch.scene.types import SceneMeta
 
@@ -116,6 +117,16 @@ def test_wrapper_routes_cpu_to_plain_and_validates():
         brute.brute_intersect(*args[:4], 10 ** 6, 1e-3)
 
 
+def _spy_routes(monkeypatch):
+    """Replace the per-instance loop and the stack traversals by spies that
+    record the route taken and return a marker."""
+    routes = []
+    for mod, name in ((TI, "intersect_instanced"), (stacktrace, "intersect_bvh8"),
+                      (stacktrace, "intersect_bvh_sorted")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: routes.append(_n) or _n)
+    return routes
+
+
 @pytest.mark.parametrize(
     "fields,nee",
     [
@@ -125,11 +136,53 @@ def test_wrapper_routes_cpu_to_plain_and_validates():
         (dict(n_instances=2), False),
     ],
 )
-def test_dispatcher_refuses_unported_scenes(fields, nee):
+def test_dispatcher_refuses_unported_scenes(fields, nee, monkeypatch):
+    """The scenes the port refused before the stack traversals and the
+    per-instance loop: instanced ones past the cap (or with no instance
+    clusters) take the loop, gated ones past the cap `intersect_bvh8` at
+    fewer than 131,072 rays."""
     _, _, ts, _, o, d, t_max = _case(8, 16, 2)
     meta = SceneMeta(**{**dict(n_tris=8, n_materials=1, n_lights=0), **fields})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TI.intersect(ts, meta, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max), nee=nee)
+    routes = _spy_routes(monkeypatch)
+    TI.intersect(ts, meta, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t_max), nee=nee)
+    assert routes == ["intersect_instanced" if meta.n_instances else "intersect_bvh8"]
+
+
+def test_dispatcher_sorts_many_gated_rays(monkeypatch):
+    """A gated scene past the cap takes `intersect_bvh_sorted` from 131,072
+    rays on, `intersect_bvh8` below."""
+    _, _, ts, _, _, _, _ = _case(8, 16, 2)
+    meta = SceneMeta(n_tris=5000, n_materials=1, n_lights=0, n_clusters=(1 << 13) + 1, any_alpha=True)
+    routes = _spy_routes(monkeypatch)
+    for n in (TI.SORTED_MIN_RAYS - 1, TI.SORTED_MIN_RAYS):
+        TI.intersect(ts, meta, torch.zeros((n, 3)), torch.ones((n, 3)), 1e30)
+    assert TI.SORTED_MIN_RAYS == 131072 and routes == ["intersect_bvh8", "intersect_bvh_sorted"]
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_dispatcher_size_threshold(nee, monkeypatch):
+    """A scene without instances of at most 4096 triangles takes the brute
+    (B1; with transparency gates on shadow rays the gated brute), one
+    triangle more the block trace (few clusters), as in the JAX dispatcher
+    (:981-984); both find the same hits (shadow rays: the same occlusion)."""
+    routes = []
+    for mod, name in ((TI, "_gated_brute"), (brute, "brute_intersect"), (TI, "_blocktrace")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real, **k: routes.append(_n) or _r(*a, **k))
+    brute_route = "_gated_brute" if nee else "brute_intersect"
+    _, _, ts, tm, o, d, t_max = _case(brute.MAX_TRIS + 1, 128, 4)
+    meta = dataclasses.replace(tm, any_transparent=nee)  # no transparent material: every hit blocks
+    args = (ts, meta, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(np.minimum(t_max, 3.0)))
+    traced = TI.intersect(*args, nee=nee)
+    # The same scene with its last triangle dropped from the count.
+    small = TI.intersect(ts, dataclasses.replace(meta, n_tris=brute.MAX_TRIS), *args[2:], nee=nee)
+    assert routes == ["_blocktrace", brute_route], routes
+    last = traced.tri == brute.MAX_TRIS
+    assert torch.equal(small.mask[~last], traced.mask[~last]) and small.mask.any()
+    if not nee:
+        m = small.mask & ~last
+        assert torch.equal(small.tri[m], traced.tri[m])
+        torch.testing.assert_close(small.t[m], traced.t[m], rtol=2e-5, atol=2e-5)
 
 
 def test_nee_with_opaque_transparency_flag_off_is_closest_hit():

@@ -45,7 +45,7 @@ from yart_tpu.scene.procedural import textured_box_scene as j_textured_box
 from yart_tpu_torch.kernels import blocktrace as BK
 from yart_tpu_torch.kernels import presort
 from yart_tpu_torch.render import blocktrace as TBT
-from yart_tpu_torch.render.intersect import coherence_key
+from yart_tpu_torch.render.hit import coherence_key
 from yart_tpu_torch.scene.convert import from_numpy
 
 T = torch.from_numpy

@@ -100,6 +100,7 @@ def scenes(request):
         jb, tb = JS.atrium(ivy=True, tex_res=64), TS.atrium(ivy=True, tex_res=64)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
+        mp.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
         js, jm = jb.compile()
     ts, tm = tb.compile(device="cpu")
     return request.param, jax.tree_util.tree_map(np.asarray, js), jm, ts, tm

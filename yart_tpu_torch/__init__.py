@@ -15,9 +15,12 @@ its presort B2 (`kernels/presort.py`, `csrc/presort_keys.cu`) and fused
 closest-hit trace B3 (`kernels/fusedtrace.py`, `csrc/fused_trace.cu`).
 Later slices added textures, alpha gates, instancing, bin-trace, the fused
 shade tail and the round-based block trace (all eight TPU kernels have a
-Hopper counterpart in `csrc/`), and the differentiable path:
-`render/diff.py` and `tools/inverse_render.py` (README.md). Entry points
-run on the card unless given `device="cpu"`. Everything else raises
+Hopper counterpart in `csrc/`), the differentiable path
+(`render/diff.py`, `tools/inverse_render.py`), and the stack traversals
+(`render/stacktrace.py`) and per-instance loop for gated and instanced
+scenes past the block trace's cap, so intersection refuses no scene
+(README.md). Entry points run on the card unless given `device="cpu"`.
+What is still missing (glTF, HDR files, multi-GPU, other samplers) raises
 `NotImplementedError` naming its ROADMAP.md item.
 
 This package imports torch and nothing of jax or of `yart_tpu`; its

@@ -2,11 +2,14 @@
 
     python -m yart_tpu_torch.profile_render spheres --spp 16 --size 512x512 [--out DIR]
     python -m yart_tpu_torch.profile_render atrium --density 3 --spp 4 --size 512x512
+    python -m yart_tpu_torch.profile_render atrium-ivy --density 3 --spp 4 --size 256x256
     python -m yart_tpu_torch.profile_render cornell-mat --spp 4 --shade-kernel pallas
 
 Takes the CLI's scene, camera and render flags (after the scene name, any
 flag of `python -m yart_tpu_torch.cli`; `--density` multiplies the atrium
-scenes' tessellation, 3 giving the bin-trace scene), renders once without the
+scenes' tessellation: 3 gives the dense atriums, baked through
+bin-trace, with ivy through the stack traversals, instanced through the
+per-instance loop), renders once without the
 profiler (the timing of record, and the warm-up: the kernels build
 there), then once under `torch.profiler` with CPU and CUDA activities, and
 prints one JSON line:
@@ -20,11 +23,13 @@ prints one JSON line:
   (by their CUDA function names), sorting, and the rest (PyTorch's own
   kernels), with the 12 kernels of most device time;
 - the peak device memory of the profiled render (scene tables included);
-- bin-trace's phases (`render/bintrace.py`), from their profiler ranges:
-  the collect loop (plain PyTorch) and the pair phase (layout, B4, the
-  per-ray reduction), each with its calls, host milliseconds and the device
-  milliseconds of the kernels it launched (these kernels are also in the
-  groups above).
+- the phases of the big-scene paths, from their profiler ranges: bin-trace's
+  (`render/bintrace.py`) collect loop (plain PyTorch) and pair phase
+  (layout, B4, the per-ray reduction), the stack traversals' loop
+  (`render/stacktrace.py`, plain PyTorch) and the per-instance loop
+  (`render/intersect.py`; it holds its prototypes' paths), each with its
+  calls, host milliseconds and the device milliseconds of the kernels it
+  launched (these kernels are also in the groups above).
 
 With --out DIR the profiler's chrome trace is written to DIR/trace.json.
 The card is required: this measures the device, never the CPU.
@@ -114,7 +119,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from yart_tpu_torch import cli
-    from yart_tpu_torch.render import bintrace, integrator
+    from yart_tpu_torch.render import bintrace, integrator, intersect, stacktrace
 
     args = cli.parse_args(rest)
     if not torch.cuda.is_available() or torch.device(args.device).type != "cuda":
@@ -131,7 +136,7 @@ def main(argv=None) -> int:
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     bounces = integrator.BOUNCES.bounces
 
-    by_name, ranges = _tally(prof, bintrace.RANGES)
+    by_name, ranges = _tally(prof, bintrace.RANGES + (stacktrace.RANGE, intersect.INSTANCED_RANGE))
     total_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     groups = collections.OrderedDict((g, 0.0) for g, _ in GROUPS)
@@ -152,7 +157,7 @@ def main(argv=None) -> int:
         "kernel_launches": launches, "bounces": bounces, "launches_per_bounce": launches / max(bounces, 1),
         "kernel_ms": total_us / 1e3,
         "busy_share_profiled": total_us / 1e6 / profiled["wall_s"],
-        "kernel_ms_by_group": groups, "kernel_launches_by_group": group_launches, "bintrace_phases": ranges, "peak_gib_profiled": peak_gib,
+        "kernel_ms_by_group": groups, "kernel_launches_by_group": group_launches, "phases": ranges, "peak_gib_profiled": peak_gib,
         "top_kernels": [{"name": n[:120], "launches": c, "ms": us / 1e3} for n, (c, us) in top],
     }), flush=True)
     return 0

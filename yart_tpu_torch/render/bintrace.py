@@ -43,6 +43,7 @@ import torch
 
 from yart_tpu_torch.kernels import clusterpairs as _cp
 from yart_tpu_torch.render.blocktrace import cluster_counts
+from yart_tpu_torch.render.hit import Hit
 
 # Python values, never module-level tensors (they would fix a device at
 # import).
@@ -332,10 +333,8 @@ def pairs_phase(scene, meta, slots, n_col, o, d, t_cur, t_min, clus_count):
 def intersect_bintrace(scene, meta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
                        k: int = 0):
     """Closest hit (or, with `nee`, any hit) of every ray through bin-trace
-    rounds; ungated scenes only. Returns a render.intersect.Hit whose
+    rounds; ungated scenes only. Returns a render.hit.Hit whose
     attenuation is ones."""
-    from yart_tpu_torch.render.intersect import Hit
-
     n = o.shape[0]
     dev = o.device
     if k <= 0:

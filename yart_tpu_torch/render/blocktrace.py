@@ -90,6 +90,7 @@ from yart_tpu_torch.kernels import fusedtrace as _ft
 from yart_tpu_torch.kernels import presort as _ps
 from yart_tpu_torch.ops.qmc import alpha_draw
 from yart_tpu_torch.ops.vecmath import mat3_rows
+from yart_tpu_torch.render.hit import Hit, coherence_key
 from yart_tpu_torch.render.texture import sample_stack
 
 BLOCK = _ft.BLOCK
@@ -253,8 +254,6 @@ def pad_sorted(scene, o, d, t_max, floor):
     to whole blocks with copies of lane n-1 at t_max = -1. Returns the
     sorted (o, d, t_max, floor) and `inv`, which gathers sorted results back
     to lane order."""
-    from yart_tpu_torch.render.intersect import coherence_key
-
     n = o.shape[0]
     key = coherence_key(scene, o, d) | ((t_max <= 0.0).long() << 25)
     order = torch.argsort(key, stable=True)
@@ -453,9 +452,7 @@ def intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min: float = 1e-3, ne
     when None). `trace`, a list, receives the active count of every cast.
     With `fused=False` every cast takes the round-based path, without the
     alpha-mask cull, a shared presort or tail compaction (JAX :564-620).
-    Returns a render/intersect.py `Hit`."""
-    from yart_tpu_torch.render.intersect import Hit
-
+    Returns a render/hit.py `Hit`."""
     n = o.shape[0]
     dev = o.device
     t_max_v, _ = lane_vectors(n, t_max, None, dev)

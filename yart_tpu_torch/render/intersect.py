@@ -1,59 +1,49 @@
 """Wavefront ray-scene intersection.
 
-Port of `yart_tpu/render/intersect.py` `Hit`, `intersect_brute`, the
-ray-order key `coherence_key` (:584-612) and the dispatcher `intersect`
-(:937-1025). "Gates" are
-the per-hit tests a hit must pass: the stochastic alpha test
+Port of `yart_tpu/render/intersect.py` `intersect_brute`, the
+per-instance loop `_intersect_instanced` (:872-935) and the dispatcher
+`intersect` (:937-1025), with the TPU's choices on every device (`Hit`
+and `coherence_key` are in render/hit.py). "Gates" are the
+per-hit tests a hit must pass: the stochastic alpha test
 (`meta.any_alpha`) and, for shadow rays, transparent surfaces
-(`nee and meta.any_transparent`). The dispatcher (:981-1011):
+(`nee and meta.any_transparent`). The dispatcher:
 
-- at most 4096 triangles, no gates: B1 (`kernels/brute.py`);
-- at most 4096 triangles with gates: `intersect_brute` with gates, plain
-  PyTorch on every device (XLA in the JAX package, no kernel);
-- more triangles, no gates: the block trace (`render/blocktrace.py`,
-  kernels B2 and B3) up to its cap of 8192 clusters, bin-trace
-  (`render/bintrace.py`, kernel B4) past it;
-- more triangles with gates: the block trace's gated re-cast loop
-  (`intersect_blocktrace_gated`, B2 once, B3 per cast in `amask` mode when
-  the scene has alpha), up to the cluster cap.
-
-An instanced scene takes the block trace whatever its size, gated or not,
-with B3 in its instanced mode, as the JAX package does on the TPU
-(:954-976): its traversal clusters are the (instance, prototype cluster)
-pairs, at most 8192 of them.
+- an instanced scene of at most 8192 instance clusters takes the block
+  trace (`render/blocktrace.py`: B2, then B3 in its instanced mode; the
+  gated re-cast loop where gated), whatever its size (:954-976); any other
+  instanced scene the per-instance loop, which traverses each instance's
+  prototype by this dispatcher;
+- otherwise at most 4096 triangles take B1 (`kernels/brute.py`) or, with
+  gates, `intersect_brute` with gates (plain PyTorch on every device: XLA
+  in the JAX package, no kernel);
+- more triangles, up to the block trace's cap of 8192 clusters, the
+  block trace (B2 and B3; the gated re-cast loop `intersect_blocktrace_gated` with
+  gates, B3 in `amask` mode where the scene has alpha);
+- past the cap, without gates, bin-trace (`render/bintrace.py`, B4); with
+  gates the stack traversals (`render/stacktrace.py`, plain PyTorch, XLA
+  in the JAX package): `intersect_bvh_sorted` for 131,072 rays or more,
+  `intersect_bvh8` below.
 
 CUDA tensors run the Hopper kernels, CPU tensors their plain twins. Shadow
 rays of ungated scenes are closest-hit queries for B1 and any-hit queries
-for the block trace and bin-trace, exactly as in the JAX package. Gated
-scenes past the cluster cap and instanced scenes past it raise
-NotImplementedError with their ROADMAP.md item.
+for the traversals, exactly as in the JAX package. No scene that the JAX
+package can intersect is refused.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from yart_tpu_torch.kernels import brute as _brute
-from yart_tpu_torch.render import bintrace, blocktrace
+from yart_tpu_torch.render import bintrace, blocktrace, stacktrace
+from yart_tpu_torch.render.hit import Hit
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 F32_MAX = 3.0e38
 BRUTE_CHUNK = 256  # triangles per step of the gated brute (the JAX scan's chunk)
 PLAIN_BUDGET = 1 << 20  # rays x triangles per gated-brute step
-
-
-class Hit(NamedTuple):
-    """SoA hit record (src/cpu/hit.hpp:8-17). All [N]-leading."""
-
-    t: torch.Tensor  # hit distance; t_max on a miss
-    tri: torch.Tensor  # int32 triangle index, -1 on a miss
-    u: torch.Tensor  # barycentric u
-    v: torch.Tensor  # barycentric v
-    back_side: torch.Tensor  # bool
-    attenuation: torch.Tensor  # [N, 3] NEE transparent-shadow throughput; ones elsewhere
-    mask: torch.Tensor  # bool, True = real hit
+SORTED_MIN_RAYS = 131072  # gated rays past the cluster cap that take the coherence sort
+INSTANCED_RANGE = "intersect.instanced"  # the per-instance loop's profiler range
 
 
 def _hit(t, u, v, back, tri) -> Hit:
@@ -61,49 +51,8 @@ def _hit(t, u, v, back, tri) -> Hit:
                tri >= 0)
 
 
-def part1by2(x: torch.Tensor) -> torch.Tensor:
-    """Spread the low 10 bits of int64 x with two zero bits between each
-    (the Morton helper `_part1by2`)."""
-    x = x & 0x3FF
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    return (x | (x << 2)) & 0x09249249
-
-
-def coherence_key(scene: CompiledScene, o, d) -> torch.Tensor:
-    """Per-ray sort key [N] int64 of 24 bits (`_coherence_key`): the
-    direction octant, then the Morton code of the origin's cell in a 128^3
-    grid over the scene's bounding sphere box."""
-    octant = (d[:, 0] < 0).long() | ((d[:, 1] < 0).long() << 1) | ((d[:, 2] < 0).long() << 2)
-    lo = scene.scene_center - scene.scene_radius
-    inv = 1.0 / torch.clamp_min(2.0 * scene.scene_radius, 1e-20)
-    cell = (torch.clamp((o - lo) * inv, 0.0, 1.0) * 127.0).long()
-    morton = part1by2(cell[:, 0]) | (part1by2(cell[:, 1]) << 1) | (part1by2(cell[:, 2]) << 2)
-    return (octant << 21) | morton
-
-
 def has_gates(meta: SceneMeta, nee: bool) -> bool:
     return bool(meta.any_alpha or (nee and meta.any_transparent))
-
-
-def check_supported(meta: SceneMeta) -> None:
-    """Raise for scenes the ported intersection paths cannot take."""
-    if meta.n_instances:
-        if not 0 < meta.n_inst_clusters <= blocktrace.MAX_CLUSTERS:
-            raise NotImplementedError(
-                f"{meta.n_inst_clusters} instance clusters: instanced scenes past "
-                f"{blocktrace.MAX_CLUSTERS} need the per-instance traversal loop "
-                "`_intersect_instanced`, not ported yet (ROADMAP.md A.10, the application layer)"
-            )
-        return
-    if (meta.n_tris > _brute.MAX_TRIS and meta.n_clusters > blocktrace.MAX_CLUSTERS
-            and has_gates(meta, nee=True)):
-        raise NotImplementedError(
-            f"{meta.n_clusters} clusters with alpha or transparency gates: gated scenes past "
-            f"{blocktrace.MAX_CLUSTERS} clusters need the stack traversals `intersect_bvh8` / "
-            "`intersect_bvh_sorted`, not ported yet (ROADMAP.md A.9)"
-        )
 
 
 def intersect_brute(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float = 1e-3,
@@ -177,18 +126,68 @@ def _gated_brute(scene, meta, o, d, t_max, t_min, nee, alpha_seed) -> Hit:
     return Hit(bt, bi, bu, bv, bb, atten, anyh)
 
 
+def intersect_instanced(scene, meta: SceneMeta, o, d, t_max, t_min: float = 1e-3, nee: bool = False,
+                        alpha_seed=None) -> Hit:
+    """Closest hit (or NEE any-hit) over the instances, one at a time
+    (`_intersect_instanced`; the reference's testNode, ray-integrator.cpp:
+    20-54): a static loop in which each instance's prototype is traversed by
+    `intersect` (whatever path its size and gates select) on rays mapped by
+    the instance's unnormalised inverse 3x4 (`inst_rows[i, 0:12]`), so t
+    stays the world parameter. A closer hit replaces the best (strictly:
+    the earlier instance keeps a tie), its triangle lifted to the
+    instance's virtual range (`inst_tri_base`), and the best t bounds every
+    later instance's traversal. Shadow rays keep `t_max` per instance, OR
+    the masks and multiply the attenuations. Runs inside the profiler range
+    INSTANCED_RANGE (read by profile_render)."""
+    n, dev = o.shape[0], o.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev), (n,)).contiguous()
+    best = Hit(t_max, torch.full((n,), -1, dtype=torch.int32, device=dev),
+               torch.zeros(n, dtype=torch.float32, device=dev), torch.zeros(n, dtype=torch.float32, device=dev),
+               torch.zeros(n, dtype=torch.bool, device=dev), torch.ones((n, 3), dtype=torch.float32, device=dev),
+               torch.zeros(n, dtype=torch.bool, device=dev))
+    with torch.profiler.record_function(INSTANCED_RANGE):
+        for i, p in enumerate(meta.inst_proto):
+            rm = scene.inst_rows[i, 0:12].reshape(3, 4)  # row k: object coordinate k
+            o_l = o[:, 0:1] * rm[:, 0] + o[:, 1:2] * rm[:, 1] + o[:, 2:3] * rm[:, 2] + rm[:, 3]
+            d_l = d[:, 0:1] * rm[:, 0] + d[:, 1:2] * rm[:, 1] + d[:, 2:3] * rm[:, 2]
+            h = intersect(scene.protos[p], meta.proto_metas[p], o_l, d_l, t_max if nee else best.t,
+                          t_min=t_min, nee=nee, alpha_seed=alpha_seed)
+            if nee:
+                best = best._replace(attenuation=best.attenuation * h.attenuation, mask=best.mask | h.mask)
+                continue
+            better = h.mask & (h.t < best.t)
+            best = Hit(torch.where(better, h.t, best.t),
+                       torch.where(better, h.tri + scene.inst_tri_base[i], best.tri),
+                       torch.where(better, h.u, best.u), torch.where(better, h.v, best.v),
+                       torch.where(better, h.back_side, best.back_side), best.attenuation, best.mask | better)
+    return best
+
+
 def intersect(scene: CompiledScene, meta: SceneMeta, o, d, t_max, t_min: float = 1e-3,
               nee: bool = False, alpha_seed=None) -> Hit:
-    """Dispatch (yart_tpu/render/intersect.py:981-1011); `alpha_seed` [N]
-    (u32 values in int64) keys the stochastic alpha test of gated scenes."""
-    check_supported(meta)
+    """Dispatch (yart_tpu/render/intersect.py:937-1025, the module
+    docstring has the rules; the JAX `use_bvh` override is left out, as no
+    caller sets it); `alpha_seed` [N] (u32 values in int64) keys the
+    stochastic alpha test of gated scenes."""
     gates = has_gates(meta, nee)
-    if meta.n_tris <= _brute.MAX_TRIS and not meta.n_instances:
+    if meta.n_instances:
+        if 0 < meta.n_inst_clusters <= blocktrace.MAX_CLUSTERS:
+            return _blocktrace(scene, meta, o, d, t_max, t_min, nee, gates, alpha_seed)
+        return intersect_instanced(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
+    if meta.n_tris <= _brute.MAX_TRIS:
         if gates:
             return _gated_brute(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
         return _hit(*_brute.brute_intersect(scene.tri_pack, o, d, t_max, meta.n_tris, t_min))
-    if not meta.n_instances and meta.n_clusters > blocktrace.MAX_CLUSTERS:
+    if meta.n_clusters <= blocktrace.MAX_CLUSTERS:
+        return _blocktrace(scene, meta, o, d, t_max, t_min, nee, gates, alpha_seed)
+    if not gates:
         return bintrace.intersect_bintrace(scene, meta, o, d, t_max, t_min, nee)
+    if o.shape[0] >= SORTED_MIN_RAYS:
+        return stacktrace.intersect_bvh_sorted(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
+    return stacktrace.intersect_bvh8(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
+
+
+def _blocktrace(scene, meta, o, d, t_max, t_min, nee, gates, alpha_seed) -> Hit:
     if gates:
         return blocktrace.intersect_blocktrace_gated(scene, meta, o, d, t_max, t_min, nee, alpha_seed)
     t, u, v, back, tri, _, _ = blocktrace.intersect_blocktrace(scene, meta, o, d, t_max, t_min, nee)

@@ -11,20 +11,23 @@ radius (:453-457), the packed `tri_pack` / `shade_pack` rows (:481-492),
 the cluster tables `clus_pack` (with the alpha-mask words of row 5 when a
 material has alpha, :510-526), `clus_first`, bin-trace's coarse BVH8
 `coarse_pack` (:505-507) and the block trace's lane-padded `clus_box`
-(:527-538), the material table (:1028), and instancing: `add_prototype`,
-`add_instance` and `_compile_instanced` (:225-278, :644-1020). Pure numpy
-on the host, then tensors: the machine with the GPU has no JAX, so the
-port builds its own scenes.
+(:527-538), the stack traversals' `node_pack` and triangle BVH8 `wide_pack`
+with `max_leaf`, `bvh_depth` and `wide_depth` (:470-480, :493-499,
+:539-545, :605-607), the material table (:1028), and instancing:
+`add_prototype`, `add_instance` and `_compile_instanced` (:225-278,
+:644-1020), with one scene and meta per prototype (`protos`,
+`proto_metas`) sharing the instanced scene's material table and atlases.
+Pure numpy on the host, then tensors: the machine with the GPU has no JAX,
+so the port builds its own scenes.
 
-Not ported: mesh transforms in `add_mesh`, the native C++ BVH build, the
-triangle BVH8 of the stack traversals (ROADMAP.md A.9), and the
-per-prototype scenes `protos` that the per-instance loop
-`_intersect_instanced` traverses (A.10).
+Not ported: mesh transforms in `add_mesh` and the native C++ BVH build and
+collapse.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -34,10 +37,10 @@ from yart_tpu_torch.device import resolve
 from yart_tpu_torch.ops.distribution import build_alias
 from yart_tpu_torch.render.texture import qrows_from_data
 from yart_tpu_torch.scene.alphamask import bake_tri_masks, write_mask_rows
-from yart_tpu_torch.scene.bvh import build_bvh
+from yart_tpu_torch.scene.bvh import build_bvh, collapse_bvh8
 from yart_tpu_torch.scene.clusters import build_coarse, cut_clusters, woop_rows
-from yart_tpu_torch.scene.types import (CompiledScene, InstancedScene, MaterialTable, SceneMeta,
-                                        TextureStack)
+from yart_tpu_torch.scene.types import (LOOKS, CompiledScene, InstancedScene, MaterialTable,
+                                        SceneMeta, TextureStack)
 
 _PI = float(np.pi)
 
@@ -172,6 +175,9 @@ class SceneBuilder:
         self.textures_rgba: List[np.ndarray] = []
         self.textures_rgb: List[np.ndarray] = []
         self.textures_2ch: List[np.ndarray] = []
+        # Host seconds of the last `_tables`: the SAH build, the BVH8
+        # collapse of the stack traversals' tables, and all of it.
+        self.timings: dict = {}
         self.textures_mono: List[np.ndarray] = []
 
     def add_material(self, **kwargs) -> int:
@@ -291,6 +297,7 @@ class SceneBuilder:
         compile (`_compile_instanced`) takes exactly these."""
         if not self._tris:
             raise ValueError("scene has no geometry")
+        t_start = time.perf_counter()
         positions = np.concatenate(self._positions)
         normals = np.concatenate(self._normals)
         tangents = np.concatenate(self._tangents)
@@ -300,7 +307,9 @@ class SceneBuilder:
         v0, v1, v2 = (positions[tri_v[:, k]] for k in range(3))
 
         # Triangles in BVH leaf order: every cluster is a contiguous range.
+        t0 = time.perf_counter()
         hb = build_bvh(v0, v1, v2)
+        bvh_s = time.perf_counter() - t0
         tri_v = tri_v[hb.tri_order]
         tri_mat = tri_mat[hb.tri_order]
         v0, v1, v2 = v0[hb.tri_order], v1[hb.tri_order], v2[hb.tri_order]
@@ -359,20 +368,33 @@ class SceneBuilder:
             write_mask_rows(clus_pack, masks, cut.first, cut.count, cluster_size)
         n_clus = int(cut.first.shape[0])
         clus_box = _box_rows(cut.lo, cut.hi)
+
+        # The stack traversals' tables: the binary tree as rows and its
+        # 8-wide collapse.
+        node_pack = np.concatenate(
+            [hb.node_min, hb.node_max, bits(hb.left)[:, None], bits(hb.count)[:, None]], axis=1
+        ).astype(np.float32)
+        t0 = time.perf_counter()
+        hb8 = collapse_bvh8(hb)
+        collapse_s = time.perf_counter() - t0
+        wide_pack = np.concatenate([hb8.boxes.reshape(-1, 48), bits(hb8.child).reshape(-1, 8)],
+                                   axis=1).astype(np.float32)
+        self.timings = dict(bvh_s=bvh_s, collapse_s=collapse_s, tables_s=time.perf_counter() - t_start)
         return dict(positions=positions, tri_v=tri_v, tri_mat=tri_mat, tri_light=tri_light,
                     l_emission=l_emission, l_area=l_area, two_sided=two_sided, l_verts=l_verts,
                     l_norms=l_norms, tri_pack=tri_pack, shade_pack=shade_pack, clus_pack=clus_pack,
                     clus_first=cut.first, clus_box=clus_box, n_clus=n_clus,
                     coarse_pack=coarse.wide_pack, coarse_depth=coarse.depth,
-                    coarse_max_leaf=coarse.max_leaf)
+                    coarse_max_leaf=coarse.max_leaf, node_pack=node_pack, wide_pack=wide_pack,
+                    bvh_depth=hb.depth, wide_depth=hb8.depth)
 
-    def _scene(self, device, geo: dict, lights: tuple, env: dict, center, radius,
+    def _scene(self, device, geo: dict, lights: tuple, env: dict, center, radius, shared=None,
                **extra) -> CompiledScene:
         """CompiledScene on `device` from numpy tables: `geo` as `_tables`
         returns it (or the instanced scene's), `lights` = (emission, area,
         two_sided, verts, norms), `env` from `_compile_env`, and this
-        builder's materials and texture atlases; `extra` are the instanced
-        fields."""
+        builder's materials and texture atlases, or those of the scene
+        `shared` (by reference); `extra` are the instanced fields."""
         l_emission, l_area, two_sided, l_verts, l_norms = lights
         l_power = (
             np.linalg.norm(l_emission, axis=-1) * l_area * _PI * np.where(two_sided, 2.0, 1.0)
@@ -383,6 +405,14 @@ class SceneBuilder:
         from yart_tpu_torch.render.lights import env_rows_from_image
 
         env_rows = env_rows_from_image(env_img, torch.from_numpy(env["pdf_cells"]))
+        if shared is None:
+            looks = dict(materials=_material_table(self._materials).to(device),
+                         tex_rgba=_stack_from_list(self.textures_rgba, 4).to(device),
+                         tex_rgb=_stack_from_list(self.textures_rgb, 3).to(device),
+                         tex_2ch=_stack_from_list(self.textures_2ch, 2).to(device),
+                         tex_mono=_stack_from_list(self.textures_mono, 1).to(device))
+        else:
+            looks = {k: getattr(shared, k) for k in LOOKS}
         return (InstancedScene if extra else CompiledScene)(
             tri_pack=t(geo["tri_pack"]),
             positions=t(geo["positions"], np.float32),
@@ -390,7 +420,6 @@ class SceneBuilder:
             shade_pack=t(geo["shade_pack"]),
             tri_mat=t(geo["tri_mat"]),
             tri_light=t(geo["tri_light"]),
-            materials=_material_table(self._materials).to(device),
             light_emission=t(l_emission, np.float32),
             light_area=t(l_area, np.float32),
             light_power=t(l_power),
@@ -405,14 +434,13 @@ class SceneBuilder:
             scene_center=t(center, np.float32),
             scene_radius=t(radius, np.float32),
             background=t(self._background, np.float32),
-            tex_rgba=_stack_from_list(self.textures_rgba, 4).to(device),
-            tex_rgb=_stack_from_list(self.textures_rgb, 3).to(device),
-            tex_2ch=_stack_from_list(self.textures_2ch, 2).to(device),
-            tex_mono=_stack_from_list(self.textures_mono, 1).to(device),
             clus_pack=t(geo["clus_pack"]),
             clus_first=t(geo["clus_first"]),
             coarse_pack=t(geo["coarse_pack"]),
             clus_box=t(geo["clus_box"]),
+            node_pack=t(geo["node_pack"]),
+            wide_pack=t(geo["wide_pack"]),
+            **looks,
             **{k: t(v) for k, v in extra.items()},
         )
 
@@ -448,7 +476,11 @@ class SceneBuilder:
         device = resolve(device)
         if self._instances:
             return self._compile_instanced(device, cluster_size)
-        geo = self._tables(cluster_size)
+        return self._compile_tables(device, self._tables(cluster_size), cluster_size)
+
+    def _compile_tables(self, device, geo: dict, cluster_size: int, shared=None):
+        """(scene, meta) of a scene without instances from its `_tables`;
+        `shared` as in `_scene`."""
         # Bounding sphere of the scene box: the env light's sample distance.
         positions = geo["positions"]
         lo, hi = positions.min(axis=0), positions.max(axis=0)
@@ -456,7 +488,7 @@ class SceneBuilder:
         radius = float(np.linalg.norm(hi - lo) * 0.5)
         lights = tuple(geo[k] for k in ("l_emission", "l_area", "two_sided", "l_verts", "l_norms"))
         env = self._compile_env()
-        scene = self._scene(device, geo, lights, env, center, radius)
+        scene = self._scene(device, geo, lights, env, center, radius, shared)
         meta = self._meta(
             env,
             n_tris=int(geo["tri_v"].shape[0]),
@@ -466,6 +498,8 @@ class SceneBuilder:
             n_clus_pad=int(geo["clus_box"].shape[1]),
             coarse_depth=geo["coarse_depth"],
             coarse_max_leaf=geo["coarse_max_leaf"],
+            bvh_depth=geo["bvh_depth"],
+            wide_depth=geo["wide_depth"],
         )
         return scene, meta
 
@@ -503,7 +537,7 @@ class SceneBuilder:
             self._vtx_offset = 0
 
         # One object-space compile per prototype.
-        geo = []
+        geo, nested = [], []
         for pr in self._protos:
             sb = SceneBuilder()
             sb._materials = self._materials
@@ -511,6 +545,7 @@ class SceneBuilder:
             sb.add_mesh(pr["positions"], pr["tris"], pr["tri_mat"], normals=pr["normals"],
                         uvs=pr["uvs"], tangents=pr["tangents"])
             geo.append(sb._tables(cluster_size))
+            nested.append(sb)
 
         mats = self._materials
         inst_proto = tuple(int(p) for p, _ in self._instances)
@@ -624,7 +659,11 @@ class SceneBuilder:
                       tri_mat=z1, tri_light=z1,
                       clus_pack=np.concatenate([g["clus_pack"] for g in geo]),
                       clus_first=z1, clus_box=ic_box,
-                      coarse_pack=np.zeros((1, 56), np.float32))  # bin-trace skips instanced scenes
+                      # Placeholders: bin-trace and the stack traversals
+                      # skip instanced scenes (their prototypes hold these).
+                      coarse_pack=np.zeros((1, 56), np.float32),
+                      node_pack=np.zeros((1, 8), np.float32),
+                      wide_pack=np.zeros((1, 56), np.float32))
         vert_base = np.concatenate([[0], np.cumsum([g["positions"].shape[0] for g in geo])])[:-1]
         env = self._compile_env()
         scene = self._scene(
@@ -640,14 +679,20 @@ class SceneBuilder:
             proto_tri=np.concatenate(
                 [g["tri_v"] + np.int32(b) for g, b in zip(geo, vert_base)]).astype(np.int32),
         )
+        # The per-instance loop's prototype scenes (JAX builder.py:685-704,
+        # 840-848), sharing this scene's material table and atlases.
+        protos = [sb._compile_tables(device, g, cluster_size, shared=scene) for sb, g in zip(nested, geo)]
+        scene = dataclasses.replace(scene, protos=tuple(p for p, _ in protos))
         meta = self._meta(
             env,
             n_tris=n_virt,
             n_lights=int(light_rows[1].size),
             cluster_size=int(cluster_size),
             n_clus_pad=int(ic_box.shape[1]),
+            wide_depth=1,
             n_instances=n_inst,
             inst_proto=inst_proto,
+            proto_metas=tuple(m for _, m in protos),
             n_inst_clusters=n_ic,
         )
         return scene, meta

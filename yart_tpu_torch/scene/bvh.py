@@ -8,10 +8,10 @@ it (scene/clusters.py) equal the JAX package's numpy builder exactly. The
 JAX builder prefers its native C++ build when that library is present; the
 port has none and always runs this one.
 
-The port's device traversals never walk the triangle tree: the builder uses
-it for the leaf-order triangle permutation and the cluster cut. The 8-wide
-collapse serves the coarse tree over the clusters, which bin-trace walks
-(render/bintrace.py).
+The builder uses the triangle tree for the leaf-order triangle permutation
+and the cluster cut, and packs it and its 8-wide collapse for the stack
+traversals (render/stacktrace.py); the collapse also serves the coarse
+tree over the clusters, which bin-trace walks (render/bintrace.py).
 """
 
 from __future__ import annotations
@@ -201,6 +201,7 @@ def collapse_bvh8(hb: HostBVH, width: int = 8) -> HostBVH8:
 
     group_of = {}
     order = []
+    slots_of = []  # each group's slots, found once
     stack = [0]
     while stack:
         b = stack.pop()
@@ -208,15 +209,16 @@ def collapse_bvh8(hb: HostBVH, width: int = 8) -> HostBVH8:
             continue
         group_of[b] = len(order)
         order.append(b)
-        stack.extend(s for s in _wide_slots(hb, b, width, area) if hb.count[s] == 0)
+        slots_of.append(_wide_slots(hb, b, width, area))
+        stack.extend(s for s in slots_of[-1] if hb.count[s] == 0)
 
     m = len(order)
     boxes = np.zeros((m, width, 6), np.float32)
     boxes[:, :, 0:3] = np.inf
     boxes[:, :, 3:6] = -np.inf
     child = np.full((m, width), -1, np.int64)
-    for gi, b in enumerate(order):
-        for k, s in enumerate(_wide_slots(hb, b, width, area)):
+    for gi, slots in enumerate(slots_of):
+        for k, s in enumerate(slots):
             boxes[gi, k, 0:3] = hb.node_min[s]
             boxes[gi, k, 3:6] = hb.node_max[s]
             if hb.count[s] > 0:

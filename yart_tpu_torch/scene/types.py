@@ -7,9 +7,10 @@ instances is an `InstancedScene`, which adds the instanced tables. Triangles are
 world-space soup in BVH leaf order; `tri_pack` and `shade_pack` keep the
 JAX package's packed row layouts (builder.py:481-492), including the int32
 ids bit-cast into float32 columns (`tri_pack[:, 9:11]`,
-`shade_pack[:, 27:29]`, `clus_pack[:, 4, 0]`, `env_alias[:, 1]`). Those
-columns are carried bit-exactly; the render path reads the ids through
-int32 views or the int tables.
+`shade_pack[:, 27:29]`, `clus_pack[:, 4, 0]`, `env_alias[:, 1]`,
+`node_pack[:, 6:8]`, `wide_pack[:, 48:56]`). Those columns are carried
+bit-exactly; the render path reads the ids through int32 views or the int
+tables.
 """
 
 from __future__ import annotations
@@ -65,6 +66,11 @@ class TextureStack(NamedTuple):
         return TextureStack(*(t.to(device) for t in self))
 
 
+# The material table and texture atlases: one set per instanced scene,
+# shared by its prototype scenes.
+LOOKS = ("materials", "tex_rgba", "tex_rgb", "tex_2ch", "tex_mono")
+
+
 @dataclasses.dataclass(frozen=True)
 class CompiledScene:
     """The scene as tensors; `.to(device)` moves all of them."""
@@ -110,9 +116,20 @@ class CompiledScene:
     clus_first: torch.Tensor  # [n_clus] int32 first triangle of each cluster
     coarse_pack: torch.Tensor  # [G, 56] coarse BVH8 over the cluster boxes (bin-trace)
     clus_box: torch.Tensor  # [8, n_clus_pad] lo.xyz, hi.xyz, pad; pad boxes at +3e38
+    # Stack-traversal tables (render/stacktrace.py): the binary tree as rows
+    # (min3, max3, left bits, count bits) and its 8-wide collapse, 8 child
+    # boxes (min3, max3) then the 8 child refs' bits (scene/bvh.py
+    # `collapse_bvh8`: >= 0 group, -1 empty, <= -2 leaf). An instanced
+    # scene holds one-row placeholders; its prototypes hold the real ones.
+    node_pack: torch.Tensor  # [Nn, 8] f32
+    wide_pack: torch.Tensor  # [M8, 56] f32
 
-    def to(self, device) -> "CompiledScene":
-        return type(self)(**{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+    def to(self, device, looks=None) -> "CompiledScene":
+        """The scene on `device`; `looks` maps LOOKS fields to tables already
+        there (a prototype's, shared with its instanced scene)."""
+        looks = looks or {}
+        return type(self)(**{f.name: looks[f.name] if f.name in looks else getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self) if f.name != "protos"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +155,15 @@ class InstancedScene(CompiledScene):
     # differentiable path's `positions` / `tri_v` of an instanced scene.
     proto_pos: torch.Tensor  # [sum V_p, 3] f32
     proto_tri: torch.Tensor  # [sum T_p, 3] int32 into proto_pos
+    # One object-space scene per prototype, traversed by the per-instance
+    # loop (render/intersect.py `intersect_instanced`); they share this
+    # scene's material table and texture atlases.
+    protos: tuple = ()
+
+    def to(self, device, looks=None) -> "InstancedScene":
+        moved = super().to(device, looks)
+        shared = {k: getattr(moved, k) for k in LOOKS}
+        return dataclasses.replace(moved, protos=tuple(p.to(device, shared) for p in self.protos))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +194,10 @@ class SceneMeta:
     coarse_max_leaf: int = 2  # most clusters in one coarse leaf
     bintrace_k: int = 12  # K: cluster slots per ray per bin-trace round
     n_clus_pad: int = 128  # clus_box lane padding
+    max_leaf: int = 4  # most triangles in a leaf of the triangle BVH
+    bvh_depth: int = 1  # binary tree depth (stack bound of intersect_bvh)
+    wide_depth: int = 8  # 8-wide tree depth (stack bound 7 * wide_depth + 2)
     n_instances: int = 0
     inst_proto: tuple = ()  # prototype of each instance
+    proto_metas: tuple = ()  # SceneMeta of each prototype
     n_inst_clusters: int = 0  # traversal clusters of an instanced scene
