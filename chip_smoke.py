@@ -205,13 +205,35 @@ exits non-zero and prints no final "ok" line:
                spp, depth 8 with channel means within 0.5% of the baked
                dense atrium's (phase 3h's scene, bin-trace) at the same
                camera and settings.
+  8. scene files — (`scene_file_phases`, after phase 7) scenes written by
+               the port's exporters to a temporary directory and rendered
+               through `yart_tpu_torch.cli.main` on the card: 8a atrium-ivy
+               as a GLB (`export_glb`) with its sky as Radiance HDR
+               (`export_env_hdr`), `scene.glb --env-hdr sky.hdr` at
+               512x512, 16 spp, depth 30, +3 EV, the CLI's atrium camera,
+               `--shade-kernel pallas`: B2, B3 `amask`, B5 and B6 (once a
+               bounce) launch, no twin on CUDA, channel means within 2% of
+               phase 4f's procedural "pallas" render (the export, load and
+               compile host seconds, the render's wall, Mrays/s, peak
+               memory and launches); 8b the compiled atrium-inst builder
+               as a GLB of one mesh per prototype and a node with a
+               `matrix` per instance (`export_glb_instanced`), loaded back
+               as prototypes and instances, rendered through the CLI at
+               128x128 (cut from 256x256 for the script's limit), 4 spp,
+               depth 8: B2 and B3's instanced modes launch, means within
+               2% of the procedural atrium-inst at the same settings; 8c
+               kernel path == twin path bitwise at 2 spp on the GLB scenes
+               of 8a (16x16, depth 2), 8b (16x16, depth 4) and cornell-mat
+               (B1; 32x32, depth 4); the host seconds of decoding a
+               2048x2048 RGBA PNG with every row Paeth-filtered.
 The kernels line lists B1-B7b with their launches on the main paths (B1:
 cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
 earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
 with "pallas", atrium-ivy beside it; B7a, B7b: the incoherent round-based
 cast of 3l, the coherent one beside it; B1-B3 also per phase-6 case,
 forward and backward, and per cast of the per-instance loop (7c); B5, B6
-also on the dense ivy atrium's render, 7b), times and bounds; then the card as
+also on the dense ivy atrium's render, 7b; B1-B3, B5 and B6 also on the
+scene files of phase 8), times and bounds; then the card as
 nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2272,6 +2294,329 @@ def stack_phases(dev, dense, dense_meta) -> dict:
     return out
 
 
+# ---- phase 8: scene files ------------------------------------------------
+
+SCENE_FILE_MEAN_RTOL = 0.02  # a scene through another route: tests/test_torch_render.py:205-213's bar
+
+
+def export_glb_instanced(builder, path: str) -> dict:
+    """Write `builder` as a GLB whose prototypes with instances are one mesh
+    each (object space, a primitive per material) and whose instances are
+    nodes with a `matrix`, the way tests/test_gltf.py:160-200 writes a
+    shared mesh, so the loader makes them prototypes and instances again;
+    materials, textures and baked meshes as the package's export_glb writes
+    them (it flattens instances). Returns export_glb's counts and the
+    instance nodes."""
+    import copy
+    import json
+    import struct
+
+    import numpy as np
+
+    from yart_tpu_torch.io.glb_export import export_glb
+
+    base = copy.copy(builder)
+    base._instances = []
+    stats = export_glb(base, path)
+    with open(path, "rb") as f:
+        raw = f.read()
+    (js_len,) = struct.unpack_from("<I", raw, 12)
+    doc = json.loads(raw[20 : 20 + js_len])
+    blob = bytearray(raw[28 + js_len :])
+
+    def add_accessor(arr, ctype: int, atype: str, target: int, minmax: bool = False) -> int:
+        blob.extend(b"\x00" * ((-len(blob)) % 4))
+        data = np.ascontiguousarray(arr).tobytes()
+        doc["bufferViews"].append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data), "target": target})
+        blob.extend(data)
+        acc = {"bufferView": len(doc["bufferViews"]) - 1, "componentType": ctype, "count": int(arr.shape[0]),
+               "type": atype}
+        if minmax:
+            acc["min"], acc["max"] = [float(x) for x in arr.min(axis=0)], [float(x) for x in arr.max(axis=0)]
+        doc["accessors"].append(acc)
+        return len(doc["accessors"]) - 1
+
+    proto_mesh = {}
+    for pid, mtx in builder._instances:
+        if pid not in proto_mesh:
+            p = builder._protos[pid]
+            attrs = {"POSITION": add_accessor(p["positions"].astype(np.float32), 5126, "VEC3", 34962, True),
+                     "NORMAL": add_accessor(p["normals"].astype(np.float32), 5126, "VEC3", 34962),
+                     "TEXCOORD_0": add_accessor(p["uvs"].astype(np.float32), 5126, "VEC2", 34962)}
+            tmat, tris = np.asarray(p["tri_mat"]), np.asarray(p["tris"])
+            prims = [{"attributes": attrs, "material": int(m), "mode": 4,
+                      "indices": add_accessor(tris[tmat == m].reshape(-1).astype(np.uint32), 5125, "SCALAR", 34963)}
+                     for m in np.unique(tmat)]
+            doc["meshes"].append({"primitives": prims})
+            proto_mesh[pid] = len(doc["meshes"]) - 1
+        doc["nodes"].append({"mesh": proto_mesh[pid], "matrix": [float(x) for x in np.asarray(mtx).T.reshape(-1)]})
+        doc["scenes"][0]["nodes"].append(len(doc["nodes"]) - 1)
+    blob.extend(b"\x00" * ((-len(blob)) % 4))
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc, separators=(",", ":")).encode()
+    js += b" " * ((-len(js)) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<I", len(js)) + b"JSON" + js + struct.pack("<I", len(blob)) + b"BIN\x00" + bytes(blob))
+    return dict(stats, proto_meshes=len(proto_mesh), instance_nodes=len(builder._instances),
+                bytes=28 + len(js) + len(blob))
+
+
+@contextlib.contextmanager
+def cli_probe():
+    """Around one `yart_tpu_torch.cli.main` call: the host seconds of the
+    glTF load and of the scene compile, the compiled (scene, meta), and the
+    Renderer's result and wall, in the dict yielded."""
+    import torch
+
+    from yart_tpu_torch import cli
+    from yart_tpu_torch.render.renderer import Renderer
+    from yart_tpu_torch.scene import gltf
+    from yart_tpu_torch.scene.builder import SceneBuilder
+
+    seen = {}
+    saved = gltf.load, SceneBuilder.compile, cli.build_scene, Renderer.render
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            t0 = time.time()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            seen[key] = time.time() - t0
+            return out
+        return run
+
+    def build_scene(*a, **k):
+        seen["scene"] = saved[2](*a, **k)
+        return seen["scene"]
+
+    def render(self, *a, **k):
+        seen["result"] = timed("render_wall_s", saved[3], sync=True)(self, *a, **k)
+        return seen["result"]
+
+    gltf.load = timed("load_s", saved[0])
+    SceneBuilder.compile = timed("compile_s", saved[1], sync=True)
+    cli.build_scene, Renderer.render = build_scene, render
+    try:
+        yield seen
+    finally:
+        gltf.load, SceneBuilder.compile, cli.build_scene, Renderer.render = saved
+
+
+def cli_render(name, argv, dev):
+    """cli.main(argv) on the card with every kernel count set to 0 just
+    before: (record, launches read just after, HDR image, (scene, meta))."""
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch import cli
+    from yart_tpu_torch.kernels import blocktrace as legacy
+    from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
+    from yart_tpu_torch.render import blocktrace, integrator
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.time()
+    with cli_probe() as seen:
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{name}: cli.main returned non-zero")
+    wall = time.time() - t0
+    res = seen["result"]
+    launches = dict(kernel_launches(), shade=shade.COUNTS_SHADE.launches, draws=shade.COUNTS_DRAWS.launches)
+    plain_cuda = (brute.COUNTS.plain_cuda + presort.COUNTS.plain_cuda + fusedtrace.COUNTS.plain_cuda
+                  + clusterpairs.COUNTS.plain_cuda + shade.COUNTS_SHADE.plain_cuda + shade.COUNTS_DRAWS.plain_cuda
+                  + legacy.COUNTS_SELECT.plain_cuda + legacy.COUNTS_TEST.plain_cuda)
+    if plain_cuda != 0:
+        raise AssertionError(f"{name}: the plain twins ran {plain_cuda} times on CUDA tensors")
+    hdr = res.hdr
+    if not np.isfinite(hdr).all() or not hdr.mean() > 0.01:
+        raise AssertionError(f"{name}: bad image: finite={np.isfinite(hdr).all()} mean={hdr.mean()}")
+    scene, meta = seen["scene"]
+    rec = {"phase": "scene_file", "case": name, "argv": argv, "n_tris": int(meta.n_tris),
+           "n_instances": int(meta.n_instances), "load_s": round(seen.get("load_s", 0.0), 3),
+           "compile_s": round(seen["compile_s"], 3), "render_wall_s": round(seen["render_wall_s"], 3),
+           "cli_wall_s": round(wall, 3), "rays": res.total_rays,
+           "mrays_per_s": res.total_rays / seen["render_wall_s"] / 1e6,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30, "launches": launches,
+           "fused_trace_modes": dict(fusedtrace.COUNTS.modes), "bounces": integrator.BOUNCES.bounces,
+           "gated_casts_per_call": blocktrace.GATED.casts / max(blocktrace.GATED.calls, 1),
+           "hdr_mean": [float(x) for x in hdr.mean(axis=(0, 1))]}
+    return rec, dict(launches, fused_trace_modes=rec["fused_trace_modes"], bounces=rec["bounces"]), hdr, (scene, meta)
+
+
+def means_within(name, img, ref, rtol: float = SCENE_FILE_MEAN_RTOL) -> dict:
+    """Channel means of `img` within `rtol` of `ref`'s, or raise."""
+    import numpy as np
+
+    m, r = img.mean(axis=(0, 1)), ref.mean(axis=(0, 1))
+    rel = np.abs(m - r) / np.abs(r)
+    out = {"mean": [float(x) for x in m], "procedural_mean": [float(x) for x in r],
+           "rel_err": [float(x) for x in rel], "rtol": rtol}
+    if not (rel <= rtol).all():
+        raise AssertionError(f"{name}: channel means {m} against the procedural scene's {r}: rel {rel} > {rtol}")
+    return out
+
+
+def paeth_png(rgba):
+    """RGBA8 PNG bytes of `rgba` [H, W, 4] with every row Paeth-filtered."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgba.shape
+    x = rgba.reshape(h, w * 4).astype(np.int16)
+    a = np.pad(x, ((0, 0), (4, 0)))[:, :-4]  # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]  # up
+    c = np.pad(x, ((1, 0), (4, 0)))[:-1, :-4]  # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8), ((x - pred) & 255).astype(np.uint8)], axis=1)
+
+    def chunk(tag, payload):
+        return struct.pack(">I", len(payload)) + tag + payload + struct.pack(">I", zlib.crc32(tag + payload))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def png_decode_case(side: int = 2048) -> dict:
+    """Host seconds of io/png.py decoding a side x side RGBA PNG whose rows
+    are all Paeth-filtered (the anti-diagonal path), checked exact."""
+    import numpy as np
+
+    from yart_tpu_torch.io.png import decode_png
+
+    y, x = np.mgrid[:side, :side]
+    img = np.stack([(7 * x + y) % 256, (x ^ y) % 256, (x * y) % 256, 255 - (x + y) % 256], -1).astype(np.uint8)
+    data = paeth_png(img)
+    secs = []
+    for _ in range(2):
+        t0 = time.time()
+        out = decode_png(data)
+        secs.append(time.time() - t0)
+    if not np.array_equal(out, img):
+        raise AssertionError("png decode of the Paeth-filtered image differs from its source")
+    return {"phase": "scene_file", "case": f"png_decode_{side}x{side}_rgba_paeth", "png_bytes": len(data),
+            "decode_s": [round(s, 3) for s in secs]}
+
+
+def scene_file_phases(dev, spp: int, ivy_builder, ivy_pallas_img, inst_builder, inst, inst_meta,
+                      cornell_builder, side_a: int = 512, side_b: int = 128) -> dict:
+    """Phase 8: scenes written with the port's exporters to a temporary
+    directory and rendered through `yart_tpu_torch.cli.main` on the card.
+    8a atrium-ivy as a GLB with its sky as Radiance HDR (`side_a` square,
+    512 for the image of phase 4f, `spp`, depth 30, +3 EV, "pallas"): B2, B3 amask, B5 and B6 (once a bounce),
+    means within 2% of the procedural render of phase 4f (`ivy_pallas_img`);
+    8b the compiled atrium-inst builder as a GLB of prototype meshes and
+    instance nodes (`side_b` square, 128 since the script came within
+    100 s of its limit, 4 spp, depth 8): the loader's
+    prototypes and instances, B2 and B3's instanced modes, means within 2% of the
+    procedural atrium-inst at the same settings; 8c kernel path == twin
+    path bitwise at 2 spp on the GLB scenes of 8a (16x16, depth 2), 8b
+    (16x16, depth 4) and cornell-mat (B1; 32x32, depth 4); the host
+    seconds of a 2048x2048 Paeth PNG decode.
+    Emits each record; returns them."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.cli import CAMERAS
+    from yart_tpu_torch.config import CameraConfig, RenderConfig
+    from yart_tpu_torch.io.glb_export import export_env_hdr, export_glb
+    from yart_tpu_torch.scene.gltf import load
+
+    t_phase = time.time()
+    out = {}
+    pos, target = CAMERAS["atrium-ivy"]
+    cam_args = [f"--camera-pos={','.join(map(str, pos))}", f"--camera-target={','.join(map(str, target))}",
+                "--exposure", "3", "--device", str(dev), "--quiet"]  # "=": the position starts with "-"
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 8a. atrium-ivy as a GLB under its sky as an HDR file ----------
+        glb, sky = os.path.join(tmp, "atrium_ivy.glb"), os.path.join(tmp, "sky.hdr")
+        t0 = time.time()
+        stats = export_glb(ivy_builder, glb)
+        export_s = time.time() - t0
+        t0 = time.time()
+        if not export_env_hdr(ivy_builder, sky):
+            raise AssertionError("atrium-ivy has no image environment to export")
+        hdr_s = time.time() - t0
+        rec, l8a, img, ivy_glb = cli_render("8a_atrium_ivy_glb", [
+            glb, "--env-hdr", sky, "--env-scale", repr(ivy_builder._env_scale), "--size", f"{side_a}x{side_a}",
+            "--spp", str(spp), "--max-depth", "30", "--shade-kernel", "pallas", "-o", os.path.join(OUT_DIR, "atrium_ivy_glb.png"),
+            *cam_args], dev)
+        rec.update(export_s=round(export_s, 3), export_env_hdr_s=round(hdr_s, 3), glb=stats,
+                   vs_procedural=means_within("8a atrium-ivy GLB", img, ivy_pallas_img))
+        emit(rec)
+        modes = l8a["fused_trace_modes"]
+        if l8a["presort_keys"] <= 0 or modes.get("amask", 0) <= 0 or l8a["brute_intersect"] != 0:
+            raise AssertionError(f"8a: the atrium-ivy GLB did not go through B2 and B3 amask: {l8a}")
+        if l8a["bounces"] <= 0 or l8a["shade"] != l8a["bounces"] or l8a["draws"] != l8a["bounces"]:
+            raise AssertionError(f"8a: B5 / B6 launched {l8a['shade']} / {l8a['draws']} times over "
+                                 f"{l8a['bounces']} bounces")
+        out["8a"] = (rec, l8a)
+
+        # ---- 8b. atrium-inst: prototypes as meshes, instances as nodes -----
+        glb_i, sky_i = os.path.join(tmp, "atrium_inst.glb"), os.path.join(tmp, "sky_inst.hdr")
+        t0 = time.time()
+        stats_i = export_glb_instanced(inst_builder, glb_i)
+        export_env_hdr(inst_builder, sky_i)
+        export_s = time.time() - t0
+        b_i = load(glb_i)
+        n_shared = len({p for p, _ in b_i._instances})
+        if not (b_i._instances and b_i._protos):
+            raise AssertionError("8b: the atrium-inst GLB's shared meshes did not load as prototypes and instances")
+        side = side_b
+        rec, l8b, img_i, inst_glb = cli_render("8b_atrium_inst_glb", [
+            glb_i, "--env-hdr", sky_i, "--env-scale", repr(inst_builder._env_scale), "--size", f"{side}x{side}",
+            "--spp", "4", "--max-depth", "8", "-o", os.path.join(OUT_DIR, "atrium_inst_glb.png"), *cam_args], dev)
+        _, _, ref_i = render_main_path("atrium-inst", inst, inst_meta, CameraConfig(
+            image_size=(side, side), focal_length=35.0, position=pos,
+            forward=tuple(t - p for p, t in zip(pos, target)), exposure=3.0), 4, dev, max_depth=8)
+        rec.update(export_s=round(export_s, 3), glb=stats_i, loaded_prototypes=len(b_i._protos),
+                   loaded_instances=len(b_i._instances), prototypes_with_instances=n_shared,
+                   baked_meshes=len(b_i._positions), procedural_instances=int(inst_meta.n_instances),
+                   vs_procedural=means_within("8b atrium-inst GLB", img_i, ref_i))
+        emit(rec)
+        modes = l8b["fused_trace_modes"]
+        if l8b["presort_keys"] <= 0 or modes.get("instanced", 0) <= 0 or modes.get("instanced+nee", 0) <= 0:
+            raise AssertionError(f"8b: the atrium-inst GLB did not go through B2 and B3's instanced modes: {l8b}")
+        out["8b"] = (rec, l8b)
+
+        # ---- 8c. kernel path == twin path on the GLB scenes ----------------
+        glb_c = os.path.join(tmp, "cornell_mat.glb")
+        export_glb(cornell_builder, glb_c)
+        cornell_glb = load(glb_c).compile(dev)
+        # The atrium GLBs at 16x16, the ivy's at depth 2: its twin path (B2's
+        # and B3's plain amask twins, whose cost barely falls with the lane
+        # count) took 63.0 s at 32x32 and 34.6 s at 16x16, depth 4, on the card.
+        fwd = tuple(t - p for p, t in zip(pos, target))
+        for name, (sc, sc_meta), cam, depth in (
+                ("8c_atrium_ivy_glb", ivy_glb, CameraConfig(image_size=(16, 16), focal_length=35.0, position=pos,
+                                                             forward=fwd, exposure=3.0), 2),
+                ("8c_atrium_inst_glb", inst_glb, CameraConfig(image_size=(16, 16), focal_length=35.0, position=pos,
+                                                               forward=fwd, exposure=3.0), 4),
+                ("8c_cornell_mat_glb", cornell_glb, CameraConfig(image_size=(32, 32), focal_length=35.0,
+                                                                 position=(0, 1.0, 3.4), forward=(0, 0, -1)), 4)):
+            cfg = RenderConfig(samples=2, max_depth=depth, tonemap="none", estimator="mean", first_wave_samples=2,
+                               max_wave_samples=2)
+            reset_counts()
+            rec = dict(reference_check(name, sc, sc_meta, cam, cfg, None, dev), phase="scene_file",
+                       launches=kernel_launches())
+            emit(rec)
+            out[name] = rec
+        if out["8c_cornell_mat_glb"]["launches"]["brute_intersect"] <= 0:
+            raise AssertionError("8c: the cornell-mat GLB did not go through B1")
+    out["png"] = png_decode_case()
+    emit(out["png"])
+    out["seconds"] = round(time.time() - t_phase, 3)
+    emit({"phase": "scene_file_total", "seconds": out["seconds"]})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--spp", type=int, default=16, help="samples per pixel of the 512x512 renders (phases 4-4d)")
@@ -2622,7 +2967,7 @@ def main() -> int:
     # two bodies' float orders drift apart over long paths (from the same
     # state they take the same decisions), and the bar's four numbers are
     # reported.
-    fused = {}
+    fused, pallas_imgs = {}, {}
     for name, sc, sc_meta, cam, off_img, off_l in (
             ("cornell-mat", scene, meta, cornell_cam, off_cornell, launches_cornell),
             ("atrium-ivy", ivy, ivy_meta, ivy_cam, off_ivy, launches_ivy)):
@@ -2644,6 +2989,7 @@ def main() -> int:
             raise AssertionError(f"{name}: pallas against off at 4 spp, depth 4 misses the bar: "
                                  f"{rec['vs_off_4spp_depth4']}")
         fused[name] = (rec, lp)
+        pallas_imgs[name] = img
 
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
@@ -2699,8 +3045,17 @@ def main() -> int:
     # dense atrium's.
     p7 = stack_phases(dev, dense, dense_meta)
 
+    # ---- 8. scene files -------------------------------------------------
+    # atrium-ivy and atrium-inst written as GLBs with their skies as HDR
+    # files, rendered through the CLI; kernel path == twin path on the GLB
+    # scenes; the PNG decoder's host seconds.
+    p8 = scene_file_phases(dev, args.spp, ivy_builder, pallas_imgs["atrium-ivy"], inst_builder, inst, inst_meta,
+                           cornell_box(extra_materials=True))
+
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     fused["atrium-ivy-dense"] = p7["7b"]
+    fused["atrium-ivy GLB (8a)"] = p8["8a"]
+    l8a, l8b = p8["8a"][1], p8["8b"][1]
 
     def loop_launches(kernel):  # the per-instance loop's launches of B1-B3 (phase 7c)
         return {f"instanced loop, {case} cast": r["launches_per_cast"][kernel] for case, r in p7["7c"].items()} | {
@@ -2711,7 +3066,8 @@ def main() -> int:
          "source": "yart_tpu_torch/csrc/brute_intersect.cu",
          "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
          "launches": launches_cornell["brute_intersect"],
-         "launches_by_path": {"cornell-mat": launches_cornell["brute_intersect"], **loop_launches("brute_intersect")},
+         "launches_by_path": {"cornell-mat": launches_cornell["brute_intersect"], **loop_launches("brute_intersect"),
+                              "cornell-mat GLB (8c)": p8["8c_cornell_mat_glb"]["launches"]["brute_intersect"]},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "brute_intersect"),
          "max_abs_err": max(r["max_abs_err"] for r in b1),
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
@@ -2725,7 +3081,8 @@ def main() -> int:
          "launches": launches_inst["presort_keys"],
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
                               "atrium-ivy": launches_ivy["presort_keys"],
-                              "atrium-inst": launches_inst["presort_keys"], **loop_launches("presort_keys")},
+                              "atrium-inst": launches_inst["presort_keys"], **loop_launches("presort_keys"),
+                              "atrium-ivy GLB (8a)": l8a["presort_keys"], "atrium-inst GLB (8b)": l8b["presort_keys"]},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "presort_keys"),
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
          "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
@@ -2741,7 +3098,9 @@ def main() -> int:
          "modes": launches_inst["fused_trace_modes"],
          "launches_by_path": {"spheres": launches_spheres["fused_trace_modes"],
                               "atrium-ivy": launches_ivy["fused_trace_modes"],
-                              "atrium-inst": launches_inst["fused_trace_modes"], **loop_launches("fused_trace")},
+                              "atrium-inst": launches_inst["fused_trace_modes"], **loop_launches("fused_trace"),
+                              "atrium-ivy GLB (8a)": l8a["fused_trace_modes"],
+                              "atrium-inst GLB (8b)": l8b["fused_trace_modes"]},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "fused_trace"),
          "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]
                             + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),

@@ -1539,3 +1539,40 @@ def test_cornell_fwdbwd_kernel_path_equals_twin_path(dev):
         assert fwd >= 6 and bwd == 0 and plain == 0, (remat, fwd, bwd, plain)
         assert torch.equal(rad.view(torch.int32), ref_rad.view(torch.int32)), remat
         assert float((g - ref_g).abs().max()) <= 1e-5 * scale, remat
+
+
+@pytest.mark.parametrize("name", ["cornell_mat", "spheres"])
+def test_glb_render_kernel_path_equals_twin_path(dev, name, tmp_path):
+    """A scene written by the port's GLB exporter (and its environment by
+    export_env_hdr), loaded back as the CLI loads it: a small render
+    through the kernels (B1 for cornell-mat, B2 + B3 for spheres) equals
+    the render through their plain twins bitwise."""
+    from yart_tpu_torch.io.glb_export import export_env_hdr, export_glb
+    from yart_tpu_torch.io.image import load_hdr
+    from yart_tpu_torch.scene.gltf import load
+
+    src = cornell_box(extra_materials=True) if name == "cornell_mat" else material_test_spheres()
+    glb, sky = str(tmp_path / "s.glb"), str(tmp_path / "s.hdr")
+    export_glb(src, glb)
+    b = load(glb)
+    if export_env_hdr(src, sky):
+        b.set_env(load_hdr(sky), src._env_scale)
+    scene, meta = b.compile(dev)
+    pos, fwd = ((0, 1.0, 3.4), (0, 0, -1)) if name == "cornell_mat" else ((0, 2.2, 5.5), (0, -1.8, -6.1))
+    cam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=pos, forward=fwd)
+    cfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean", first_wave_samples=2,
+                       max_wave_samples=2)
+    for c in (brute.COUNTS, presort.COUNTS, fusedtrace.COUNTS):
+        c.reset()
+    img_k = Renderer(scene, meta, cam, cfg, device=dev).render().hdr
+    launched = (brute.COUNTS.launches, presort.COUNTS.launches, fusedtrace.COUNTS.launches)
+    assert (launched[0] > 0) == (name == "cornell_mat") and (launched[2] > 0) == (name == "spheres")
+    saved = brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace
+    brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace = (
+        brute.brute_plain, presort.presort_plain, fusedtrace.fused_trace_plain)
+    try:
+        img_p = Renderer(scene, meta, cam, cfg, device=dev).render().hdr
+    finally:
+        brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace = saved
+    assert np.isfinite(img_k).all() and img_k.mean() > 0.01
+    np.testing.assert_array_equal(img_k.view(np.int32), img_p.view(np.int32))

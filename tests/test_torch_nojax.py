@@ -6,8 +6,10 @@ imports every module of the port, builds and renders tiny cornell-mat
 textured-box and instanced scenes through the renderer and the CLI
 (spheres through the block trace, the textured box through the gated
 brute, the instanced scene through B3's instanced mode), traces a few rays
-through bin-trace and the round-based block trace (plain and gated), parses the flagship scenes, and then checks that no
-module of `jax` or of the JAX package `yart_tpu` was ever loaded."""
+through bin-trace and the round-based block trace (plain and gated), parses the flagship scenes, writes
+the textured box as a GLB and an HDR environment with the port's writers and renders both through the
+CLI (its PNG textures decoded without PIL), and then checks that no module of `jax`, of the JAX package
+`yart_tpu` or of PIL was ever loaded."""
 
 import os
 import subprocess
@@ -20,9 +22,9 @@ import importlib, pkgutil, sys
 
 
 class _NoJax:
-    # jax, jaxlib and the JAX package cannot be imported in this process.
+    # jax, jaxlib, the JAX package and PIL cannot be imported in this process.
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "yart_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "yart_tpu", "PIL"):
             raise ImportError(f"{name} cannot be imported here")
         return None
 
@@ -100,7 +102,25 @@ with tempfile.TemporaryDirectory() as tmp:
                  "--quiet", "-o", os.path.join(tmp, "s.png")]) == 0
     assert main(["cornell-mat", "--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "3",
                  "--shade-kernel", "pallas", "--quiet", "-o", os.path.join(tmp, "c.png")]) == 0
-bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu") or m.startswith(("jax.", "jaxlib", "yart_tpu.")))
+# Scene files: the textured box (every texture class, an alpha cutout) as a
+# GLB and an HDR sky, both written by the port, loaded and rendered through
+# the CLI; its PNG textures decode without PIL.
+from yart_tpu_torch.io.glb_export import export_glb
+from yart_tpu_torch.io.image import load_hdr, save_hdr
+from yart_tpu_torch.scene.gltf import load
+with tempfile.TemporaryDirectory() as tmp:
+    glb, sky = os.path.join(tmp, "box.glb"), os.path.join(tmp, "sky.hdr")
+    stats = export_glb(textured_box_scene(), glb)
+    save_hdr(sky, np.linspace(0.1, 2.0, 8 * 16 * 3, dtype=np.float32).reshape(8, 16, 3))
+    b = load(glb)
+    assert stats["textures"] >= 3 and b.textures_rgba and b.textures_rgb and b.textures_2ch
+    assert load_hdr(sky).shape == (8, 16, 3)
+    for scene in (glb, "cornell"):
+        assert main([scene, "--env-hdr", sky, "--env-scale", "0.5", "--device", "cpu", "--size", "4x4",
+                     "--spp", "1", "--max-depth", "2", "--camera-pos", "0,1.6,3.2", "--quiet",
+                     "-o", os.path.join(tmp, "g.png")]) == 0
+bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu", "PIL")
+             or m.startswith(("jax.", "jaxlib", "yart_tpu.", "PIL.")))
 assert not bad, bad
 print("NO_JAX_OK")
 """

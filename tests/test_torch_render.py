@@ -24,6 +24,7 @@ from yart_tpu.scene.procedural import cornell_box as j_cornell
 from yart_tpu_torch import cli
 from yart_tpu_torch import config as TC
 from yart_tpu_torch.config import CameraConfig, RenderConfig
+from yart_tpu_torch.io.image import load_hdr
 from yart_tpu_torch.render import camera as TCam
 from yart_tpu_torch.render import estimator as TE
 from yart_tpu_torch.render import lights as TLi
@@ -125,16 +126,6 @@ def test_sample_light_matches_jax(cornell_mat, kind):
         np.asarray(JLi.select_p_area(js, jm, jnp.arange(jm.n_lights), kind)), rtol=1e-6,
     )
     assert TLi.p_infinite(tm) == JLi.p_infinite(jm)
-
-
-def test_env_lights_refused(capsys):
-    """Env lights from an HDR file wait for the HDR loader; the procedural
-    env scenes render (tests/test_torch_env.py)."""
-    for argv in (["spheres", "--env-hdr", "sky.hdr"], ["furnace", "--env-scale", "2"]):
-        with pytest.raises(SystemExit) as e:
-            cli.parse_args(argv)
-        assert e.value.code == 2
-        assert "ROADMAP.md A.10" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------- estimator
@@ -308,9 +299,6 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["cornell", "--env-scale", "2.0"],
-        ["scene.glb"],
-        ["cornell", "--env-hdr", "sky.hdr"],
         ["cornell", "--devices", "2"],
         ["cornell", "--distributed"],
         ["cornell", "--serve", "8000"],
@@ -340,3 +328,71 @@ def test_cli_renders_on_cpu(tmp_path, capsys):
     cli.main(["cornell", "--device", "cpu", "-o", str(ppm), "--size", "4x4", "--spp", "1", "--quiet"])
     assert ppm.read_bytes().startswith(b"P6\n4 4\n255\n")
     assert "Mrays/s on cpu" in capsys.readouterr().out
+
+
+def test_cli_renders_a_glb_file(tmp_path, capsys):
+    """A scene file (the port-exported cornell-mat GLB) renders through the
+    CLI, from the JAX CLI's default camera for a path."""
+    from yart_tpu_torch.io.glb_export import export_glb
+
+    glb = str(tmp_path / "box.glb")
+    export_glb(t_cornell(extra_materials=True), glb)
+    args = cli.parse_args([glb, "--camera-pos", "0,1,3.4"])
+    cam, _ = cli.render_configs(args)
+    assert cam.position == (0.0, 1.0, 3.4) and cam.forward == (0.0, 0.0, -3.4) and cam.exposure == 0.0
+    cam, _ = cli.render_configs(cli.parse_args([glb]))
+    assert (cam.position, cam.forward) == ((0, 1, 4), (0, 0, -4))
+    out = tmp_path / "g.png"
+    assert cli.main([glb, "--device", "cpu", "-o", str(out), "--size", "6x4", "--spp", "2", "--max-depth", "3",
+                     "--camera-pos", "0,1,3.4"]) == 0
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    printed = capsys.readouterr().out
+    assert f"scene: {glb} (36 tris" in printed and "env=False" in printed
+
+
+@pytest.mark.parametrize("scene", ["spheres", "glb"])
+def test_cli_env_hdr_lights_any_scene(tmp_path, scene, capsys):
+    """--env-hdr / --env-scale set the environment from a Radiance file on
+    a procedural scene and on a scene file; the image is brighter at a
+    larger scale."""
+    from yart_tpu_torch.io.glb_export import export_glb
+    from yart_tpu_torch.io.image import save_hdr
+
+    sky = str(tmp_path / "sky.hdr")
+    save_hdr(sky, np.random.default_rng(3).lognormal(0, 0.5, (8, 8, 3)).astype(np.float32))
+    if scene == "glb":
+        scene = str(tmp_path / "box.glb")
+        export_glb(t_cornell(), scene)
+    args = cli.parse_args([scene, "--env-hdr", sky, "--env-scale", "2.5"])
+    ts, tm = cli.build_scene(args, "cpu")
+    assert tm.has_env and tuple(ts.env_image.shape) == (8, 8, 3)
+    np.testing.assert_array_equal(ts.env_image.numpy(), load_hdr(sky) * np.float32(2.5))
+    means = []
+    for k in ("1", "3"):
+        out = tmp_path / f"e{k}.ppm"
+        assert cli.main([scene, "--env-hdr", sky, "--env-scale", k, "--device", "cpu", "-o", str(out),
+                         "--size", "4x4", "--spp", "1", "--max-depth", "2", "--tonemap", "none",
+                         "--camera-pos", "0,1,6"]) == 0
+        means.append(np.frombuffer(out.read_bytes()[-48:], np.uint8).mean())
+    assert "env=True" in capsys.readouterr().out and means[1] > means[0]
+
+
+@pytest.mark.parametrize("argv", [["missing.glb"], ["cornell", "--env-hdr", "missing_sky.hdr"]],
+                         ids=["scene", "env_hdr"])
+def test_cli_missing_file_names_itself(argv, tmp_path, capsys):
+    argv = [str(tmp_path / a) if a.startswith("missing") else a for a in argv]
+    with pytest.raises(SystemExit) as e:
+        cli.parse_args(argv)
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert str(tmp_path / ("missing.glb" if len(argv) == 1 else "missing_sky.hdr")) in err and "no such file" in err
+
+
+def test_cli_env_scale_without_env_hdr_is_accepted():
+    """As in the JAX CLI, --env-scale alone is accepted and changes nothing
+    (it scales only an --env-hdr image)."""
+    args = cli.parse_args(["furnace", "--env-scale", "2"])
+    assert args.env_scale == 2.0 and args.env_hdr is None
+    a, am = cli.build_scene(args, "cpu")
+    b, bm = cli.build_scene(cli.parse_args(["furnace"]), "cpu")
+    assert am == bm and torch.equal(a.env_image, b.env_image)

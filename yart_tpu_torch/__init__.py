@@ -19,9 +19,12 @@ Hopper counterpart in `csrc/`), the differentiable path
 (`render/diff.py`, `tools/inverse_render.py`), and the stack traversals
 (`render/stacktrace.py`) and per-instance loop for gated and instanced
 scenes past the block trace's cap, so intersection refuses no scene
-(README.md). Entry points run on the card unless given `device="cpu"`.
-What is still missing (glTF, HDR files, multi-GPU, other samplers) raises
-`NotImplementedError` naming its ROADMAP.md item.
+(README.md), and scene files: glTF / GLB loading (`scene/gltf.py`, with
+its own PNG decoder `io/png.py`), GLB export (`io/glb_export.py`),
+Radiance HDR environments (`io/image.py`) and `tools/convert_hdri.py`.
+Entry points run on the card unless given `device="cpu"`. What is still
+missing (the preview, multi-GPU, other samplers) raises
+`NotImplementedError` or a CLI error naming its ROADMAP.md item.
 
 This package imports torch and nothing of jax or of `yart_tpu`; its
 configuration dataclasses (`config.py`) mirror `yart_tpu/config.py`.

@@ -1,25 +1,29 @@
 """Command-line renderer for the port.
 
 Usage:
+    python -m yart_tpu_torch.cli scene.glb --env-hdr sky.hdr -o out.png --spp 64 --device cuda
     python -m yart_tpu_torch.cli cornell-mat -o out.png --spp 64 --size 512x512 --device cuda
 
-Mirrors `yart_tpu/cli.py` for what the port supports: the `cornell` and
-`cornell-mat` scenes (area lights, kernel B1), `furnace` (env light, B1),
-`spheres` (env light, 14,402 triangles through the block trace B2 + B3),
-the textured flagship scenes `atrium`, `roadster` and `luxball` (sky HDRI,
-block trace), `atrium-ivy` (alpha-tested ivy: the gated re-cast loop
-with B3's alpha-mask cull) and `atrium-inst` (the columns and planters as
-instances: B3's instanced mode), the MIS and naive integrators, the fused
-shade tail (`--shade-kernel xla|pallas`: B6 + B5), the zsobol and hash
-samplers, every estimator, AgX with its looks, the thin-lens camera and
-checkpoint/resume. Every other scene or flag of the JAX CLI is refused
-with an error naming the ROADMAP.md item that will bring it; none is
-ignored.
+Mirrors `yart_tpu/cli.py` for what the port supports: glTF / GLB scene
+files (`scene/gltf.py`, PNG textures only) and Radiance HDR environments
+(`--env-hdr`, `--env-scale`) on any scene, the procedural scenes
+`cornell` and `cornell-mat` (area lights, kernel B1), `furnace` (env
+light, B1), `spheres` (env light, 14,402 triangles through the block trace
+B2 + B3), the textured flagship scenes `atrium`, `roadster` and `luxball`
+(sky HDRI, block trace), `atrium-ivy` (alpha-tested ivy: the gated re-cast
+loop with B3's alpha-mask cull) and `atrium-inst` (the columns and
+planters as instances: B3's instanced mode), the MIS and naive
+integrators, the fused shade tail (`--shade-kernel xla|pallas`: B6 + B5),
+the zsobol and hash samplers, every estimator, AgX with its looks, the
+thin-lens camera and checkpoint/resume. Every other flag of the JAX CLI is
+refused with an error naming the ROADMAP.md item that will bring it; none
+is ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 SCENES = ("cornell", "cornell-mat", "spheres", "furnace", "atrium", "atrium-ivy", "atrium-inst",
@@ -28,8 +32,6 @@ SCENES = ("cornell", "cornell-mat", "spheres", "furnace", "atrium", "atrium-ivy"
 # JAX-CLI flags this slice lacks: dest -> (value meaning "unused", ROADMAP item)
 _REFUSED = {
     "config": (None, "A.10 application layer (JSON flag files)"),
-    "env_hdr": (None, "A.10 application layer (io.load_hdr)"),
-    "env_scale": (1.0, "A.10 application layer (io.load_hdr)"),
     "preview": (None, "A.10 application layer (preview PNG)"),
     "serve": (None, "A.10 application layer (preview server)"),
     "serve_host": ("127.0.0.1", "A.10 application layer (preview server)"),
@@ -43,7 +45,7 @@ _REFUSED = {
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="yart-tpu-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("scene", help="procedural scene: " + " | ".join(SCENES))
+    p.add_argument("scene", help=".gltf/.glb path or procedural scene: " + " | ".join(SCENES))
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("-o", "--output", default="out.png", help="output image (.png/.ppm)")
     p.add_argument("--spp", type=int, default=64)
@@ -72,11 +74,11 @@ def parse_args(argv=None):
     p.add_argument("--clamp", type=float, default=None)
     p.add_argument("--chunk-pixels", type=int, default=None)
     p.add_argument("--checkpoint", default=None)
+    p.add_argument("--env-hdr", default=None, help="octahedral Radiance HDR environment map path")
+    p.add_argument("--env-scale", type=float, default=1.0)
     p.add_argument("--quiet", action="store_true")
     # Accepted only to refuse them by name (see _REFUSED).
     p.add_argument("--config", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--env-hdr", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--env-scale", type=float, default=1.0, help=argparse.SUPPRESS)
     p.add_argument("--preview", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve-host", default="127.0.0.1", help=argparse.SUPPRESS)
@@ -86,12 +88,11 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
-    if args.scene not in SCENES:
-        p.error(
-            f"scene {args.scene!r} is not ported yet: this slice renders "
-            f"{' | '.join(SCENES)}; glTF files and the other procedural scenes "
-            "need the glTF loader (ROADMAP.md A.10)"
-        )
+    if args.scene not in SCENES and not os.path.isfile(args.scene):
+        p.error(f"scene {args.scene!r}: no such file (a .gltf/.glb path) and no procedural scene "
+                f"({' | '.join(SCENES)})")
+    if args.env_hdr is not None and not os.path.isfile(args.env_hdr):
+        p.error(f"--env-hdr {args.env_hdr!r}: no such file")
     for dest, (unused, item) in _REFUSED.items():
         if getattr(args, dest) != unused:
             p.error(f"--{dest.replace('_', '-')} is not ported yet (ROADMAP.md {item})")
@@ -108,12 +109,17 @@ def parse_args(argv=None):
 
 
 def build_scene(args, device, density: int = 1):
-    """The scene of the parsed arguments; `density` multiplies the atrium
-    scenes' tessellation (showcase.atrium: 3 gives the 1,094,508-triangle
-    atrium that bin-trace serves)."""
+    """The scene of the parsed arguments: a procedural scene or a glTF
+    file, with the `--env-hdr` environment if given; `density` multiplies
+    the atrium scenes' tessellation (showcase.atrium: 3 gives the
+    1,094,508-triangle atrium that bin-trace serves)."""
     from yart_tpu_torch.scene import procedural, showcase
 
-    if args.scene == "spheres":
+    if args.scene not in SCENES:
+        from yart_tpu_torch.scene.gltf import load
+
+        b = load(args.scene)
+    elif args.scene == "spheres":
         b = procedural.material_test_spheres()
     elif args.scene == "furnace":
         b = procedural.furnace()
@@ -126,12 +132,17 @@ def build_scene(args, device, density: int = 1):
         b = showcase.luxball()
     else:
         b = procedural.cornell_box(extra_materials=args.scene == "cornell-mat")
+    if args.env_hdr:
+        from yart_tpu_torch.io.image import load_hdr
+
+        b.set_env(load_hdr(args.env_hdr), args.env_scale)
     b.set_background([float(x) for x in args.background.split(",")])
     return b.compile(device)
 
 
 # The JAX CLI's cameras and exposures (yart_tpu/cli.py:162-187):
-# (position, target), and EV stops for interior scenes under the sky.
+# (position, target), and EV stops for interior scenes under the sky; a
+# scene file takes DEFAULT_CAMERA and 0 EV.
 CAMERAS = {
     "cornell": ((0, 1.0, 3.4), (0, 1.0, 0)),
     "cornell-mat": ((0, 1.0, 3.4), (0, 1.0, 0)),
@@ -143,11 +154,12 @@ CAMERAS = {
     "roadster": ((4.4, 1.7, 5.0), (0.0, 0.5, 0.0)),
     "luxball": ((0.12, 0.28, 0.35), (0.0, 0.06, 0.0)),
 }
+DEFAULT_CAMERA = ((0, 1, 4), (0, 1, 0))
 EXPOSURE = {"atrium": 3.0, "atrium-ivy": 3.0, "atrium-inst": 3.0, "roadster": 1.0, "luxball": 1.0}
 
 
 def default_camera(args):
-    pos, target = CAMERAS[args.scene]
+    pos, target = CAMERAS.get(args.scene, DEFAULT_CAMERA)
     if args.camera_pos:
         pos = tuple(float(x) for x in args.camera_pos.split(","))
     if args.camera_target:
@@ -197,7 +209,7 @@ def main(argv=None) -> int:
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     if not args.quiet:
         print(
-            f"scene: {args.scene} ({meta.n_tris} tris, {meta.n_lights} lights); "
+            f"scene: {args.scene} ({meta.n_tris} tris, {meta.n_lights} lights, env={meta.has_env}); "
             f"{w}x{h} @ {args.spp}spp on {device} ({dev_name})"
         )
 

@@ -2,8 +2,9 @@
 
 Port of the subset of `yart_tpu/scene/builder.py` the ported render path
 needs: materials, textures (`add_texture`, the shelf-packed atlases of
-`_stack_from_list`, builder.py:85-121), world-space meshes with authored or
-area-weighted normals, uvs and tangents (:169-223), background, the
+`_stack_from_list`, builder.py:85-121), meshes with authored or
+area-weighted normals, uvs, tangents and a transform (:169-223),
+`add_material_desc` (:154-156), background, the
 environment light (`set_env`, `set_env_uniform`, `_compile_env`,
 :280-371) and `compile()`: the numpy SAH BVH and its leaf-order triangle
 permutation (:389-399), the area-light table (:401-451), scene center and
@@ -20,8 +21,7 @@ with `max_leaf`, `bvh_depth` and `wide_depth` (:470-480, :493-499,
 Pure numpy on the host, then tensors: the machine with the GPU has no JAX,
 so the port builds its own scenes.
 
-Not ported: mesh transforms in `add_mesh` and the native C++ BVH build and
-collapse.
+Not ported: the native C++ BVH build and collapse.
 """
 
 from __future__ import annotations
@@ -184,6 +184,10 @@ class SceneBuilder:
         self._materials.append(MaterialDesc(**kwargs))
         return len(self._materials) - 1
 
+    def add_material_desc(self, desc: MaterialDesc) -> int:
+        self._materials.append(desc)
+        return len(self._materials) - 1
+
     def add_texture(self, kind: str, data: np.ndarray) -> int:
         """Add a storage-encoded texture (gamma-2 for sRGB colour) of `kind`
         rgba, rgb, 2ch or mono; returns its index within that kind."""
@@ -198,15 +202,29 @@ class SceneBuilder:
 
     def add_mesh(self, positions: np.ndarray, indices: np.ndarray, material,
                  normals: Optional[np.ndarray] = None, uvs: Optional[np.ndarray] = None,
-                 tangents: Optional[np.ndarray] = None) -> None:
-        """Add a world-space triangle mesh; `material` is one index or a
-        per-face [T] array. Without `normals` [V, 3] the vertex normals are
-        area-weighted face normals; `uvs` [V, 2] default to zero and
-        `tangents` [V, 4] (xyz, handedness) to +x with handedness 1."""
+                 tangents: Optional[np.ndarray] = None, transform: Optional[np.ndarray] = None) -> None:
+        """Add a triangle mesh, pre-transformed to world space; `material`
+        is one index or a per-face [T] array. Without `normals` [V, 3] the
+        vertex normals are area-weighted face normals; `uvs` [V, 2] default
+        to zero and `tangents` [V, 4] (xyz, handedness) to +x with
+        handedness 1. `transform`: an optional [4, 4] row-major affine
+        matrix, applied in float64 to the positions, by its inverse
+        transpose to the normals (src/math/transform.hpp:46-52) and to the
+        tangents' xyz, both renormalised."""
         m = _mesh_arrays(positions, indices, material, normals, uvs, tangents)
-        self._positions.append(m["positions"].astype(np.float32))
-        self._normals.append(m["normals"].astype(np.float32))
-        self._tangents.append(m["tangents"].astype(np.float32))
+        pos, nrm, tan = m["positions"], m["normals"], m["tangents"]
+        if transform is not None:
+            mtx = np.asarray(transform, np.float64).reshape(4, 4)
+            pos = pos @ mtx[:3, :3].T + mtx[:3, 3]
+            nrm_m = np.linalg.inv(mtx[:3, :3]).T
+            nrm = nrm @ nrm_m.T
+            nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+            t_xyz = tan[:, :3] @ mtx[:3, :3].T
+            t_len = np.linalg.norm(t_xyz, axis=-1, keepdims=True)
+            tan = np.concatenate([t_xyz / np.maximum(t_len, 1e-20), tan[:, 3:]], axis=1)
+        self._positions.append(pos.astype(np.float32))
+        self._normals.append(nrm.astype(np.float32))
+        self._tangents.append(tan.astype(np.float32))
         self._uvs.append(m["uvs"].astype(np.float32))
         self._tris.append((m["tris"] + self._vtx_offset).astype(np.int32))
         self._tri_mat.append(m["tri_mat"])
