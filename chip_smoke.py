@@ -42,7 +42,7 @@ exits non-zero and prints no final "ok" line:
                (`b2_bounds`: over the work its inputs need, and over a
                sweep of every box by every live ray).
   3e. gated  — the gated re-cast loop (intersect_blocktrace_gated), kernel
-               path against twin path bitwise, on 2^16 atrium-ivy camera
+               path against twin path bitwise, on 2^14 atrium-ivy camera
                rays and on shadow rays from their hits (nee), with the
                active count of every cast.
   3j. kernel — B6 (the bounce's 8 sampler draws) against its twin (the
@@ -122,8 +122,9 @@ exits non-zero and prints no final "ok" line:
                plain-twin path's bitwise, and its per-channel mean must
                lie within 2% of the golden's; golden_v1 `textured` from the
                port-built textured_box_scene (gated brute, no kernel) within
-               2%; small atrium-ivy, atrium-inst and dense-atrium renders
-               (32x32, 2 spp, depth 4), kernel path == twin path bitwise;
+               2%; small atrium-ivy (16x16, depth 2), atrium-inst (16x16)
+               and dense-atrium (32x32) renders (2 spp, depth 4), kernel
+               path == twin path bitwise;
                atrium-inst against the baked atrium at
                64x64, 16 spp (channel means within 0.5%, >= 98% of pixels
                within rtol/atol 2e-2: tests/test_instancing.py's bar);
@@ -178,7 +179,7 @@ exits non-zero and prints no final "ok" line:
                average), the remat policies agree (radiance bitwise,
                gradients within GRAD_REL_TOL of the largest entry), and,
                in 6a, 6b and 6e, the kernel path agrees with the twin
-               path likewise (6b at 8x8, 4 spp and 6e at 16x16, 2 spp:
+               path likewise (6b at 8x8, 4 spp, depth 3 and 6e at 16x16, 2 spp:
                B2's and B3's twins are slow on the card).
   7. stack  — the stack traversals and the per-instance loop
                (`stack_phases`): 7a atrium(ivy=True, density=3) built on
@@ -200,7 +201,7 @@ exits non-zero and prints no final "ok" line:
                atrium(density=3, instanced=True) built on the host (95
                instances, 12,055 instance clusters), the per-instance
                loop's kernel path against its twin path bitwise on every
-               Hit field at 2^16 camera rays and their sun shadow rays
+               Hit field at 2^14 camera rays and their sun shadow rays
                (B1/B2/B3 launches a cast), and its render at 256x256, 4
                spp, depth 8 with channel means within 0.5% of the baked
                dense atrium's (phase 3h's scene, bin-trace) at the same
@@ -226,6 +227,28 @@ exits non-zero and prints no final "ok" line:
                of 8a (16x16, depth 2), 8b (16x16, depth 4) and cornell-mat
                (B1; 32x32, depth 4); the host seconds of decoding a
                2048x2048 RGBA PNG with every row Paeth-filtered.
+  9. application layer — (`app_layer_phases`, after phase 8) 9a
+               atrium-ivy at 512x512, `--spp`, depth 30, +3 EV, "pallas"
+               over two ranks spawned on the one card with backend gloo,
+               each loading the compiled scene the parent saved as CPU
+               tensors and warming up at 64x64: the image and the ray count
+               bitwise to phase 4f's one-process render, each rank's wall,
+               its own rays and
+               Mrays/s and its B2 / B3 amask / B5 / B6 launches (B5 = B6 =
+               bounces); 9b `cli.main([... "--devices", "all"])`, one NCCL
+               rank on the one card, bitwise to the same render without
+               --devices; 9c cornell-mat at 128x128 through `cli.main`
+               with --config (the file sets spp and size, an explicit
+               --seed wins), --preview, --serve 0 (/status and /frame.png
+               fetched over loopback as each frame is pushed), --profile
+               (the chrome trace names B1's and B5's kernels) and
+               --debug-nan (passes), then the same render with the
+               estimate forced to NaN, which must raise FloatingPointError;
+               9d cornell-mat at 32x32, 2 spp, depth 4, "pallas" with each
+               sampler B6 does not draw (stratified, zsobol:null,
+               zsobol:binary, zsobol:owen): kernel path == twin path
+               bitwise (B1, B5 and B6 on their twins), B6 never launched,
+               B5 once a bounce.
 The kernels line lists B1-B7b with their launches on the main paths (B1:
 cornell-mat; B2, B3: atrium-inst, with B3's launches per mode, and the
 earlier paths' beside them; B4: the dense atrium; B5, B6: cornell-mat
@@ -233,7 +256,8 @@ with "pallas", atrium-ivy beside it; B7a, B7b: the incoherent round-based
 cast of 3l, the coherent one beside it; B1-B3 also per phase-6 case,
 forward and backward, and per cast of the per-instance loop (7c); B5, B6
 also on the dense ivy atrium's render, 7b; B1-B3, B5 and B6 also on the
-scene files of phase 8), times and bounds; then the card as
+scene files of phase 8; B1, B2, B3, B5 and B6 also per phase-9 case,
+each rank's in 9a), times and bounds; then the card as
 nvidia-smi reports it; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1542,6 +1566,17 @@ def reset_counts():
     integrator.BOUNCES.reset()
 
 
+def main_path_config(spp: int, max_depth: int = 30, shade_kernel: str = "off"):
+    """The RenderConfig of the main-path renders. The CLI's wave plan
+    (first wave 8, doubling up to 128): the first wave probes per-depth
+    live lanes and the later ones run the compaction the autotune picks,
+    so the staged-compaction path runs on the card."""
+    from yart_tpu_torch.config import RenderConfig
+
+    return RenderConfig(samples=spp, max_depth=max_depth, sampler="zsobol", estimator="gmon",
+                        tonemap="agx", first_wave_samples=8, max_wave_samples=128, shade_kernel=shade_kernel)
+
+
 def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "off", max_depth: int = 30):
     """Drive Renderer on the card with every kernel count set to 0 just
     before; returns (record, {kernel: launches}, HDR image) read just
@@ -1549,18 +1584,13 @@ def render_main_path(name, scene, meta, cam_cfg, spp, dev, shade_kernel: str = "
     import numpy as np
     import torch
 
-    from yart_tpu_torch.config import RenderConfig
     from yart_tpu_torch.io.image import write_png
     from yart_tpu_torch.kernels import blocktrace as legacy
     from yart_tpu_torch.kernels import brute, clusterpairs, fusedtrace, presort, shade
     from yart_tpu_torch.render import bintrace, blocktrace, integrator, stacktrace
     from yart_tpu_torch.render.renderer import Renderer
 
-    # The CLI's wave plan (first wave 8, doubling up to 128): the first wave
-    # probes per-depth live lanes and the later ones run the compaction
-    # the autotune picks, so the staged-compaction path runs on the card.
-    cfg = RenderConfig(samples=spp, max_depth=max_depth, sampler="zsobol", estimator="gmon",
-                       tonemap="agx", first_wave_samples=8, max_wave_samples=128, shade_kernel=shade_kernel)
+    cfg = main_path_config(spp, max_depth, shade_kernel)
     waves = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1826,7 +1856,7 @@ def fwdbwd_case(name, scene, meta, cam_cfg, spp: int, dev, cfg, leaves, kernels,
     on CUDA; and unless every policy's radiance equals the first's bitwise
     and its gradients within GRAD_REL_TOL. With `twin`, the same for the
     first configuration with the traversal forced to the plain twins, at
-    the case's shape (True) or at (side, spp)."""
+    the case's shape (True) or at (side, spp[, max_depth])."""
     import dataclasses
 
     import torch
@@ -1907,6 +1937,8 @@ def fwdbwd_case(name, scene, meta, cam_cfg, spp: int, dev, cfg, leaves, kernels,
         # at its 65,536 lanes and 78 s at 1,024 on an H100): `twin` = (side,
         # spp) compares the two paths at that smaller shape, True at the case's.
         c = dataclasses.replace(cfg, shade_kernel=shade_kernels[0], remat=(policies or (cfg.remat,))[0])
+        if twin is not True and len(twin) > 2:
+            c = dataclasses.replace(c, max_depth=twin[2])
         t_in = (cam, sampler, lanes) if twin is True else fwdbwd_inputs(
             dataclasses.replace(cam_cfg, image_size=(twin[0], twin[0])), twin[1], dev)
         k = first if twin is True else fwdbwd_once(scene, meta, *t_in[:2], c, t_in[2], leaves)
@@ -2017,7 +2049,7 @@ def fwdbwd_phases(dev, scenes: dict) -> dict:
     recs["6b"] = fwdbwd_case(
         "atrium_ivy_fwdbwd", sc, mt, cam("atrium-ivy", 128, 3.0), 4, dev,
         RenderConfig(samples=4, max_depth=6, rr_start_depth=99, compact_depth=4, compact_factor=2),
-        ("base_color", "tex_rgba"), ("presort_keys", "fused_trace.amask"), twin=(8, 4))
+        ("base_color", "tex_rgba"), ("presort_keys", "fused_trace.amask"), twin=(8, 4, 3))
     sc, mt = scenes["atrium"][:2]
     recs["6c"] = fwdbwd_case(
         "atrium_fwdbwd_rr", sc, mt, cam("atrium", 128, 3.0), 4, dev,
@@ -2250,10 +2282,12 @@ def stack_phases(dev, dense, dense_meta) -> dict:
         raise AssertionError("the dense instanced atrium fits the block trace's cap")
     pos, target = CAMERAS["atrium-inst"]
     fwd = tuple(t - p for p, t in zip(pos, target))
-    o, d = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=pos, forward=fwd), dev)
+    # 2^14 rays (2^16 until the script came within 100 s of its limit: the
+    # twin paths took 21.9 and 26.6 s there).
+    o, d = camera_rays(CameraConfig(image_size=(128, 128), focal_length=35.0, position=pos, forward=fwd), dev)
     loop = {}
     hk = None
-    for case, nee in (("camera_2^16", False), ("sun_shadow_2^16", True)):
+    for case, nee in (("camera_2^14", False), ("sun_shadow_2^14", True)):
         if nee:
             o, d, t_max = shadow_rays(o, d, hk.t, hk.mask, SUN)
         else:
@@ -2617,6 +2651,262 @@ def scene_file_phases(dev, spp: int, ivy_builder, ivy_pallas_img, inst_builder, 
     return out
 
 
+# ---- phase 9: the application layer (ranks, CLI flags, samplers) ---------
+
+APP_SAMPLERS = ("stratified", "zsobol:null", "zsobol:binary", "zsobol:owen")  # the samplers B6 does not draw
+
+
+@contextlib.contextmanager
+def shade_forced_to_plain():
+    """Test-only switch for phase 9d: route B5 and B6 to their plain twins
+    (on the same CUDA tensors), as `intersection_forced_to_plain` does for
+    the intersection kernels."""
+    from yart_tpu_torch.kernels import shade
+
+    saved = shade.shade, shade.draws
+    shade.shade, shade.draws = shade.shade_plain, shade.draws_plain
+    try:
+        yield
+    finally:
+        shade.shade, shade.draws = saved
+
+
+def shade_launches() -> dict:
+    """kernel_launches() with B5's and B6's, B3's launches by mode and the
+    bounces so far."""
+    from yart_tpu_torch.kernels import fusedtrace, shade
+    from yart_tpu_torch.render import integrator
+
+    return dict(kernel_launches(), shade=shade.COUNTS_SHADE.launches, draws=shade.COUNTS_DRAWS.launches,
+                fused_trace_modes=dict(fusedtrace.COUNTS.modes), bounces=integrator.BOUNCES.bounces)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def app_rank(rank, scene_path, cam_cfg, cfg, out_dir, device_type):
+    """A rank of phase 9a, in a process of its own: the compiled scene from
+    the parent's file (CPU tensors), a warm-up render, then its render over
+    the group on this rank's card with every count set to 0 just before;
+    writes its wall, the rays of its own parts and its launches (rank 0
+    also the image)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch.parallel import distributed
+    from yart_tpu_torch.render.renderer import Renderer
+
+    dev = distributed.rank_device(device_type)
+    scene, meta = torch.load(scene_path, weights_only=False)
+    own = [0.0]
+    wave = Renderer._wave
+
+    def counted(self, *a):  # the rays of this rank's own parts
+        est, rays, live = wave(self, *a)
+        own[0] += float(rays)
+        return est, rays, live
+
+    # A first render in the process loads the kernels' libraries and the
+    # LUTs; one at 64x64 keeps that out of the timed render, as 4f's
+    # process is warm when it renders.
+    Renderer(scene, meta, dataclasses.replace(cam_cfg, image_size=(64, 64)), dataclasses.replace(cfg, samples=2),
+             device=dev, devices="all").render()
+    Renderer._wave = counted
+    r = Renderer(scene, meta, cam_cfg, cfg, device=dev, devices="all")
+    sync(dev)
+    reset_counts()
+    t0 = time.time()
+    res = r.render()
+    sync(dev)
+    wall = time.time() - t0
+    rec = {"rank": rank, "world": r.n_devices, "backend": torch.distributed.get_backend(), "device": str(dev),
+           "wall_s": round(wall, 3), "rays": own[0], "mrays_per_s": own[0] / wall / 1e6,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else None,
+           "launches": shade_launches()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "image.npz"), hdr=res.hdr, rays=res.total_rays)
+
+
+def cli_checkpoint(argv, ck, dev):
+    """cli.main(argv + checkpoint) with every count set to 0 just before:
+    (hdr, rays, samples, launches, wall s)."""
+    import numpy as np
+
+    from yart_tpu_torch import cli
+
+    reset_counts()
+    t0 = time.time()
+    if cli.main(argv + ["--checkpoint", ck]) != 0:
+        raise AssertionError(f"cli.main({argv}) returned non-zero")
+    sync(dev)
+    wall = time.time() - t0
+    with np.load(ck) as z:
+        return z["hdr"], float(z["rays"]), int(z["samples_taken"]), shade_launches(), wall
+
+
+def app_layer_phases(dev, spp: int, ivy, ivy_meta, ivy_cam, ivy_img, ivy_rays, cornell, cornell_meta) -> dict:
+    """Phase 9: 9a atrium-ivy (`ivy_cam`, `spp`, depth 30, "pallas") over
+    two gloo ranks spawned on the one card, each given the compiled scene
+    as CPU tensors from a file, bitwise to phase 4f's one-process image
+    and ray count (`ivy_img`, `ivy_rays`); 9b `cli.main(--devices all)`:
+    one NCCL rank, bitwise to the same render without --devices; 9c
+    cornell-mat through `cli.main` with --config, --preview, --serve 0
+    (its /status and /frame.png fetched over loopback during the render),
+    --profile (the trace names B1 and B5) and --debug-nan, then the
+    estimate forced to NaN: FloatingPointError; 9d the samplers B6 does
+    not draw, kernel path == twin path bitwise on cornell-mat (32x32, 2
+    spp, depth 4, "pallas"), B6 never launched and B5 once a bounce.
+    Emits each record; returns them."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yart_tpu_torch import cli
+    from yart_tpu_torch.config import CameraConfig, RenderConfig
+    from yart_tpu_torch.io import preview
+    from yart_tpu_torch.io.png import decode_png
+    from yart_tpu_torch.parallel import distributed
+    from yart_tpu_torch.render import renderer
+    from yart_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.time()
+    out = {}
+    smi = nvidia_smi()
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 9a. two gloo ranks on the one card, the slice at full width ---
+        t0 = time.time()
+        scene_path = os.path.join(tmp, "atrium_ivy.pt")
+        torch.save((ivy.to("cpu"), ivy_meta), scene_path)
+        save_s = time.time() - t0
+        cfg = main_path_config(spp, 30, "pallas")
+        t0 = time.time()
+        distributed.spawn(app_rank, 2, (scene_path, ivy_cam, cfg, tmp, dev.type), device=dev.type, backend="gloo")
+        spawn_s = time.time() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with np.load(os.path.join(tmp, "image.npz")) as z:
+            hdr, rays = z["hdr"], float(z["rays"])
+        bitwise = bool(np.array_equal(hdr.view(np.int32), ivy_img.view(np.int32)) and rays == ivy_rays)
+        rec = {"phase": "app", "case": "9a_atrium_ivy_two_gloo_ranks", "smi": smi, "size": list(ivy_cam.image_size),
+               "spp": spp, "max_depth": 30, "shade_kernel": "pallas", "ranks": ranks, "rays": rays,
+               "one_process_rays": ivy_rays, "bitwise_to_4f": bitwise, "scene_file_s": round(save_s, 3),
+               "spawn_to_join_s": round(spawn_s, 3), "rays_by_rank": [x["rays"] for x in ranks]}
+        emit(rec)
+        if not bitwise:
+            raise AssertionError(f"9a: two ranks differ from phase 4f's one-process render (max abs "
+                                 f"{np.abs(hdr - ivy_img).max()}, rays {rays} vs {ivy_rays})")
+        for x in ranks:
+            lx = x["launches"]
+            if (lx["presort_keys"] <= 0 or lx["fused_trace_modes"].get("amask", 0) <= 0 or lx["bounces"] <= 0
+                    or lx["shade"] != lx["bounces"] or lx["draws"] != lx["bounces"]):
+                raise AssertionError(f"9a: rank {x['rank']} did not go through B2, B3 amask, B5 and B6: {lx}")
+        if abs(sum(x["rays"] for x in ranks) - ivy_rays) > 0:
+            raise AssertionError(f"9a: the ranks' own rays {[x['rays'] for x in ranks]} do not sum to {ivy_rays}")
+        out["9a"] = rec
+
+        # ---- 9b. --devices all on the one card: one NCCL rank --------------
+        argv = ["cornell-mat", "--device", dev.type, "--size", "128x128", "--spp", "4", "--max-depth", "8",
+                "--shade-kernel", "pallas", "--quiet", "-o", os.path.join(tmp, "b.png")]
+        one = cli_checkpoint(argv, os.path.join(tmp, "b1.npz"), dev)
+        nccl = cli_checkpoint(argv + ["--devices", "all"], os.path.join(tmp, "b2.npz"), dev)
+        bitwise = bool(np.array_equal(one[0].view(np.int32), nccl[0].view(np.int32)) and one[1] == nccl[1])
+        rec = {"phase": "app", "case": "9b_cli_devices_all_one_nccl_rank", "ranks": cli.ranks_for("all", dev),
+               "rays": nccl[1], "bitwise_to_one_process": bitwise, "wall_s": [round(one[4], 3), round(nccl[4], 3)],
+               "launches": nccl[3]}
+        emit(rec)
+        if not bitwise or nccl[3]["brute_intersect"] <= 0 or distributed.is_initialized():
+            raise AssertionError(f"9b: --devices all differs from one process or left its group: {rec}")
+        out["9b"] = rec
+
+        # ---- 9c. the CLI's flags ------------------------------------------
+        config = os.path.join(tmp, "c.json")
+        with open(config, "w") as f:
+            json.dump({"spp": 4, "size": "128x128", "seed": 3, "max-depth": 8, "first-wave": 2}, f)
+        prev, prof = os.path.join(tmp, "preview.png"), os.path.join(tmp, "prof")
+        seen = []
+        update = preview.PreviewServer.update
+
+        def probe(self, img, wave_data=None, done=False):
+            update(self, img, wave_data, done)
+            got = [urllib.request.urlopen(f"http://127.0.0.1:{self.port}{p}", timeout=10).read()
+                   for p in ("/status", "/frame.png")]
+            seen.append((json.loads(got[0]), decode_png(got[1]).shape))
+
+        argv = ["cornell-mat", "--config", config, "--seed", "1", "--device", dev.type, "--shade-kernel", "pallas",
+                "--preview", prev, "--serve", "0", "--profile", prof, "--debug-nan", "--quiet",
+                "-o", os.path.join(tmp, "c.png")]
+        preview.PreviewServer.update = probe
+        try:
+            hdr_c, rays_c, spp_c, launches_c, wall_c = cli_checkpoint(argv, os.path.join(tmp, "c.npz"), dev)
+        finally:
+            preview.PreviewServer.update = update
+        with open(os.path.join(prof, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        traced = {k: sum(k in n for n in names) > 0 for k in ("brute_intersect_kernel", "shade_kernel")}
+        with np.load(os.path.join(tmp, "c.npz")) as z:
+            seed_c = int(z["seed"])
+        rec = {"phase": "app", "case": "9c_cli_flags", "pixels": hdr_c.shape[0], "spp": spp_c, "seed": seed_c,
+               "served": [{"samples_taken": s["samples_taken"], "frame": s["frame"], "done": s["done"],
+                           "png_shape": list(shape)} for s, shape in seen],
+               "preview_png_shape": list(decode_png(open(prev, "rb").read()).shape), "trace_kernels": traced,
+               "trace_events": len(names), "launches": launches_c, "wall_s": round(wall_c, 3), "rays": rays_c}
+        if not (hdr_c.shape == (128 * 128, 3) and spp_c == 4 and seed_c == 1 and all(traced.values())
+                and seen and seen[-1][0]["done"] and seen[-1][1] == (128, 128, 4)
+                and rec["preview_png_shape"] == [128, 128, 4] and launches_c["shade"] == launches_c["bounces"]):
+            raise AssertionError(f"9c: the CLI's flags did not act as asked: {rec}")
+        estimate = renderer.estimate
+        renderer.estimate = lambda samples, *a: torch.full((samples.shape[0], 3), float("nan"), device=samples.device)
+        try:
+            cli_checkpoint(argv[:argv.index("--preview")] + ["--debug-nan", "--quiet", "-o", os.path.join(
+                tmp, "n.png")], os.path.join(tmp, "n.npz"), dev)
+            raise AssertionError("9c: --debug-nan let a NaN estimate through")
+        except FloatingPointError as e:
+            rec["debug_nan_raised"] = str(e)
+        finally:
+            renderer.estimate = estimate
+        emit(rec)
+        out["9c"] = rec
+
+    # ---- 9d. the samplers B6 does not draw: kernel path == twin path ------
+    cam = CameraConfig(image_size=(32, 32), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
+    for kind in APP_SAMPLERS:
+        cfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean", first_wave_samples=2,
+                           max_wave_samples=2, shade_kernel="pallas", sampler=kind)
+        reset_counts()
+        img_k = Renderer(cornell, cornell_meta, cam, cfg, device=dev).render()
+        launches = shade_launches()
+        with intersection_forced_to_plain(), shade_forced_to_plain():
+            img_p = Renderer(cornell, cornell_meta, cam, cfg, device=dev).render()
+        bitwise = bool(np.array_equal(img_k.hdr.view(np.int32), img_p.hdr.view(np.int32))
+                       and img_k.total_rays == img_p.total_rays)
+        rec = {"phase": "app", "case": f"9d_sampler_{kind}", "size": [32, 32], "spp": 2, "max_depth": 4,
+               "kernel_eq_twin_bitwise": bitwise, "launches": launches, "rays": img_k.total_rays,
+               "mean": [float(x) for x in img_k.hdr.mean(axis=(0, 1))]}
+        emit(rec)
+        if not (bitwise and np.isfinite(img_k.hdr).all() and img_k.hdr.mean() > 0):
+            raise AssertionError(f"9d: {kind}: kernel path and twin path differ: {rec}")
+        if launches["draws"] != 0 or launches["shade"] != launches["bounces"] or launches["brute_intersect"] <= 0:
+            raise AssertionError(f"9d: {kind}: B6 launched or B1 / B5 not once a bounce: {launches}")
+        out[f"9d_{kind}"] = rec
+    out["seconds"] = round(time.time() - t_phase, 3)
+    emit({"phase": "app_total", "seconds": out["seconds"]})
+    return out
+
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--spp", type=int, default=16, help="samples per pixel of the 512x512 renders (phases 4-4d)")
@@ -2735,14 +3025,17 @@ def main() -> int:
     del i_hit
 
     # ---- 3e. the gated re-cast loop: kernel path vs twin path ------------
-    go, gd, gseed = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=ivy_pos,
+    # At 2^14 rays (2^16 until the script came within 100 s of its limit:
+    # the twin paths took 21.4 and 20.7 s there); the bin-trace case of 3i
+    # keeps 2^16 rays of its own.
+    go, gd, gseed = camera_rays(CameraConfig(image_size=(128, 128), focal_length=35.0, position=ivy_pos,
                                              forward=ivy_fwd), dev, seeds=True)
     g_tmax = torch.full((go.shape[0],), 1e30, device=dev)
-    rec_g = compare_gated("atrium_ivy_camera_2^16", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
+    rec_g = compare_gated("atrium_ivy_camera_2^14", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
     emit({"phase": "gated", **rec_g})
     gh = blocktrace.intersect_blocktrace_gated(ivy, ivy_meta, go, gd, g_tmax, alpha_seed=gseed)
     sh_o, sh_d, sh_t = shadow_rays(go, gd, gh.t, gh.mask, SUN)
-    rec_gs = compare_gated("atrium_ivy_shadow_2^16", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
+    rec_gs = compare_gated("atrium_ivy_shadow_2^14", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
                            nee=True)
     emit({"phase": "gated", **rec_gs})
 
@@ -3006,12 +3299,16 @@ def main() -> int:
     tcfg = RenderConfig(samples=16, max_depth=5, tonemap="none", estimator="mean",
                         first_wave_samples=16, max_wave_samples=16)
     emit(reference_check("textured_box", tb, tb_meta, tcam, tcfg, "textured", dev, twin=False))
-    icam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0)
+    # atrium-ivy at 16x16, depth 2 and atrium-inst at 16x16 (32x32, depth 4
+    # until the script came within 100 s of its limit): their twin paths
+    # (B3's plain amask and instanced twins) took 54.7 and 14.6 s there.
+    icam = CameraConfig(image_size=(16, 16), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0)
     icfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean",
                         first_wave_samples=2, max_wave_samples=2)
-    emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, icfg, None, dev))
+    emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, RenderConfig(
+        samples=2, max_depth=2, tonemap="none", estimator="mean", first_wave_samples=2, max_wave_samples=2), None, dev))
 
-    acam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
+    acam = CameraConfig(image_size=(16, 16), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
     emit(reference_check("atrium-inst", inst, inst_meta, acam, icfg, None, dev))
     dcam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=dense_pos, forward=dense_fwd, exposure=3.0)
     emit(reference_check("atrium-dense", dense, dense_meta, dcam, icfg, None, dev))
@@ -3052,10 +3349,23 @@ def main() -> int:
     p8 = scene_file_phases(dev, args.spp, ivy_builder, pallas_imgs["atrium-ivy"], inst_builder, inst, inst_meta,
                            cornell_box(extra_materials=True))
 
+    # ---- 9. the application layer ----------------------------------------
+    # atrium-ivy over two gloo ranks on the card, bitwise to 4f; the CLI's
+    # --devices all (one NCCL rank) and its flags; the samplers B6 does not
+    # draw, kernel path == twin path.
+    p9 = app_layer_phases(dev, args.spp, ivy, ivy_meta, ivy_cam, pallas_imgs["atrium-ivy"],
+                          fused["atrium-ivy"][1]["rays"], scene, meta)
+
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     fused["atrium-ivy-dense"] = p7["7b"]
     fused["atrium-ivy GLB (8a)"] = p8["8a"]
     l8a, l8b = p8["8a"][1], p8["8b"][1]
+
+    def app_launches(kernel, cases=("9b", "9c") + tuple(f"9d_{k}" for k in APP_SAMPLERS)):
+        """Phase 9's launches of `kernel`: each rank's in 9a, then the CLI
+        and sampler cases."""
+        out = {f"9a rank {x['rank']} (atrium-ivy, 2 gloo ranks)": x["launches"][kernel] for x in p9["9a"]["ranks"]}
+        return out | {c: p9[c]["launches"][kernel] for c in cases}
 
     def loop_launches(kernel):  # the per-instance loop's launches of B1-B3 (phase 7c)
         return {f"instanced loop, {case} cast": r["launches_per_cast"][kernel] for case, r in p7["7c"].items()} | {
@@ -3067,7 +3377,8 @@ def main() -> int:
          "replaces": "yart_tpu/kernels/pallas_intersect.py:132",
          "launches": launches_cornell["brute_intersect"],
          "launches_by_path": {"cornell-mat": launches_cornell["brute_intersect"], **loop_launches("brute_intersect"),
-                              "cornell-mat GLB (8c)": p8["8c_cornell_mat_glb"]["launches"]["brute_intersect"]},
+                              "cornell-mat GLB (8c)": p8["8c_cornell_mat_glb"]["launches"]["brute_intersect"],
+                              **app_launches("brute_intersect")},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "brute_intersect"),
          "max_abs_err": max(r["max_abs_err"] for r in b1),
          "ms": rec_a["ms"], "plain_ms": rec_a["plain_ms"],
@@ -3082,7 +3393,8 @@ def main() -> int:
          "launches_by_path": {"spheres": launches_spheres["presort_keys"],
                               "atrium-ivy": launches_ivy["presort_keys"],
                               "atrium-inst": launches_inst["presort_keys"], **loop_launches("presort_keys"),
-                              "atrium-ivy GLB (8a)": l8a["presort_keys"], "atrium-inst GLB (8b)": l8b["presort_keys"]},
+                              "atrium-ivy GLB (8a)": l8a["presort_keys"], "atrium-inst GLB (8b)": l8b["presort_keys"],
+                              **app_launches("presort_keys", ())},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "presort_keys"),
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
          "ms": rec_ic["b2_ms"], "plain_ms": rec_ic["b2_plain_ms"],
@@ -3100,7 +3412,8 @@ def main() -> int:
                               "atrium-ivy": launches_ivy["fused_trace_modes"],
                               "atrium-inst": launches_inst["fused_trace_modes"], **loop_launches("fused_trace"),
                               "atrium-ivy GLB (8a)": l8a["fused_trace_modes"],
-                              "atrium-inst GLB (8b)": l8b["fused_trace_modes"]},
+                              "atrium-inst GLB (8b)": l8b["fused_trace_modes"],
+                              **app_launches("fused_trace_modes", ())},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "fused_trace"),
          "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]
                             + [rec_i["max_abs_err"], rec_la["max_abs_err"]]),
@@ -3128,7 +3441,8 @@ def main() -> int:
          "source": "yart_tpu_torch/csrc/shade.cu",
          "replaces": "yart_tpu/kernels/pallas_shade.py:168",
          "launches": fused["cornell-mat"][1]["shade"],
-         "launches_by_path": {k: {"shade": v[1]["shade"], "bounces": v[1]["bounces"]} for k, v in fused.items()},
+         "launches_by_path": {k: {"shade": v[1]["shade"], "bounces": v[1]["bounces"]} for k, v in fused.items()}
+         | app_launches("shade"),
          "max_abs_err": max(r["max_abs_err"] for r in b5),
          "ms": b5[0]["ms"], "plain_ms": b5[0]["plain_ms"],
          "bound_ms": b5[0]["bound_ms"], "bound_by": b5[0]["bound_by"], "library_ms": None,
@@ -3139,7 +3453,8 @@ def main() -> int:
          "source": "yart_tpu_torch/csrc/draws.cu",
          "replaces": "yart_tpu/kernels/pallas_shade.py:283",
          "launches": fused["cornell-mat"][1]["draws"],
-         "launches_by_path": {k: {"draws": v[1]["draws"], "bounces": v[1]["bounces"]} for k, v in fused.items()},
+         "launches_by_path": {k: {"draws": v[1]["draws"], "bounces": v[1]["bounces"]} for k, v in fused.items()}
+         | app_launches("draws"),
          "max_abs_err": max(r["max_abs_err"] for r in b6),
          "ms": rec_j["ms"], "plain_ms": rec_j["plain_ms"],
          "bound_ms": rec_j["bound_ms"], "bound_by": rec_j["bound_by"], "library_ms": None,

@@ -25,7 +25,11 @@ per-instance loop's kernel paths against their twin paths, the stack
 traversal against the gated brute, torch.argmin's first-minimum rule on the card,
 renders that go through them, and the differentiable path (cornell-mat
 forward + backward under each remat policy: B1 in every forward bounce and
-never in a backward pass, kernel path against twin path).
+never in a backward pass, kernel path against twin path); "pallas" renders
+with the samplers B6 does not draw (stratified, ZSobol's null, binary and
+exact Owen scramblers: B6 never launches, kernel path == twin path), a
+render over 2 gloo ranks on the one card bitwise to one process, and two
+NCCL ranks on one card refused by name.
 
 These tests need a CUDA GPU (sm_90a for the kernel build) and skip
 without one. They import no JAX, so they also run where JAX is absent:
@@ -1576,3 +1580,57 @@ def test_glb_render_kernel_path_equals_twin_path(dev, name, tmp_path):
         brute.brute_intersect, presort.presort_keys, fusedtrace.fused_trace = saved
     assert np.isfinite(img_k).all() and img_k.mean() > 0.01
     np.testing.assert_array_equal(img_k.view(np.int32), img_p.view(np.int32))
+
+
+# ---------------------------------------------------------------- samplers and ranks
+
+
+@pytest.mark.parametrize("kind", ["stratified", "zsobol:null", "zsobol:binary", "zsobol:owen"])
+def test_new_samplers_pallas_kernel_path_equals_twin_path(dev, kind, monkeypatch):
+    """cornell-mat, "pallas", with a sampler B6 does not draw: B6 launches
+    0 times, B1 and B5 once a bounce, and the image equals the twin path's
+    (B1's and B5's plain twins on the same CUDA tensors) bitwise."""
+    scene, meta = cornell_box(extra_materials=True).compile(dev)
+    cam = CameraConfig(image_size=(32, 32), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
+    cfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean", first_wave_samples=2,
+                       max_wave_samples=2, shade_kernel="pallas", sampler=kind)
+    for c in (brute.COUNTS, shade.COUNTS_SHADE, shade.COUNTS_DRAWS, integrator.BOUNCES):
+        c.reset()
+    img_k = Renderer(scene, meta, cam, cfg, device=dev).render()
+    bounces = integrator.BOUNCES.bounces
+    assert shade.COUNTS_DRAWS.launches == 0 and bounces > 0
+    assert shade.COUNTS_SHADE.launches == bounces and brute.COUNTS.launches >= bounces  # + the NEE casts
+    monkeypatch.setattr(brute, "brute_intersect", brute.brute_plain)
+    monkeypatch.setattr(shade, "shade", shade.shade_plain)
+    img_p = Renderer(scene, meta, cam, cfg, device=dev).render()
+    assert shade.COUNTS_SHADE.launches == bounces and shade.COUNTS_SHADE.plain_cuda > 0
+    assert np.isfinite(img_k.hdr).all() and img_k.hdr.mean() > 0
+    assert np.array_equal(img_k.hdr.view(np.int32), img_p.hdr.view(np.int32)) and img_k.total_rays == img_p.total_rays
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_process(dev, tmp_path):
+    import torch_dist_worker as W
+
+    from yart_tpu_torch.parallel import distributed
+
+    cfg = dict(samples=4, max_depth=4, first_wave_samples=2, max_wave_samples=4, tonemap="none",
+               shade_kernel="pallas")
+    _, one = W.render(cfg, devices=None, device=dev)
+    out = str(tmp_path / "r.npz")
+    distributed.spawn(W.render_rank, 2, (out, cfg, None, None, "cuda"), device="cuda", backend="gloo")
+    with np.load(out) as z:
+        assert np.array_equal(one.hdr.view(np.int32), z["hdr"].view(np.int32))
+        assert one.total_rays == float(z["rays"])
+
+
+def test_two_nccl_ranks_on_one_card_are_refused(dev):
+    from yart_tpu_torch.parallel import distributed
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a host with exactly one card")
+    msg = r"2 NCCL ranks on a host with 1 CUDA device.*backend='gloo'"
+    with pytest.raises(RuntimeError, match=msg):
+        distributed.spawn(print, 2, device="cuda", backend="nccl")
+    with pytest.raises(RuntimeError, match=msg):  # a rank refuses before it joins
+        distributed.init_distributed(f"tcp://127.0.0.1:{distributed.free_port()}", 2, 0, backend="nccl")
+    assert not distributed.is_initialized()

@@ -8,8 +8,9 @@ textured-box and instanced scenes through the renderer and the CLI
 brute, the instanced scene through B3's instanced mode), traces a few rays
 through bin-trace and the round-based block trace (plain and gated), parses the flagship scenes, writes
 the textured box as a GLB and an HDR environment with the port's writers and renders both through the
-CLI (its PNG textures decoded without PIL), and then checks that no module of `jax`, of the JAX package
-`yart_tpu` or of PIL was ever loaded."""
+CLI (its PNG textures decoded without PIL), renders over two CPU ranks through the CLI (`--devices 2
+--device cpu`, `parallel/`), imports the live view (`io/preview.py`), and then checks that no module of
+`jax`, of the JAX package `yart_tpu` or of PIL was ever loaded."""
 
 import os
 import subprocess
@@ -119,6 +120,14 @@ with tempfile.TemporaryDirectory() as tmp:
         assert main([scene, "--env-hdr", sky, "--env-scale", "0.5", "--device", "cpu", "--size", "4x4",
                      "--spp", "1", "--max-depth", "2", "--camera-pos", "0,1.6,3.2", "--quiet",
                      "-o", os.path.join(tmp, "g.png")]) == 0
+# Two CPU ranks on gloo through the CLI (parallel/ imports no JAX either),
+# and the live view's module.
+from yart_tpu_torch.io.preview import PreviewServer
+from yart_tpu_torch.parallel import distributed, sharding
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["cornell-mat", "--device", "cpu", "--devices", "2", "--size", "8x16", "--spp", "1",
+                 "--max-depth", "2", "--quiet", "-o", os.path.join(tmp, "r.png")]) == 0
+    assert os.path.exists(os.path.join(tmp, "r.png")) and not distributed.is_initialized()
 bad = sorted(m for m in sys.modules if m in ("jax", "yart_tpu", "PIL")
              or m.startswith(("jax.", "jaxlib", "yart_tpu.", "PIL.")))
 assert not bad, bad

@@ -85,11 +85,11 @@ def test_u32_helpers_bit_exact():
     np.testing.assert_array_equal(want, got)
 
 
-def test_make_sampler_refuses_unported_kinds():
+def test_make_sampler_builds_every_kind():
     assert isinstance(T.make_sampler("zsobol:fastowen", 4, (8, 8), device="cpu"), T.ZSobolSampler)
     assert isinstance(T.make_sampler("hash", 4, (8, 8), device="cpu"), T.HashSampler)
-    for kind in ("stratified", "zsobol:owen", "zsobol:null"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.make_sampler(kind, 4, (8, 8), device="cpu")
+    assert isinstance(T.make_sampler("stratified", 4, (8, 8), device="cpu"), T.StratifiedSampler)
+    for kind in ("zsobol:owen", "zsobol:null", "zsobol:binary"):
+        assert T.make_sampler(kind, 4, (8, 8), device="cpu").scrambler == kind.split(":")[1]
     with pytest.raises(ValueError):
         T.make_sampler("sobol", 4, (8, 8), device="cpu")

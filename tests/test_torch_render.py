@@ -7,6 +7,7 @@ stands in for it (the JAX package reproduces those images exactly on CPU,
 tests/test_golden.py)."""
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -248,8 +249,12 @@ def test_checkpoint_resume_equals_full_render(cornell_mat, tmp_path):
 def test_renderer_refusals(cornell_mat):
     _, _, ts, tm = cornell_mat
     cam, cfg = _golden_cfg(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # devices=2 renders over 2 ranks of a torch.distributed group, one
+    # process each: one process alone cannot (tests/test_torch_distributed.py).
+    with pytest.raises(ValueError, match="one rank of a group of 1.*--devices 2"):
         TR.Renderer(ts, tm, cam, cfg, devices=2, device="cpu")
+    for d in (None, 1, "all"):
+        assert TR.Renderer(ts, tm, cam, cfg, devices=d, device="cpu").n_devices == 1
     # A plain render ignores diff_geometry (it only acts in differentiable
     # mode), as the JAX Renderer does: the image is the one without it.
     cam8 = dataclasses.replace(cam, image_size=(8, 8))
@@ -257,8 +262,9 @@ def test_renderer_refusals(cornell_mat):
     np.testing.assert_array_equal(
         TR.Renderer(ts, tm, cam8, dataclasses.replace(cfg4, diff_geometry=True), device="cpu").render().hdr,
         TR.Renderer(ts, tm, cam8, cfg4, device="cpu").render().hdr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Renderer(ts, tm, cam, dataclasses.replace(cfg, sampler="stratified"), device="cpu")
+    # The stratified sampler renders (its draws: tests/test_torch_samplers.py).
+    strat = TR.Renderer(ts, tm, cam8, dataclasses.replace(cfg4, sampler="stratified"), device="cpu").render()
+    assert strat.samples_taken == 4 and np.isfinite(strat.hdr).all() and strat.hdr.mean() > 0
     # Instanced scenes past the block trace's cap, refused until the
     # per-instance loop was ported, render through it: the image equals the
     # block trace's within float noise, with the alpha gates on too (no
@@ -297,25 +303,117 @@ def test_cuda_device_without_gpu_fails_clearly(cornell_mat):
 
 
 @pytest.mark.parametrize(
-    "argv",
+    "argv,dest,value",
     [
-        ["cornell", "--devices", "2"],
-        ["cornell", "--distributed"],
-        ["cornell", "--serve", "8000"],
-        ["cornell", "--serve-host", "0.0.0.0"],
-        ["cornell", "--sampler", "stratified"],
-        ["cornell", "--sampler", "zsobol:owen"],
-        ["cornell", "--profile", "/tmp/x"],
-        ["cornell", "--preview", "p.png"],
-        ["cornell", "--config", "c.json"],
-        ["cornell", "--debug-nan"],
+        (["cornell", "--devices", "2"], "devices", 2),
+        (["cornell", "--distributed"], "distributed", True),
+        (["cornell", "--serve", "8000"], "serve", 8000),
+        (["cornell", "--serve-host", "0.0.0.0"], "serve_host", "0.0.0.0"),
+        (["cornell", "--sampler", "stratified"], "sampler", "stratified"),
+        (["cornell", "--sampler", "zsobol:owen"], "sampler", "zsobol:owen"),
+        (["cornell", "--profile", "/tmp/x"], "profile", "/tmp/x"),
+        (["cornell", "--preview", "p.png"], "preview", "p.png"),
+        (["cornell", "--devices", "all"], "devices", "all"),
+        (["cornell", "--debug-nan"], "debug_nan", True),
     ],
 )
-def test_cli_refuses_unported_scenes_and_flags(argv, capsys):
+def test_cli_parses_every_jax_flag(argv, dest, value):
+    """Every flag of the JAX CLI parses (none is refused any more)."""
+    assert getattr(cli.parse_args(argv), dest) == value
+
+
+@pytest.mark.parametrize("argv", [["cornell", "--sampler", "zsobol:fast"], ["cornell", "--devices", "0"],
+                                  ["cornell", "--devices", "two"], ["nosuchscene"]])
+def test_cli_rejects_bad_values(argv, capsys):
     with pytest.raises(SystemExit) as e:
         cli.parse_args(argv)
-    assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert e.value.code == 2 and ("invalid" in err or "no such file" in err)
+
+
+def _ckpt(path):
+    with np.load(path) as z:
+        return z["hdr"], int(z["samples_taken"]), int(z["seed"])
+
+
+def test_cli_config_defaults_and_explicit_flags_win(tmp_path):
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({"spp": 3, "size": "8x4", "seed": 5, "device": "cpu", "max-depth": 2,
+                               "--first-wave": 3, "quiet": True}))
+    ck = str(tmp_path / "ck.npz")
+    assert cli.main(["cornell", "--config", str(cfg), "--seed", "2", "-o", str(tmp_path / "o.png"),
+                     "--checkpoint", ck]) == 0
+    hdr, spp, seed = _ckpt(ck)
+    assert hdr.shape == (32, 3) and spp == 3 and seed == 2  # the file's spp and size; the flag's seed
+    args = cli.parse_args(["cornell", "--config", str(cfg), "--spp", "7"])
+    assert (args.spp, args.size, args.seed, args.device, args.max_depth) == (7, "8x4", 5, "cpu", 2)
+
+
+def test_cli_config_unknown_key_exits_2(tmp_path, capsys):
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps({"spp": 2, "bogus-flag": 1}))
+    with pytest.raises(SystemExit) as e:
+        cli.parse_args(["cornell", "--config", str(cfg)])
+    assert e.value.code == 2 and "unknown config key: bogus-flag" in capsys.readouterr().err
+
+
+def test_cli_preview_serve_profile_and_debug_nan(tmp_path, monkeypatch, capsys):
+    """--preview writes the PNG every wave, --serve serves the frame and
+    status over loopback while the render runs, --profile writes the
+    profiler's chrome trace, --debug-nan passes a clean render."""
+    import urllib.request
+
+    from yart_tpu_torch.io import preview
+    from yart_tpu_torch.io.png import decode_png
+
+    seen = []
+    update = preview.PreviewServer.update
+
+    def probe(self, img, wave_data=None, done=False):
+        update(self, img, wave_data, done)
+        get = [urllib.request.urlopen(f"http://127.0.0.1:{self.port}{p}", timeout=5).read()
+               for p in ("/status", "/frame.png")]
+        seen.append((json.loads(get[0]), get[1]))
+
+    monkeypatch.setattr(preview.PreviewServer, "update", probe)
+    prev, prof = tmp_path / "p.png", tmp_path / "prof"
+    assert cli.main(["cornell-mat", "--device", "cpu", "--size", "8x6", "--spp", "4", "--first-wave", "2",
+                     "--max-depth", "3", "-o", str(tmp_path / "o.png"), "--preview", str(prev), "--serve", "0",
+                     "--profile", str(prof), "--debug-nan"]) == 0
+    out = capsys.readouterr().out
+    assert "live view: http://127.0.0.1:" in out and "profile: " in out
+    assert [s["samples_taken"] for s, _ in seen] == [2, 4, 4] and seen[-1][0]["done"]
+    assert decode_png(seen[-1][1]).shape == (6, 8, 4)
+    assert decode_png(prev.read_bytes()).shape == (6, 8, 4)
+    trace = json.loads((prof / "trace.json").read_text())
+    assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
+
+
+def test_cli_debug_nan_raises_naming_wave_and_chunk(monkeypatch):
+    from yart_tpu_torch.render import renderer
+
+    monkeypatch.setattr(renderer, "estimate", lambda samples, *a: torch.full(
+        (samples.shape[0], 3), float("nan"), dtype=samples.dtype))
+    argv = ["cornell", "--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "2", "--quiet", "-o",
+            os.devnull + ".png"]
+    with pytest.raises(FloatingPointError, match=r"NaN in wave 0 \(1 spp\) chunk 0 of 1"):
+        cli.main(argv + ["--debug-nan"])
+
+
+def test_cli_devices_beyond_the_cards_exits_with_the_count(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="this host has 1 CUDA device"):
+        cli.main(["cornell", "--devices", "2", "--size", "4x4", "--spp", "1"])
+
+
+@pytest.mark.parametrize("sampler", ["stratified", "zsobol:null", "zsobol:binary", "zsobol:owen"])
+def test_cli_renders_every_sampler(tmp_path, sampler):
+    ck = str(tmp_path / "ck.npz")
+    assert cli.main(["cornell-mat", "--device", "cpu", "--size", "6x4", "--spp", "2", "--max-depth", "3",
+                     "--sampler", sampler, "--quiet", "-o", str(tmp_path / "o.png"), "--checkpoint", ck]) == 0
+    hdr, spp, _ = _ckpt(ck)
+    assert spp == 2 and np.isfinite(hdr).all() and hdr.mean() > 0
 
 
 def test_cli_renders_on_cpu(tmp_path, capsys):

@@ -22,9 +22,17 @@ scenes past the block trace's cap, so intersection refuses no scene
 (README.md), and scene files: glTF / GLB loading (`scene/gltf.py`, with
 its own PNG decoder `io/png.py`), GLB export (`io/glb_export.py`),
 Radiance HDR environments (`io/image.py`) and `tools/convert_hdri.py`.
-Entry points run on the card unless given `device="cpu"`. What is still
-missing (the preview, multi-GPU, other samplers) raises
-`NotImplementedError` or a CLI error naming its ROADMAP.md item.
+Then the application layer: multi-rank rendering over torch.distributed
+(`parallel/`: one process a card on NCCL, or CPU ranks on gloo;
+`Renderer(devices=...)`, the CLI's `--devices` and `--distributed`), the
+live view (`io/preview.py`), within-wave progress (`on_chunk`), NaN checks,
+profiler traces and JSON flag files, the stratified sampler and ZSobol's
+null, binary and exact Owen scramblers (`ops/qmc.py`) and `Dist2D`
+(`ops/distribution.py`). Entry points run on the card unless given
+`device="cpu"`. Nothing the JAX package runs is refused, apart from the
+divergences ROADMAP.md C records: glTF textures that are not PNG, and
+`shade_kernel="pallas"` with `regularize_specular` or in differentiable
+mode, which the JAX package refuses too.
 
 This package imports torch and nothing of jax or of `yart_tpu`; its
 configuration dataclasses (`config.py`) mirror `yart_tpu/config.py`.

@@ -56,10 +56,11 @@ class DrawSetup(NamedTuple):
 
 def sampler_draw_setup(sampler, lane_state, dim0: int):
     """B6's inputs for `sampler` at bounce dimension `dim0`, or None for a
-    sampler the kernel does not draw (none of the port's samplers yet:
-    ZSobol with FastOwen and hash are both drawn in-kernel)."""
+    sampler the kernel does not draw: B6 draws ZSobol with FastOwen and the
+    hash RNG; ZSobol's other scramblers and the stratified sampler draw
+    through the sampler itself (yart_tpu/kernels/pallas_shade.py:299-325)."""
     d = int(dim0)
-    if isinstance(sampler, qmc.ZSobolSampler):
+    if isinstance(sampler, qmc.ZSobolSampler) and sampler.scramble is qmc.scramble_fast_owen:
         pc, s1, s2a, s2b = sampler._perm_c, sampler._seed_1d, sampler._seed_2d_a, sampler._seed_2d_b
         # perm_c at (d0, +2, +3, +4, +5, +7); (seed_2d_a, seed_2d_b) at d0
         # and d0 + 5; seed_1d at (+2, +3, +4, +7)

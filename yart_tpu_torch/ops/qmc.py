@@ -1,4 +1,5 @@
-"""Counter-based samplers: ZSobol (+ FastOwen) and the hash RNG.
+"""Counter-based samplers: ZSobol (with its four scramblers), the
+stratified sampler and the hash RNG.
 
 Port of `yart_tpu/ops/qmc.py`. Every draw is a pure function of
 (pixel, sample, dimension), bit-exact with the JAX package.
@@ -9,7 +10,11 @@ sample key and pbrt's `mixBits`) are raw two's-complement int64 bit
 patterns. A wrapping int64 multiply gives exactly the low 64 bits of the
 unsigned product; right shifts are arithmetic on int64, so `_shr` masks
 them back to logical shifts. The JAX package's (hi, lo) u32-pair emulation
-is not needed.
+is not needed. The stratified sampler's lane state, a (pixel key, sample
+index) pair of u32 in the JAX package, is packed into one int64 as
+(pixel key << 32) | sample, so every consumer that gathers or carries a
+lane state (the staged compaction, the differentiable checkpoints) takes
+it as it takes the other samplers' single tensor.
 
 The dimension is a Python int here (the integrator's bounce loop runs on
 the host), so the per-dimension hash constants are looked up on the host
@@ -19,6 +24,7 @@ and never gathered on the device.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -157,6 +163,16 @@ def sobol_matrix_dim1() -> tuple:
     return tuple(v)
 
 
+def scramble_null(v: torch.Tensor, seed: int) -> torch.Tensor:
+    """No scrambling (scrambler.hpp:15-19)."""
+    return v
+
+
+def scramble_binary_permute(v: torch.Tensor, seed: int) -> torch.Tensor:
+    """Random binary digit permutation: v XOR seed (scrambler.hpp:21-29)."""
+    return v ^ seed
+
+
 def scramble_fast_owen(v: torch.Tensor, seed: int) -> torch.Tensor:
     """pbrt's hash-based Owen scrambling (scrambler.hpp:53-69); the
     reference default (src/main.cpp:16). `seed` is a host u32."""
@@ -167,6 +183,26 @@ def scramble_fast_owen(v: torch.Tensor, seed: int) -> torch.Tensor:
     v = v ^ ((v * 0x05526C56) & M32)
     v = v ^ ((v * 0x53A22864) & M32)
     return reverse_bits32(v)
+
+
+def scramble_owen_exact(v: torch.Tensor, seed: int) -> torch.Tensor:
+    """Exact bit-by-bit Owen scrambling (scrambler.hpp:71-87): bit 31 - b
+    flips with a hash of the b bits above it; slow, the correctness
+    oracle of the FastOwen approximation."""
+    out = v ^ (1 << 31) if seed & 1 else v
+    for b in range(1, 32):
+        mask = (M32 << (32 - b)) & M32
+        bit = (mix_bits64(out & mask) ^ seed) & (1 << b)
+        out = torch.where(bit != 0, out ^ (1 << (31 - b)), out)
+    return out
+
+
+SCRAMBLERS = {
+    "null": scramble_null,
+    "binary": scramble_binary_permute,
+    "fastowen": scramble_fast_owen,
+    "owen": scramble_owen_exact,
+}
 
 
 # The 24 permutations of 4 base-4 digits in pbrt's order (sampler.hpp:115-140);
@@ -206,10 +242,13 @@ class HashSampler:
 
 
 class ZSobolSampler:
-    """Z-ordered scrambled Sobol' sampler (sampler.hpp:72-174) with FastOwen
-    scrambling. Lane state is the 64-bit Morton sample key per lane."""
+    """Z-ordered scrambled Sobol' sampler (sampler.hpp:72-174); `scrambler`
+    is one of SCRAMBLERS (FastOwen by default, the reference's pick). Lane
+    state is the 64-bit Morton sample key per lane."""
 
-    def __init__(self, spp: int, full_res, seed: int = 0, *, device):
+    def __init__(self, spp: int, full_res, seed: int = 0, scrambler: str = "fastowen", *, device):
+        self.scrambler = scrambler
+        self.scramble = SCRAMBLERS[scrambler]
         spp = max(1, int(spp))
         self.log2spp = int(np.ceil(np.log2(spp)))
         res = int(max(full_res)) if np.iterable(full_res) else int(full_res)
@@ -267,7 +306,7 @@ class ZSobolSampler:
     def get1d(self, state, dim: int):
         idx = self._sample_index(state, int(dim))
         v = reverse_bits32(idx & M32)  # Sobol' dim 0 (sampler.hpp:144-145)
-        return u32_to_unit_float(scramble_fast_owen(v, self._seed_1d[int(dim)]))
+        return u32_to_unit_float(self.scramble(v, self._seed_1d[int(dim)]))
 
     def get2d(self, state, dim: int):
         dim = int(dim)
@@ -276,8 +315,8 @@ class ZSobolSampler:
         vb = torch.zeros_like(idx)
         for i, col in enumerate(self._matrix1):
             vb = vb ^ (((idx >> i) & 1) * col)
-        va = scramble_fast_owen(va, self._seed_2d_a[dim])
-        vb = scramble_fast_owen(vb, self._seed_2d_b[dim])
+        va = self.scramble(va, self._seed_2d_a[dim])
+        vb = self.scramble(vb, self._seed_2d_b[dim])
         return torch.stack([u32_to_unit_float(va), u32_to_unit_float(vb)], dim=-1)
 
     def lane_seed(self, state):
@@ -287,18 +326,106 @@ class ZSobolSampler:
         return mix32((state & M32) ^ mix32(_shr(state, 32) ^ 0xA511E9B3))
 
 
+def permutation_element(i: torch.Tensor, l: int, p: torch.Tensor) -> torch.Tensor:
+    """Kensler's hash-based random permutation of [0, l) (the reference's
+    `permel`, src/core/rng.hpp:102-132): element i of the permutation
+    keyed by p. `l` is a host int; i, p are u32 (int64) tensors. As in the
+    JAX package, rejection runs 8 extra rounds and then clamps, and the
+    final offset wraps in u32 before the modulo."""
+    w = l - 1
+    for sh in (1, 2, 4, 8, 16):
+        w |= w >> sh
+
+    def round_fn(i):
+        i = i ^ p
+        i = (i * 0xE170893D) & M32
+        i = i ^ (p >> 16)
+        i = i ^ ((i & w) >> 4)
+        i = i ^ (p >> 8)
+        i = (i * 0x0929EB3F) & M32
+        i = i ^ (p >> 23)
+        i = i ^ ((i & w) >> 1)
+        i = (i * (1 | (p >> 27))) & M32
+        i = (i * 0x6935FA69) & M32
+        i = i ^ ((i & w) >> 11)
+        i = (i * 0x74DCB303) & M32
+        i = i ^ ((i & w) >> 2)
+        i = (i * 0x9E501CC3) & M32
+        i = i ^ ((i & w) >> 2)
+        i = (i * 0xC860A3DF) & M32
+        i = i & w
+        return i ^ (i >> 5)
+
+    out = round_fn(i & M32)
+    for _ in range(8):
+        out = torch.where(out >= l, round_fn(out), out)
+    out = torch.clamp_max(out, l - 1)
+    return ((out + p) & M32) % l
+
+
+class StratifiedSampler:
+    """Counter-based stratified sampler (sampler.cpp:19-44 without the
+    xoshiro state): the stratum of (pixel, dim) is `permutation_element`
+    of the sample index keyed by hash(pixel, dim), the jitter inside it a
+    hash of (pixel, sample, dim). Lane state: (pixel key << 32) | sample
+    in one int64 (module doc)."""
+
+    def __init__(self, spp: int, full_res=(0, 0), seed: int = 0, *, device):
+        del full_res, device
+        n = max(1, int(spp))
+        self.x_samples = max(1, int(math.sqrt(n)))
+        self.y_samples = max(1, (n + self.x_samples - 1) // self.x_samples)
+        self.n_strata = self.x_samples * self.y_samples
+        self.seed = int(seed) & M32
+
+    def init_lanes(self, px, py, sample_idx):
+        px, py, s = (t.to(torch.int64) for t in (px, py, sample_idx))
+        pix_key = mix32(((px * 0x9E3779B9) & M32) ^ mix32(py ^ self.seed))
+        return (pix_key << 32) | (s & M32)
+
+    @staticmethod
+    def _unpack(state):
+        return _shr(state, 32), state & M32
+
+    def _stratum(self, state, dim: int):
+        pix_key, sidx = self._unpack(state)
+        key = mix32(pix_key ^ ((int(dim) * 0x85EBCA6B) & M32))
+        return permutation_element(sidx, self.n_strata, key)
+
+    def _jitter(self, state, dim: int, salt: int):
+        pix_key, sidx = self._unpack(state)
+        v = mix32(pix_key ^ ((sidx * 0xC2B2AE35) & M32) ^ ((int(dim) * 0x27D4EB2F) & M32) ^ salt)
+        return u32_to_unit_float(v)
+
+    def get1d(self, state, dim: int):
+        s = self._stratum(state, dim)
+        return (s.to(torch.float32) + self._jitter(state, dim, 0x1)) / self.n_strata
+
+    def get2d(self, state, dim: int):
+        s = self._stratum(state, dim)
+        x = (s % self.x_samples).to(torch.float32)
+        y = (s // self.x_samples).to(torch.float32)
+        return torch.stack([(x + self._jitter(state, dim, 0x2)) / self.x_samples,
+                            (y + self._jitter(state, dim, 0x3)) / self.y_samples], dim=-1)
+
+    def lane_seed(self, state):
+        """Per-lane u32 key for auxiliary draws (the alpha tests)."""
+        pix_key, sidx = self._unpack(state)
+        return mix32(pix_key ^ ((sidx * 0xA511E9B3) & M32))
+
+
 def make_sampler(kind: str, spp: int, full_res=(1, 1), seed: int = 0, *, device):
-    """Sampler factory for the kinds this port has: "zsobol" (FastOwen,
-    the reference default), "zsobol:fastowen" and "hash". `device` is the
-    caller's: there is no default."""
+    """Sampler factory: "zsobol" (FastOwen, the reference default,
+    src/main.cpp:16), "zsobol:<scrambler>" with a scrambler of SCRAMBLERS,
+    "stratified" and "hash". `device` is the caller's: there is no
+    default."""
     if kind == "hash":
         return HashSampler(spp, full_res, seed, device=device)
-    if kind in ("zsobol", "zsobol:fastowen"):
-        return ZSobolSampler(spp, full_res, seed, device=device)
-    if kind == "stratified" or kind.startswith("zsobol:"):
-        raise NotImplementedError(
-            f"sampler {kind!r} is not ported yet (ROADMAP.md A.2: qmc "
-            "scramblers null/binary/owen and the stratified sampler); use "
-            "zsobol or hash"
-        )
+    if kind == "stratified":
+        return StratifiedSampler(spp, full_res, seed, device=device)
+    if kind.startswith("zsobol"):
+        scrambler = kind.split(":", 1)[1] if ":" in kind else "fastowen"
+        if scrambler not in SCRAMBLERS:
+            raise ValueError(f"unknown sampler kind: {kind} (scramblers: {', '.join(SCRAMBLERS)})")
+        return ZSobolSampler(spp, full_res, seed, scrambler=scrambler, device=device)
     raise ValueError(f"unknown sampler kind: {kind}")

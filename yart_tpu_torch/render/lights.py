@@ -24,7 +24,7 @@ import torch
 
 from yart_tpu_torch.ops import warps
 from yart_tpu_torch.ops.distribution import ONE_MINUS_EPS, sample_alias_rows
-from yart_tpu_torch.ops.vecmath import inv_octahedral_uv, maximum, normalize, octahedral_uv
+from yart_tpu_torch.ops.vecmath import inv_octahedral_uv, mat3_rows, maximum, normalize, octahedral_uv
 from yart_tpu_torch.scene.types import CompiledScene, SceneMeta
 
 FOUR_PI = 4.0 * math.pi
@@ -91,7 +91,7 @@ def _env_fetch(scene: CompiledScene, meta: SceneMeta, uv):
 def env_le_pdf(scene: CompiledScene, d, meta: SceneMeta):
     """(radiance, solid-angle sampling pdf) of the env along world
     directions d [N, 3] (light.cpp:196-214), from one row fetch."""
-    uv = octahedral_uv(d @ scene.env_rotation.T)
+    uv = octahedral_uv(mat3_rows(scene.env_rotation.reshape(9), d))
     le, pdf_uv = _env_fetch(scene, meta, uv)
     if meta.env_portal:
         le = torch.where(_in_bounds(scene, uv)[..., None], le, 0.0)
@@ -182,7 +182,7 @@ def sample_light(scene: CompiledScene, meta: SceneMeta, p, uc, u, kind: str = "p
         iv = (cell // wc).to(torch.float32)
         jit2 = torch.clamp_max(u[:, 1], ONE_MINUS_EPS)
         uv = torch.stack([(iu + r) / wc, (iv + jit2) / hc], dim=-1)
-        wi_env = inv_octahedral_uv(uv) @ scene.env_rotation
+        wi_env = mat3_rows(scene.env_rotation.T.reshape(9), inv_octahedral_uv(uv))
         li_env, _ = _env_fetch(scene, meta, uv)
         pdf_env = pdf_uv / FOUR_PI
         pos_env = wi_env * 2.0 * scene.scene_radius

@@ -1,4 +1,4 @@
-"""Progressive wave renderer on one device.
+"""Progressive wave renderer on one device or over ranks.
 
 Port of `yart_tpu/render/renderer.py` (src/cpu/tile-renderer.hpp): the
 image is one dense wavefront of (pixel, sample) lanes cut into chunks of
@@ -9,8 +9,18 @@ per-depth live-lane counts and `choose_compaction` picks staged compaction
 for the later ones. A checkpoint (HDR + samples taken) is written
 atomically after every wave and resumed from.
 
+With `devices` ("all" or the group's size) the renderer is one rank of a
+torch.distributed group (`parallel/`): every chunk is split over the
+ranks, each renders its part on its own device with the replicated scene,
+the parts' estimates are all-gathered in chunk order and the ray and live
+counters summed, so every rank holds the whole image. Samplers are pure
+functions of (pixel, sample, dim) and no per-lane result depends on the
+lanes beside it, so the image and the ray count are bitwise those of one
+process. Rank 0 writes the checkpoint; every rank resumes from it.
+
 The JAX package pads the last chunk to a static shape; here the last chunk
-is simply shorter (lanes are independent, so the image is the same).
+is simply shorter (lanes are independent, so the image is the same), and
+no lane is rendered twice.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from yart_tpu_torch.config import CameraConfig, RenderConfig
 from yart_tpu_torch.device import resolve
 from yart_tpu_torch.ops.qmc import make_sampler
 from yart_tpu_torch.ops.tonemap import tonemap
+from yart_tpu_torch.parallel import distributed, sharding
 from yart_tpu_torch.render.camera import build_camera
 from yart_tpu_torch.render.estimator import estimate
 from yart_tpu_torch.render.integrator import render_wave
@@ -45,6 +56,22 @@ class WaveData:
     time: float
     compact: object = None  # None (off) or (split, factor) this wave ran with
     live: object = None  # per-depth live-lane counts (numpy)
+
+
+@dataclasses.dataclass
+class ChunkData:
+    """Within-wave progress payload, the tile-complete analog
+    (src/core/renderer.hpp:45-50, src/cpu/tile-renderer.hpp:243-262): one
+    per chunk of pixels, `rays` counted over the render so far."""
+
+    wave: int
+    wave_samples: int
+    chunk: int
+    n_chunks: int
+    lanes_done: int
+    lanes_total: int
+    rays: float
+    time: float
 
 
 @dataclasses.dataclass
@@ -95,17 +122,40 @@ def wave_plan(total: int, first: int, max_wave: int):
     return waves
 
 
+def group_size(devices) -> int:
+    """Ranks a Renderer with `devices` renders over: None, 0 and 1 mean
+    this process alone; "all" means every rank of the torch.distributed
+    group (this process alone without one); N > 1 must be the group's
+    size."""
+    if devices in (None, 0, 1, "1"):
+        return 1
+    if devices == "all":
+        return distributed.world_size()
+    n = int(devices)
+    if n != distributed.world_size():
+        raise ValueError(
+            f"devices={n}: this process is one rank of a group of {distributed.world_size()}. A render "
+            f"over {n} ranks runs in {n} processes joined by torch.distributed "
+            "(yart_tpu_torch.parallel.distributed.init_distributed), one a card: the CLI's "
+            f"--devices {n}, torchrun with --distributed, or parallel.distributed.spawn")
+    return n
+
+
 class Renderer:
     """Progressive renderer on one device (`device`: "cuda" by default,
-    "cuda:1", "cpu", ...); a CUDA device without a card raises."""
+    "cuda:1", "cpu", ...; a CUDA device without a card raises), or one
+    rank of a multi-rank render (`devices`: see `group_size`; module doc),
+    the rank's own device given as `device`. `debug_nan` raises
+    FloatingPointError, naming the wave and chunk, when a chunk's
+    estimate, ray count or live counts hold a NaN."""
 
     def __init__(self, scene: CompiledScene, meta: SceneMeta, cam_cfg: CameraConfig,
-                 cfg: RenderConfig = RenderConfig(), device="cuda", devices: int = 1):
-        if devices not in (None, 1):
-            raise NotImplementedError(
-                "multi-device rendering is not ported yet (ROADMAP.md A.10, "
-                "torch.distributed lane sharding)"
-            )
+                 cfg: RenderConfig = RenderConfig(), device="cuda", devices=None, debug_nan: bool = False):
+        self.n_devices = group_size(devices)
+        # Collectives whenever a group renders, even a group of one.
+        self.sharded = devices not in (None, 0, 1, "1") and distributed.is_initialized()
+        self.rank = distributed.rank() if self.sharded else 0
+        self.debug_nan = debug_nan
         self.device = resolve(device)
         self.scene = scene.to(self.device)
         self.meta = meta
@@ -135,21 +185,50 @@ class Renderer:
         )
         return estimate(radiance.reshape(p, k, 3), cfg.estimator, cfg.estimator_buckets), rays, live
 
+    def _chunk(self, k: int, compact, px, py, sample_base: int):
+        """The chunk's [P, 3] estimates, ray count and live counts: this
+        process's render, or the ranks' parts gathered and summed."""
+        if not self.sharded:
+            return self._wave(k, compact, px, py, sample_base)
+        n = px.shape[0]
+        s, e = sharding.rank_part(n, self.n_devices, self.rank)
+        if e > s:
+            est, rays, live = self._wave(k, compact, px[s:e], py[s:e], sample_base)
+        else:  # a rank past the chunk's last part renders nothing
+            est = torch.zeros((0, 3), dtype=torch.float32, device=self.device)
+            rays = torch.zeros((), dtype=torch.float64, device=self.device)
+            live = torch.zeros(self.cfg.max_depth, dtype=torch.float64, device=self.device)
+        return sharding.gather_rows(est, n), sharding.sum_ranks(rays), sharding.sum_ranks(live)
+
+    def _abort(self, should_abort) -> bool:
+        """`should_abort()`, agreed by every rank (true if any rank's is)."""
+        flag = should_abort is not None and bool(should_abort())
+        return sharding.any_rank(flag, self.device) if self.sharded else flag
+
     def render(
         self,
         on_wave: Optional[Callable[[WaveData, np.ndarray], None]] = None,
+        on_chunk: Optional[Callable[[ChunkData, Callable], None]] = None,
         chunk_pixels: Optional[int] = None,
         checkpoint: Optional[str] = None,
         max_waves: Optional[int] = None,
         should_abort: Optional[Callable[[], bool]] = None,
     ) -> RenderResult:
+        """Render progressively. `on_wave(wd, preview)` after every wave
+        with the tonemapped image; `on_chunk(cd, merged_hdr)` after every
+        chunk, `merged_hdr()` building the partial [H, W, 3] HDR image
+        (this wave merged over the chunks done, the earlier waves
+        elsewhere) for live previews; `checkpoint` resumes from and
+        saves to an .npz file; `should_abort` is polled before every wave
+        and chunk (a partial wave is discarded)."""
         cfg = self.cfg
         h, w = self.height, self.width
         n_pix = h * w
         fixed = chunk_pixels or cfg.lane_chunk
 
         def chunk_for(k: int) -> int:
-            # A lane budget of ~2^20 rays per chunk bounds device memory.
+            # A lane budget of ~2^20 rays per chunk bounds device memory;
+            # a rank renders a part of a chunk, never more.
             return min(fixed or max(1, (1 << 20) // max(k, 1)), n_pix)
 
         yy, xx = torch.meshgrid(
@@ -183,7 +262,7 @@ class Renderer:
         autotune = cfg.compact_depth == "auto"
         auto_static = (2, cfg.compact_factor) if self.meta.has_env else None
         for wave_i, k in enumerate(remaining):
-            if should_abort is not None and should_abort():
+            if self._abort(should_abort):
                 break
             override = self._compact_override
             if override is not None:
@@ -195,21 +274,42 @@ class Renderer:
             else:
                 effective = None
             chunk = chunk_for(k)
+            n_chunks = -(-n_pix // chunk)
             wave_img = torch.empty((n_pix, 3), dtype=torch.float32, device=self.device)
             wave_live = torch.zeros(cfg.max_depth, dtype=torch.float64, device=self.device)
             wave_rays = torch.zeros((), dtype=torch.float64, device=self.device)
+            lanes_done = 0
+
+            def merged_hdr():
+                # The partial image: this wave merged where its chunks have
+                # landed, the earlier waves' HDR elsewhere.
+                if samples_taken == 0:
+                    out = wave_img.clone()
+                else:
+                    out = hdr * (samples_taken / (samples_taken + k)) + wave_img * (k / (samples_taken + k))
+                out[lanes_done:] = hdr[lanes_done:]
+                return out.reshape(h, w, 3).cpu().numpy()
+
             aborted = False
             for ci, start in enumerate(range(0, n_pix, chunk)):
-                if ci > 0 and should_abort is not None and should_abort():
+                if ci > 0 and self._abort(should_abort):
                     aborted = True  # a partial wave is discarded
                     break
                 end = min(start + chunk, n_pix)
-                est, rays, live = self._wave(
-                    k, override, px_all[start:end], py_all[start:end], samples_taken
-                )
+                est, rays, live = self._chunk(k, override, px_all[start:end], py_all[start:end], samples_taken)
+                if self.debug_nan and bool(torch.isnan(est).any() | torch.isnan(rays) | torch.isnan(live).any()):
+                    raise FloatingPointError(
+                        f"NaN in wave {wave_i} ({k} spp) chunk {ci} of {n_chunks} (pixels {start}-{end}): "
+                        f"estimate {int(torch.isnan(est).any(dim=-1).sum())} pixels, rays {float(rays)}, "
+                        f"live {live.cpu().numpy()}")
                 wave_img[start:end] = est
                 wave_rays += rays
                 wave_live += live
+                lanes_done = end
+                if on_chunk is not None:
+                    on_chunk(ChunkData(wave=wave_i, wave_samples=k, chunk=ci, n_chunks=n_chunks, lanes_done=end,
+                                       lanes_total=n_pix, rays=total_rays + float(wave_rays),
+                                       time=time.time() - t0), merged_hdr)
             if aborted:
                 break
             total_rays += float(wave_rays)
@@ -226,7 +326,7 @@ class Renderer:
             hdr = hdr * w_cur + wave_img * w_new
             samples_taken += k
 
-            if checkpoint:
+            if checkpoint and self.rank == 0:
                 # Atomic: a kill mid-write never corrupts the resume state.
                 tmp = checkpoint + ".tmp.npz"
                 np.savez(tmp, hdr=hdr.cpu().numpy(), samples_taken=samples_taken,
