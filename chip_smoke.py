@@ -5,8 +5,10 @@
 Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no final "ok" line:
   1. device  — require CUDA; print the card's name and power limit.
-  2. build   — build every kernel of the render paths from csrc/ (nvcc),
-               one nvcc per source, all started together.
+  2. build   — build every kernel of the render paths from csrc/ (nvcc)
+               and the scene builder's host library from csrc/host/ (g++:
+               the binned-SAH BVH build and its BVH8 collapse), one
+               compiler per library, all started together.
   3. kernel  — B1 (brute-force intersection) against its plain PyTorch twin
                on the card, bitwise, at cornell-mat's triangles with 2^20
                camera rays and at a seeded 4096-triangle soup with 2^20
@@ -40,9 +42,16 @@ exits non-zero and prints no final "ok" line:
                lane order (a later bounce's rays, which a block's cull
                cannot thin). Each timed B2 record has two bounds
                (`b2_bounds`: over the work its inputs need, and over a
-               sweep of every box by every live ray).
+               sweep of every box by every live ray). The scene's
+               triangle BVH and BVH8 come from the host library
+               (`native_tree_check`: the tree built again and checked, its
+               leaf order a permutation, its leaves covering every
+               triangle once, every box the union of its children's, and
+               the compiled tables holding it; the builder's SAH build and
+               collapse seconds), and the same scene is built from the
+               numpy twins (their seconds; rendered beside it in 4f).
   3e. gated  — the gated re-cast loop (intersect_blocktrace_gated), kernel
-               path against twin path bitwise, on 2^14 atrium-ivy camera
+               path against twin path bitwise, on 2^16 atrium-ivy camera
                rays and on shadow rays from their hits (nee), with the
                active count of every cast.
   3j. kernel — B6 (the bounce's 8 sampler draws) against its twin (the
@@ -116,15 +125,17 @@ exits non-zero and prints no final "ok" line:
                renders; against "off" at _assert_images_equivalent's bar
                (tests/test_shade_kernel.py:209-222) at the 4 spp and depth
                4 where that test sets it, that bar's numbers at 16 spp,
-               depth 30.
+               depth 30. Then the numpy twins' atrium-ivy of 3d at the
+               same settings: its channel means within 2% of the
+               host-library build's render, and the share of pixels
+               equal bitwise.
   5. reference — the golden_v1 cornell_mat_64 and spheres_dof
                configurations: the kernel path's image must equal the
                plain-twin path's bitwise, and its per-channel mean must
                lie within 2% of the golden's; golden_v1 `textured` from the
                port-built textured_box_scene (gated brute, no kernel) within
-               2%; small atrium-ivy (16x16, depth 2), atrium-inst (16x16)
-               and dense-atrium (32x32) renders (2 spp, depth 4), kernel
-               path == twin path bitwise;
+               2%; small atrium-ivy, atrium-inst and dense-atrium (32x32)
+               renders (2 spp, depth 4), kernel path == twin path bitwise;
                atrium-inst against the baked atrium at
                64x64, 16 spp (channel means within 0.5%, >= 98% of pixels
                within rtol/atol 2e-2: tests/test_instancing.py's bar);
@@ -179,13 +190,14 @@ exits non-zero and prints no final "ok" line:
                average), the remat policies agree (radiance bitwise,
                gradients within GRAD_REL_TOL of the largest entry), and,
                in 6a, 6b and 6e, the kernel path agrees with the twin
-               path likewise (6b at 8x8, 4 spp, depth 3 and 6e at 16x16, 2 spp:
+               path likewise (6b at 8x8, 4 spp and 6e at 16x16, 2 spp:
                B2's and B3's twins are slow on the card).
   7. stack  — the stack traversals and the per-instance loop
                (`stack_phases`): 7a atrium(ivy=True, density=3) built on
                the host (1,103,508 triangles, 14,044 clusters: gated past
                the cap; BVH8 depth, groups, leaves at triangle >= 2^20,
-               the SAH build and BVH8 collapse seconds), 2^20 camera rays
+               the SAH build and BVH8 collapse seconds, the host library's
+               tree checked by `native_tree_check`), 2^20 camera rays
                from the CLI's camera and their sun shadow rays through
                `intersect_bvh_sorted` (after a warm-up cast of 2^17), with
                every count set to 0 just before: no kernel launch, the
@@ -201,7 +213,7 @@ exits non-zero and prints no final "ok" line:
                atrium(density=3, instanced=True) built on the host (95
                instances, 12,055 instance clusters), the per-instance
                loop's kernel path against its twin path bitwise on every
-               Hit field at 2^14 camera rays and their sun shadow rays
+               Hit field at 2^16 camera rays and their sun shadow rays
                (B1/B2/B3 launches a cast), and its render at 256x256, 4
                spp, depth 8 with channel means within 0.5% of the baked
                dense atrium's (phase 3h's scene, bin-trace) at the same
@@ -2049,7 +2061,7 @@ def fwdbwd_phases(dev, scenes: dict) -> dict:
     recs["6b"] = fwdbwd_case(
         "atrium_ivy_fwdbwd", sc, mt, cam("atrium-ivy", 128, 3.0), 4, dev,
         RenderConfig(samples=4, max_depth=6, rr_start_depth=99, compact_depth=4, compact_factor=2),
-        ("base_color", "tex_rgba"), ("presort_keys", "fused_trace.amask"), twin=(8, 4, 3))
+        ("base_color", "tex_rgba"), ("presort_keys", "fused_trace.amask"), twin=(8, 4))
     sc, mt = scenes["atrium"][:2]
     recs["6c"] = fwdbwd_case(
         "atrium_fwdbwd_rr", sc, mt, cam("atrium", 128, 3.0), 4, dev,
@@ -2104,6 +2116,63 @@ def timed_cast(scene, meta, o, d, t_max, **kw):
     ms = (time.perf_counter() - t0) * 1e3
     sc = stacktrace.COUNTS
     return h, ms, kernel_launches(), {"calls": sc.calls, "iters": list(sc.iters), "working_sets": list(sc.sets)}
+
+
+def native_tree_check(name, builder, scene) -> dict:
+    """The host library's tree of `builder`'s triangles (a scene without
+    instances), built again here and checked: its leaf order a
+    permutation, its leaves covering every triangle once (at most 4 each),
+    every box the exact union of its children's (a leaf's, of its
+    triangles'), and `scene` (compiled from `builder`) holding this tree
+    and its 8-wide collapse in `node_pack` / `wide_pack` and its leaf order
+    in `tri_v`. Raises AssertionError on the first check that fails."""
+    import numpy as np
+
+    from yart_tpu_torch import native
+
+    pos, tri = np.concatenate(builder._positions), np.concatenate(builder._tris)
+    v = [pos[tri[:, k]].astype(np.float32) for k in range(3)]
+    t0 = time.perf_counter()
+    hb = native.build_bvh(*v)
+    bvh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hb8 = native.collapse_bvh8(hb)
+    collapse_s = time.perf_counter() - t0
+    n = tri.shape[0]
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"{name}: the native tree fails: {what}")
+
+    check(np.array_equal(np.sort(hb.tri_order), np.arange(n)), "its leaf order is no permutation")
+    leaf = hb.count > 0
+    first, count = hb.left[leaf], hb.count[leaf]
+    o = np.argsort(first, kind="stable")
+    ends = first[o] + count[o]
+    check(count.max() <= 4 and first[o][0] == 0 and ends[-1] == n and np.array_equal(first[o][1:], ends[:-1]),
+          "its leaves do not cover every triangle once")
+    inner = np.nonzero(~leaf)[0]
+    lc, rc = hb.left[inner], hb.left[inner] + 1
+    check(np.array_equal(hb.node_min[inner], np.minimum(hb.node_min[lc], hb.node_min[rc]))
+          and np.array_equal(hb.node_max[inner], np.maximum(hb.node_max[lc], hb.node_max[rc])),
+          "a parent box is not the union of its children's")
+    lo = np.minimum(np.minimum(v[0], v[1]), v[2])[hb.tri_order]
+    hi = np.maximum(np.maximum(v[0], v[1]), v[2])[hb.tri_order]
+    li = np.nonzero(leaf)[0][o]
+    check(np.array_equal(hb.node_min[li], np.minimum.reduceat(lo, first[o]))
+          and np.array_equal(hb.node_max[li], np.maximum.reduceat(hi, first[o])),
+          "a leaf box is not the union of its triangles'")
+    bits = lambda a: np.ascontiguousarray(a, np.int32).view(np.float32)
+    node_pack = np.concatenate([hb.node_min, hb.node_max, bits(hb.left)[:, None], bits(hb.count)[:, None]], axis=1)
+    wide_pack = np.concatenate([hb8.boxes.reshape(-1, 48), bits(hb8.child).reshape(-1, 8)], axis=1)
+    for key, mine in (("node_pack", node_pack), ("wide_pack", wide_pack)):
+        check(np.array_equal(getattr(scene, key).cpu().numpy().view(np.int32), mine.view(np.int32)),
+              f"the compiled {key} is another tree")
+    check(np.array_equal(scene.tri_v.cpu().numpy(), tri[hb.tri_order].astype(np.int32)),
+          "the compiled triangles are in another order")
+    return {"n_tris": int(n), "nodes": int(hb.left.shape[0]), "leaves": int(leaf.sum()), "depth": hb.depth,
+            "bvh8_groups": int(hb8.child.shape[0]), "bvh8_depth": hb8.depth,
+            "rebuild_bvh_s": round(bvh_s, 4), "rebuild_collapse_s": round(collapse_s, 4)}
 
 
 def leaf_refs_past(wide_pack, first: int) -> int:
@@ -2199,6 +2268,8 @@ def stack_phases(dev, dense, dense_meta) -> dict:
     torch.cuda.synchronize()
     compile_s = time.time() - t0
     timings = builder.timings
+    emit({"phase": "native_build", "scene": "atrium(ivy=True, density=3)", "compile_s": round(compile_s, 3),
+          **timings, **native_tree_check("atrium(ivy=True, density=3)", builder, ivy3)})
     del builder
     past = leaf_refs_past(ivy3.wide_pack, 1 << 20)
     emit({"phase": "scene", "scene": "atrium(ivy=True, density=3)", "n_tris": ivy3_meta.n_tris,
@@ -2273,21 +2344,22 @@ def stack_phases(dev, dense, dense_meta) -> dict:
     inst3, inst3_meta = builder.compile(dev)
     torch.cuda.synchronize()
     compile_s = time.time() - t0
+    timings = builder.timings  # the prototypes' builds summed
     del builder
     emit({"phase": "scene", "scene": "atrium(density=3, instanced=True)", "n_tris": inst3_meta.n_tris,
           "n_instances": inst3_meta.n_instances, "n_prototypes": len(inst3.protos),
           "n_inst_clusters": inst3_meta.n_inst_clusters, "textures_and_meshes_s": round(author_s, 3),
-          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3)})
+          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3), **timings})
     if inst3_meta.n_inst_clusters <= blocktrace.MAX_CLUSTERS:
         raise AssertionError("the dense instanced atrium fits the block trace's cap")
     pos, target = CAMERAS["atrium-inst"]
     fwd = tuple(t - p for p, t in zip(pos, target))
-    # 2^14 rays (2^16 until the script came within 100 s of its limit: the
-    # twin paths took 21.9 and 26.6 s there).
-    o, d = camera_rays(CameraConfig(image_size=(128, 128), focal_length=35.0, position=pos, forward=fwd), dev)
+    # 2^16 rays (2^14 while the dense builds' numpy SAH held the script
+    # within 100 s of its limit).
+    o, d = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=pos, forward=fwd), dev)
     loop = {}
     hk = None
-    for case, nee in (("camera_2^14", False), ("sun_shadow_2^14", True)):
+    for case, nee in (("camera_2^16", False), ("sun_shadow_2^16", True)):
         if nee:
             o, d, t_max = shadow_rays(o, d, hk.t, hk.mask, SUN)
         else:
@@ -2928,6 +3000,7 @@ def main() -> int:
     from yart_tpu_torch.render import bintrace, blocktrace
     from yart_tpu_torch.scene.procedural import cornell_box, material_test_spheres, textured_box_scene
     from yart_tpu_torch.scene.showcase import atrium, instanced_leaves, roadster
+    from yart_tpu_torch.tools.build_times import numpy_twins
 
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -2944,7 +3017,8 @@ def main() -> int:
     t0 = time.time()
     compiled = build.build_all()
     emit({"phase": "build", "kernels": list(compiled), "compiled_now": compiled,
-          "seconds": round(time.time() - t0, 3), "ptxas": {k: build.ptxas_report(k) for k in compiled}})
+          "seconds": round(time.time() - t0, 3), "ptxas": {k: build.ptxas_report(k) for k in build.LIBRARIES},
+          "host_library": build.library_path("yartnative", build.HOST_LIBRARIES["yartnative"])})
 
     # ---- 3. B1 vs plain twin --------------------------------------------
     scene, meta = cornell_box(extra_materials=True).compile(dev)
@@ -3009,7 +3083,22 @@ def main() -> int:
     emit({"phase": "scene", "scene": "atrium-ivy", "n_tris": ivy_meta.n_tris,
           "n_clusters": ivy_meta.n_clusters, "any_alpha": ivy_meta.any_alpha,
           "any_transparent": ivy_meta.any_transparent, "textures_and_meshes_s": round(author_s, 3),
-          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3)})
+          "compile_s": round(compile_s, 3), "build_s": round(author_s + compile_s, 3), **ivy_builder.timings})
+    # The host library's tree checked, and the same scene from the numpy
+    # twins (rendered beside the native one in 4f).
+    rec_nat = {"phase": "native_build", "scene": "atrium-ivy", "compile_s": round(compile_s, 3),
+               **ivy_builder.timings, **native_tree_check("atrium-ivy", ivy_builder, ivy)}
+    twin_builder = atrium(ivy=True)
+    t0 = time.time()
+    with numpy_twins():
+        ivy_np, ivy_np_meta = twin_builder.compile(dev)
+    torch.cuda.synchronize()
+    rec_nat["numpy_twin"] = {"compile_s": round(time.time() - t0, 3), **twin_builder.timings,
+                             "nodes": int(ivy_np.node_pack.shape[0]), "bvh8_groups": int(ivy_np.wide_pack.shape[0]),
+                             "n_clusters": ivy_np_meta.n_clusters}
+    rec_nat["n_clusters"] = ivy_meta.n_clusters
+    emit(rec_nat)
+    del twin_builder
     ivy_pos, ivy_target = CAMERAS["atrium-ivy"]
     ivy_fwd = tuple(t - p for p, t in zip(ivy_pos, ivy_target))
     io, idr, iseed = camera_rays(CameraConfig(image_size=(side, side), focal_length=35.0, position=ivy_pos,
@@ -3025,17 +3114,16 @@ def main() -> int:
     del i_hit
 
     # ---- 3e. the gated re-cast loop: kernel path vs twin path ------------
-    # At 2^14 rays (2^16 until the script came within 100 s of its limit:
-    # the twin paths took 21.4 and 20.7 s there); the bin-trace case of 3i
-    # keeps 2^16 rays of its own.
-    go, gd, gseed = camera_rays(CameraConfig(image_size=(128, 128), focal_length=35.0, position=ivy_pos,
+    # At 2^16 rays (2^14 while the dense builds' numpy SAH held the script
+    # within 100 s of its limit; the twin paths take ~21 s each).
+    go, gd, gseed = camera_rays(CameraConfig(image_size=(256, 256), focal_length=35.0, position=ivy_pos,
                                              forward=ivy_fwd), dev, seeds=True)
     g_tmax = torch.full((go.shape[0],), 1e30, device=dev)
-    rec_g = compare_gated("atrium_ivy_camera_2^14", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
+    rec_g = compare_gated("atrium_ivy_camera_2^16", ivy, ivy_meta, go, gd, g_tmax, gseed, nee=False)
     emit({"phase": "gated", **rec_g})
     gh = blocktrace.intersect_blocktrace_gated(ivy, ivy_meta, go, gd, g_tmax, alpha_seed=gseed)
     sh_o, sh_d, sh_t = shadow_rays(go, gd, gh.t, gh.mask, SUN)
-    rec_gs = compare_gated("atrium_ivy_shadow_2^14", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
+    rec_gs = compare_gated("atrium_ivy_shadow_2^16", ivy, ivy_meta, sh_o, sh_d, sh_t, gseed ^ 0x6A09E667,
                            nee=True)
     emit({"phase": "gated", **rec_gs})
 
@@ -3086,14 +3174,16 @@ def main() -> int:
         raise AssertionError("the instanced gated loop took a single cast: nothing passed through")
 
     # ---- 3h. B4 at the dense atrium's and the bench scene's shapes ------
-    # Both bin-trace scenes build here on the host (the port's numpy SAH;
-    # about a minute and a half for the dense atrium).
+    # Both bin-trace scenes build here on the host (the host library's SAH
+    # build; the numpy twin's took about a minute and a half for the dense
+    # atrium).
     t0 = time.time()
     dense_builder = atrium(density=3)
     dense_author_s = time.time() - t0
     t0 = time.time()
     dense, dense_meta = dense_builder.compile(dev)
     dense_compile_s = time.time() - t0
+    dense_timings = dense_builder.timings
     del dense_builder
     dense_build_s = round(dense_author_s + dense_compile_s, 3)
     emit({"phase": "scene", "scene": "atrium(density=3)", "n_tris": dense_meta.n_tris,
@@ -3101,7 +3191,7 @@ def main() -> int:
           "coarse_depth": dense_meta.coarse_depth, "any_alpha": dense_meta.any_alpha,
           "any_transparent": dense_meta.any_transparent,
           "textures_and_meshes_s": round(dense_author_s, 3),
-          "compile_s": round(dense_compile_s, 3), "build_s": dense_build_s})
+          "compile_s": round(dense_compile_s, 3), "build_s": dense_build_s, **dense_timings})
     t0 = time.time()
     big16, big16_meta = big_scene(dev, cluster_size=16)
     emit({"phase": "scene", "scene": "bench bigscene (60 spheres), C = 16", "n_tris": big16_meta.n_tris,
@@ -3283,6 +3373,20 @@ def main() -> int:
                                  f"{rec['vs_off_4spp_depth4']}")
         fused[name] = (rec, lp)
         pallas_imgs[name] = img
+    # The numpy twins' atrium-ivy at 4f's settings beside the native-built
+    # one: another tree cuts other clusters, so the paths' float orders and
+    # the image's bits may part; the means must agree.
+    rec, lp_np, img_np = render_main_path("atrium-ivy (numpy twin build)", ivy_np, ivy_np_meta, ivy_cam, args.spp, dev,
+                                          shade_kernel="pallas")
+    img_nat = pallas_imgs["atrium-ivy"]
+    rec.update(phase="native_vs_numpy_build", native_hdr_mean=[float(x) for x in img_nat.mean(axis=(0, 1))],
+               bitwise_pixel_share=float((img_np.view(np.int32) == img_nat.view(np.int32)).all(axis=-1).mean()),
+               mean_rel=float(abs(img_np.mean() - img_nat.mean()) / img_nat.mean()),
+               native_wall_s=fused["atrium-ivy"][0]["wall_s"], native_rays=fused["atrium-ivy"][1]["rays"])
+    emit(rec)
+    if rec["mean_rel"] > SCENE_FILE_MEAN_RTOL:
+        raise AssertionError(f"atrium-ivy: the native-built render's mean is {rec['mean_rel']} off the numpy-built one's")
+    del ivy_np, img_np
 
     # ---- 5. reference checks --------------------------------------------
     gcam = CameraConfig(image_size=(64, 64), focal_length=28.0, position=(0, 1.0, 3.4), forward=(0, 0, -1))
@@ -3299,16 +3403,16 @@ def main() -> int:
     tcfg = RenderConfig(samples=16, max_depth=5, tonemap="none", estimator="mean",
                         first_wave_samples=16, max_wave_samples=16)
     emit(reference_check("textured_box", tb, tb_meta, tcam, tcfg, "textured", dev, twin=False))
-    # atrium-ivy at 16x16, depth 2 and atrium-inst at 16x16 (32x32, depth 4
-    # until the script came within 100 s of its limit): their twin paths
-    # (B3's plain amask and instanced twins) took 54.7 and 14.6 s there.
-    icam = CameraConfig(image_size=(16, 16), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0)
+    # atrium-ivy and atrium-inst at 32x32, depth 4 (16x16, the ivy at depth
+    # 2, while the dense builds' numpy SAH held the script within 100 s of
+    # its limit; their twin paths, B3's plain amask and instanced twins,
+    # took 54.7 and 14.6 s at this size).
+    icam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=ivy_pos, forward=ivy_fwd, exposure=3.0)
     icfg = RenderConfig(samples=2, max_depth=4, tonemap="none", estimator="mean",
                         first_wave_samples=2, max_wave_samples=2)
-    emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, RenderConfig(
-        samples=2, max_depth=2, tonemap="none", estimator="mean", first_wave_samples=2, max_wave_samples=2), None, dev))
+    emit(reference_check("atrium-ivy", ivy, ivy_meta, icam, icfg, None, dev))
 
-    acam = CameraConfig(image_size=(16, 16), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
+    acam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=inst_pos, forward=inst_fwd, exposure=3.0)
     emit(reference_check("atrium-inst", inst, inst_meta, acam, icfg, None, dev))
     dcam = CameraConfig(image_size=(32, 32), focal_length=35.0, position=dense_pos, forward=dense_fwd, exposure=3.0)
     emit(reference_check("atrium-dense", dense, dense_meta, dcam, icfg, None, dev))

@@ -1,9 +1,7 @@
 """The port's bin-trace against the JAX package's, on the CPU.
 
-JAX builds its scenes on its numpy BVH path (its native C++ build orders
-equal-cost splits differently; the port has none), and each JAX scene
-reaches the port through `from_numpy` unless a test builds it with the
-port's builder too.
+JAX builds its scenes on its numpy BVH path, and each JAX scene reaches
+the port through `from_numpy`.
 
 Checks and tolerances:
 - `collapse_bvh8` and `build_coarse` (wide_pack, depth, max_leaf, the

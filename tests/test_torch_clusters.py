@@ -3,9 +3,10 @@
 Both sides are numpy, so everything is compared exactly:
 - `build_bvh` (tree, leaf-order permutation), `cut_clusters`, the coarse
   cluster permutation and `woop_rows` on a seeded quad soup at C = 64;
-- `SceneBuilder.compile` against the JAX builder on its numpy SAH path
-  (the JAX builder prefers its native C++ build, which orders equal-cost
-  splits differently; the port has no native build): the permuted
+- `SceneBuilder.compile` against the JAX builder, both on their numpy
+  BVH build and BVH8 collapse (each builder prefers its native C++ build,
+  whose tree differs from the numpy one; tests/test_torch_native.py holds
+  the two native builds to each other): the permuted
   triangle rows, the cluster tables with their +3e38 pad boxes and the
   coarse BVH8 of bin-trace, the env
   tables and the scene bounds, bit for bit, on the `spheres` scene and on
@@ -18,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
 from test_bintrace import _random_mesh
+from torch_native_lib import numpy_twins
 from yart_tpu.scene import bvh as JB
 from yart_tpu.scene import clusters as JCl
 from yart_tpu.scene import procedural as JP
@@ -66,9 +67,8 @@ def test_clusters_equal_jax(soup, c):
 
 def _jax_numpy_compile(builder, monkeypatch, **kw):
     """The JAX builder on its numpy BVH path (native build and BVH8 collapse
-    switched off)."""
-    monkeypatch.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
-    monkeypatch.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
+    switched off), and the port's builder on its numpy twins from here on."""
+    numpy_twins(monkeypatch)
     js, jm = builder.compile(**kw)
     return jax.tree_util.tree_map(np.asarray, js), jm
 

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
+from torch_native_lib import numpy_twins
 from yart_tpu.config import CameraConfig as JCam
 from yart_tpu.config import RenderConfig as JCfg
 from yart_tpu.ops.qmc import make_sampler as j_make_sampler
@@ -168,10 +168,10 @@ def test_diff_geometry_forward_close_to_plain():
 @pytest.mark.parametrize("name", ["plane", "cornell-mat", "textured"])
 def test_builder_positions_and_tri_v_equal_jax(name, monkeypatch):
     """The builder's vertex table and leaf-ordered triangle ids, bit-equal
-    to the JAX builder's on its numpy BVH path (what `_refit_hit` gathers;
-    the JAX builder's native C++ build orders equal-cost splits otherwise,
+    to the JAX builder's, both on their numpy BVH build (what `_refit_hit`
+    gathers; the native builds' trees differ from it,
     tests/test_torch_clusters.py)."""
-    monkeypatch.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
+    numpy_twins(monkeypatch, collapse=False)
     jb, tb = {"plane": (plane_light_scene(JBuilder), plane_light_scene(SceneBuilder)),
               "cornell-mat": (j_cornell(extra_materials=True), cornell_box(extra_materials=True)),
               "textured": (j_textured(), textured_box_scene())}[name]

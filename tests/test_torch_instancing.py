@@ -1,7 +1,7 @@
 """The port's instancing against the JAX package, on the CPU.
 
-Scenes, each built by both builders from the same numpy inputs (the JAX
-builder on its numpy BVH path):
+Scenes, each built by both builders from the same numpy inputs (both on
+their numpy BVH paths):
 - `spheres`: tests/test_instancing.py's scene (a diffuse sphere prototype
   under a translation and under a rotation with non-uniform scale, an
   emissive instance, a baked floor under a uniform env) plus a textured,
@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
+from torch_native_lib import numpy_twins
 from test_torch_blocktrace import _check
 from yart_tpu.config import CameraConfig as JCam
 from yart_tpu.config import RenderConfig as JCfg
@@ -124,10 +124,9 @@ BUILDERS = {"spheres": _spheres, "leaves": lambda sb: TS.instanced_leaves(builde
 def _build(name):
     """(JAX scene as numpy leaves, JAX scene, JAX meta, port scene, port meta)."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
-        mp.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
+        numpy_twins(mp)
         js, jm = BUILDERS[name](JSB).compile()
-    ts, tm = BUILDERS[name](TSB).compile(device="cpu")
+        ts, tm = BUILDERS[name](TSB).compile(device="cpu")
     return jax.tree_util.tree_map(np.asarray, js), js, jm, ts, tm
 
 

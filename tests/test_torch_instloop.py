@@ -5,7 +5,7 @@ Scenes: tests/test_torch_instancing.py's `spheres` (ungated: B1's twin per
 prototype; an emissive and a textured, normal-mapped instance) and
 `leaves` (`showcase.instanced_leaves()`: alpha-tested leaf quads and a thin
 glass pane, so the prototypes take the gated brute), each built by both
-builders (the JAX builder on its numpy BVH build and BVH8 collapse).
+builders (both on their numpy BVH build and BVH8 collapse).
 
 - Every prototype's scene and meta (`protos`, `proto_metas`) bit-equal to
   the JAX builder's, the stack traversals' tables included, and sharing

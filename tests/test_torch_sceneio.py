@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
+from torch_native_lib import numpy_twins
 from yart_tpu.io import glb_export as JX
 from yart_tpu.io import image as JI
 from yart_tpu.scene import procedural as JP
@@ -438,12 +438,11 @@ def compare_tables(a, b, name="scene"):
 
 def compile_both(jb, tb):
     """(JAX scene as numpy leaves, JAX scene, JAX meta, port scene, port
-    meta); the JAX builder on its numpy BVH path, as the port's."""
+    meta); both builders on their numpy BVH paths."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
-        mp.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
+        numpy_twins(mp)
         js, jm = jb.compile()
-    ts, tm = tb.compile(device="cpu")
+        ts, tm = tb.compile(device="cpu")
     compare_tables(ts, jax.tree_util.tree_map(np.asarray, js))
     compare_tables(tm, jm, "meta")
     return js, jm, ts, tm

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 
 from test_torch_instancing import _build
-from test_torch_stacktrace import _ivy, numpy_path
+from test_torch_stacktrace import _ivy
+from torch_native_lib import numpy_twins
 from yart_tpu.config import CameraConfig as JCam
 from yart_tpu.config import RenderConfig as JCfg
 from yart_tpu.render.renderer import Renderer as JRenderer
@@ -45,9 +46,9 @@ def _compare(ts, tm, js, jm, cam):
 
 def test_gated_render_through_the_stack_traversal_matches_jax():
     with pytest.MonkeyPatch.context() as mp:
-        numpy_path(mp)
+        numpy_twins(mp)
         js, jm = _ivy(JSB).compile(cluster_size=64)
-    ts, tm = _ivy(TSB).compile(device="cpu", cluster_size=64)
+        ts, tm = _ivy(TSB).compile(device="cpu", cluster_size=64)
     assert tm.n_tris > 4096 and tm.any_alpha
     TS.COUNTS.reset()
     _compare(ts, dataclasses.replace(tm, n_clusters=TBT.MAX_CLUSTERS + 1), js, jm,

@@ -3,7 +3,7 @@ package, on the CPU.
 
 - Builder tables: `node_pack`, `wide_pack`, `max_leaf`, `bvh_depth`
   and `wide_depth` of a gated ivy of 4,202 triangles bit-equal to the JAX
-  builder's numpy path (its native BVH build and BVH8 collapse off).
+  builder's, both builders on their numpy BVH build and BVH8 collapse.
 - `intersect_bvh`, `intersect_bvh8` and `intersect_bvh_sorted` against
   their JAX counterparts on tests/test_blocktrace.py's textured box (alpha
   cutout, thin glass) with alpha seeds: closest hits, and shadow rays at a
@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
+from torch_native_lib import numpy_twins
 from yart_tpu.render import intersect as JI
 from yart_tpu.scene.builder import SceneBuilder as JSB
 from yart_tpu.scene.procedural import textured_box_scene as j_textured_box
@@ -60,13 +60,6 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def numpy_path(mp):
-    """Switch the JAX builder to its numpy BVH build and BVH8 collapse (the
-    native ones number the 8-wide groups otherwise)."""
-    mp.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
-    mp.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
 
 
 def _ivy(cls, q=2100):
@@ -95,9 +88,9 @@ def _ivy(cls, q=2100):
 @pytest.fixture(scope="module")
 def ivy():
     with pytest.MonkeyPatch.context() as mp:
-        numpy_path(mp)
+        numpy_twins(mp)
         js, jm = _ivy(JSB).compile(cluster_size=64)
-    ts, tm = _ivy(TSB).compile(device="cpu", cluster_size=64)
+        ts, tm = _ivy(TSB).compile(device="cpu", cluster_size=64)
     return jax.tree_util.tree_map(np.asarray, js), js, jm, ts, tm
 
 
@@ -107,7 +100,7 @@ def box():
     (alpha cutout and thin glass) carried across, and 512 seeded rays toward
     its panels."""
     with pytest.MonkeyPatch.context() as mp:
-        numpy_path(mp)
+        numpy_twins(mp)
         js, jm = j_textured_box().compile()
     ts, tm = from_numpy(jax.tree_util.tree_map(np.asarray, js), dataclasses.asdict(jm), device="cpu")
     rng = np.random.default_rng(9)

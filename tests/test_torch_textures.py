@@ -6,8 +6,8 @@ seeds against the JAX package, on the CPU.
   boundaries, lanes with idx = -1, and an empty stack; within 1e-6 (the
   bilinear weights are rounded in another order where XLA fuses them).
 - `SceneBuilder.compile` of `textured_box_scene()` and of
-  `atrium(ivy=True, tex_res=64)` against the JAX builder's numpy path, bit
-  for bit: the atlases, rect tables and quad rows of all four stacks, the
+  `atrium(ivy=True, tex_res=64)` against the JAX builder, both on their
+  numpy BVH paths, bit for bit: the atlases, rect tables and quad rows of all four stacks, the
   triangle and shading rows (uvs, tangents), and `clus_pack` with the
   alpha-mask words of row 5. The atrium's sky HDRI is the one exception:
   the JAX package normalises its directions with XLA's rsqrt, which is not
@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-import yart_tpu.native
+from torch_native_lib import numpy_twins
 from yart_tpu.ops import qmc as JQ
 from yart_tpu.render import bsdf as JB
 from yart_tpu.render import integrator as JI
@@ -93,16 +93,15 @@ def _bits_equal(a, b, msg):
 @pytest.fixture(scope="module", params=["textured_box", "atrium_ivy"])
 def scenes(request):
     """(JAX scene as numpy leaves, JAX meta, port scene, port meta), both
-    built by their own builders; the JAX builder on its numpy BVH path."""
+    built by their own builders, both on their numpy BVH paths."""
     if request.param == "textured_box":
         jb, tb = JP.textured_box_scene(), TP.textured_box_scene()
     else:
         jb, tb = JS.atrium(ivy=True, tex_res=64), TS.atrium(ivy=True, tex_res=64)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(yart_tpu.native, "build_bvh_native", lambda *a, **k: None)
-        mp.setattr(yart_tpu.native, "collapse_bvh8_native", lambda *a, **k: None)
+        numpy_twins(mp)
         js, jm = jb.compile()
-    ts, tm = tb.compile(device="cpu")
+        ts, tm = tb.compile(device="cpu")
     return request.param, jax.tree_util.tree_map(np.asarray, js), jm, ts, tm
 
 

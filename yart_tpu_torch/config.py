@@ -3,8 +3,9 @@
 The port keeps its own copies so that it depends on nothing of the JAX
 package. Every field has the name and default of its counterpart in
 `yart_tpu/config.py` (tests/test_torch_render.py holds them equal), so a
-configuration written for one package reads the same in the other. Only
-the knobs the port reads are here.
+configuration written for one package reads the same in the other. The
+knobs the port reads are here, and two it accepts and ignores
+(`RenderConfig.background`, `chunk_inflight`).
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ class RenderConfig:
     # Lanes with >= k prior near-specular scatters sample roughened lobes;
     # None = reference-parity behaviour.
     regularize_specular: Optional[int] = None
+    # Accepted and ignored, as in the JAX package, whose renderer does not
+    # read it either: the background is the scene's (SceneBuilder.set_background).
+    background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     first_wave_samples: int = 64
     max_wave_samples: int = 128
     tonemap: str = "agx"  # "agx" | "none"
@@ -56,6 +60,12 @@ class RenderConfig:
     compact_depth: object = "auto"  # "auto" | int | None
     compact_factor: int = 4
     lane_chunk: Optional[int] = None  # pixels per chunk; None = ~2^20 lanes
+    # Accepted and ignored. In the JAX package it bounds the pixel chunks
+    # in flight; the port's chunk loop queues every chunk on the device
+    # stream without a bound (a lone process syncs the host only for
+    # `on_chunk` or `debug_nan`, render/renderer.py), so it has no such
+    # count.
+    chunk_inflight: int = 2
     seed: int = 0
     # The bounce tail: "off" = the classic body; "xla" = the component-form
     # shade math (kernels/shade_math.py) in plain PyTorch; "pallas" = B6

@@ -1,11 +1,13 @@
-"""Build CUDA sources from `yart_tpu_torch/csrc/` and load them with ctypes.
+"""Build the sources of `yart_tpu_torch/csrc/` and load them with ctypes.
 
-Each library is compiled at first use with nvcc into
+Each library is compiled at first use into
 `build/yart_tpu_torch/<name>-<hash>/lib<name>.so` at the root of the
 checkout (`build/` is git-ignored), keyed by a hash of the sources and the
-flags, so a changed source rebuilds and an unchanged one loads from disk.
-The sources have a plain C interface and include no PyTorch headers, which
-keeps a build to seconds.
+flags, so a changed source rebuilds and an unchanged one loads from disk:
+the CUDA kernels (LIBRARIES) with nvcc, the host BVH builder
+(HOST_LIBRARIES, `yart_tpu_torch/native.py`) with g++. The sources have a
+plain C interface and include no PyTorch headers, which keeps a build to
+seconds.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ LIBRARIES = {
     "select_clusters": ("select_clusters.cu",),  # B7a, kernels/blocktrace.py
     "test_clusters": ("test_clusters.cu",),  # B7b, kernels/blocktrace.py
 }
+# Host libraries, built with g++: name -> its sources under csrc/.
+HOST_LIBRARIES = {
+    "yartnative": ("host/bvh_builder.cpp", "host/bvh8_collapse.cpp"),  # native.py
+}
 # Headers a library's sources include from csrc/: hashed with them, not compiled alone.
 HEADERS = {"shade": ("shade_lane.cuh",)}
 BUILD_ROOT = os.path.abspath(
@@ -46,6 +52,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills; kept beside the library
 )
+# No -march=native and no contraction of a*b + c into an FMA: the SAH
+# costs, bin indices and centroids then round alike on every x86-64 host,
+# so the tree and the triangle order cut from it do not depend on the
+# machine that builds the scene (the JAX package's `-O3 -march=native`
+# build contracts them, and its tree varies with the host).
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 
 @dataclasses.dataclass
 class Counts:
@@ -121,8 +133,20 @@ def nvcc_path() -> str:
     )
 
 
+def gxx_path() -> str:
+    """g++ from PATH; the host BVH builder needs it."""
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError(
+        "g++ not found on PATH: the scene builder's native BVH build "
+        "(yart_tpu_torch/csrc/host/) is compiled with g++ at first use"
+    )
+
+
 def library_path(name: str, sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = GXX_FLAGS if name in HOST_LIBRARIES else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in (*sources, *HEADERS.get(name, ())):
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(src.encode() + b"\0" + f.read())
@@ -130,10 +154,12 @@ def library_path(name: str, sources) -> str:
 
 
 def load(name: str) -> tuple:
-    """Build (if needed) and load library `name` of LIBRARIES. Returns
-    (ctypes.CDLL, built_now). nvcc runs outside the lock, so threads
-    loading different libraries build them at once."""
-    sources = LIBRARIES[name]
+    """Build (if needed) and load library `name` of LIBRARIES or
+    HOST_LIBRARIES. Returns (ctypes.CDLL, built_now). The compiler runs
+    outside the lock, so threads loading different libraries build them at
+    once."""
+    host = name in HOST_LIBRARIES
+    sources = HOST_LIBRARIES[name] if host else LIBRARIES[name]
     path = library_path(name, sources)
     with _lock:
         if path in _loaded:
@@ -143,16 +169,18 @@ def load(name: str) -> tuple:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(path))
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in sources]
+        compiler, flags = (gxx_path(), GXX_FLAGS) if host else (nvcc_path(), NVCC_FLAGS)
+        cmd = [compiler, *flags, "-o", tmp] + [os.path.join(CSRC, s) for s in sources]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed building {name} (exit {proc.returncode}):\n"
+                f"{os.path.basename(compiler)} failed building {name} (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
-        with open(os.path.join(os.path.dirname(path), "ptxas.txt"), "w") as f:
-            f.write(proc.stdout + proc.stderr)
+        if not host:
+            with open(os.path.join(os.path.dirname(path), "ptxas.txt"), "w") as f:
+                f.write(proc.stdout + proc.stderr)
         os.replace(tmp, path)  # atomic: a concurrent loader sees old or new
         built = True
     lib = ctypes.CDLL(path)
@@ -161,10 +189,11 @@ def load(name: str) -> tuple:
 
 
 def build_all() -> dict:
-    """Build and load every library of LIBRARIES, one nvcc per library, all
-    started together. Returns {name: compiled_now}."""
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        return dict(zip(LIBRARIES, pool.map(lambda name: load(name)[1], LIBRARIES)))
+    """Build and load every library of LIBRARIES and HOST_LIBRARIES, one
+    compiler per library, all started together. Returns {name: compiled_now}."""
+    names = (*LIBRARIES, *HOST_LIBRARIES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(lambda name: load(name)[1], names)))
 
 
 def occupancy(name: str, *args: int) -> int:

@@ -147,7 +147,16 @@ class Renderer:
     rank of a multi-rank render (`devices`: see `group_size`; module doc),
     the rank's own device given as `device`. `debug_nan` raises
     FloatingPointError, naming the wave and chunk, when a chunk's
-    estimate, ray count or live counts hold a NaN."""
+    estimate, ray count or live counts hold a NaN.
+
+    A chunk that the image's end cuts short (a ragged last chunk) renders
+    its real pixels only, so the ray and live counts, and the compaction
+    autotune that reads the live counts, cover exactly the image's lanes,
+    whatever `chunk_pixels` is. The JAX Renderer pads that chunk with
+    wrapped pixels and counts their lanes too
+    (yart_tpu/render/renderer.py:355-360, :384): at such sizes its ray
+    count, and so its Mrays/s, is larger than the port's. This divergence
+    is intended; the images are the same."""
 
     def __init__(self, scene: CompiledScene, meta: SceneMeta, cam_cfg: CameraConfig,
                  cfg: RenderConfig = RenderConfig(), device="cuda", devices=None, debug_nan: bool = False):

@@ -6,7 +6,7 @@ needs: materials, textures (`add_texture`, the shelf-packed atlases of
 area-weighted normals, uvs, tangents and a transform (:169-223),
 `add_material_desc` (:154-156), background, the
 environment light (`set_env`, `set_env_uniform`, `_compile_env`,
-:280-371) and `compile()`: the numpy SAH BVH and its leaf-order triangle
+:280-371) and `compile()`: the SAH BVH and its leaf-order triangle
 permutation (:389-399), the area-light table (:401-451), scene center and
 radius (:453-457), the packed `tri_pack` / `shade_pack` rows (:481-492),
 the cluster tables `clus_pack` (with the alpha-mask words of row 5 when a
@@ -18,10 +18,13 @@ with `max_leaf`, `bvh_depth` and `wide_depth` (:470-480, :493-499,
 `add_prototype`, `add_instance` and `_compile_instanced` (:225-278,
 :644-1020), with one scene and meta per prototype (`protos`,
 `proto_metas`) sharing the instanced scene's material table and atlases.
-Pure numpy on the host, then tensors: the machine with the GPU has no JAX,
-so the port builds its own scenes.
-
-Not ported: the native C++ BVH build and collapse.
+Numpy on the host, then tensors: the machine with the GPU has no JAX, so
+the port builds its own scenes. The triangle BVH and its 8-wide collapse
+come from the port's C++ build (`yart_tpu_torch/native.py`), as the JAX
+builder's come from its native one; the numpy `scene/bvh.py` functions are
+their twins (a test selects them by replacing `native.build_bvh` /
+`native.collapse_bvh8`). The coarse BVH over the clusters stays numpy, as
+in the JAX builder.
 """
 
 from __future__ import annotations
@@ -33,11 +36,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from yart_tpu_torch import native
 from yart_tpu_torch.device import resolve
 from yart_tpu_torch.ops.distribution import build_alias
 from yart_tpu_torch.render.texture import qrows_from_data
 from yart_tpu_torch.scene.alphamask import bake_tri_masks, write_mask_rows
-from yart_tpu_torch.scene.bvh import build_bvh, collapse_bvh8
 from yart_tpu_torch.scene.clusters import build_coarse, cut_clusters, woop_rows
 from yart_tpu_torch.scene.types import (LOOKS, CompiledScene, InstancedScene, MaterialTable,
                                         SceneMeta, TextureStack)
@@ -326,7 +329,7 @@ class SceneBuilder:
 
         # Triangles in BVH leaf order: every cluster is a contiguous range.
         t0 = time.perf_counter()
-        hb = build_bvh(v0, v1, v2)
+        hb = native.build_bvh(v0, v1, v2)
         bvh_s = time.perf_counter() - t0
         tri_v = tri_v[hb.tri_order]
         tri_mat = tri_mat[hb.tri_order]
@@ -393,7 +396,7 @@ class SceneBuilder:
             [hb.node_min, hb.node_max, bits(hb.left)[:, None], bits(hb.count)[:, None]], axis=1
         ).astype(np.float32)
         t0 = time.perf_counter()
-        hb8 = collapse_bvh8(hb)
+        hb8 = native.collapse_bvh8(hb)
         collapse_s = time.perf_counter() - t0
         wide_pack = np.concatenate([hb8.boxes.reshape(-1, 48), bits(hb8.child).reshape(-1, 8)],
                                    axis=1).astype(np.float32)
@@ -564,6 +567,8 @@ class SceneBuilder:
                         uvs=pr["uvs"], tangents=pr["tangents"])
             geo.append(sb._tables(cluster_size))
             nested.append(sb)
+        # The prototypes' builds summed: an instanced scene's host build.
+        self.timings = {k: sum(sb.timings[k] for sb in nested) for k in ("bvh_s", "collapse_s", "tables_s")}
 
         mats = self._materials
         inst_proto = tuple(int(p) for p, _ in self._instances)

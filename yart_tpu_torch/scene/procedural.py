@@ -1,8 +1,8 @@
 """Procedural scenes; port of `yart_tpu/scene/procedural.py` `cornell_box`,
 `box_mesh`, `_quad`, `uv_sphere`, `furnace`, `material_test_spheres` (the
-reference's main.cpp setups, src/main.cpp:20-77) and the textured fixture
-`textured_box_scene` (:239-304). The flagship scenes are in
-scene/showcase.py.
+reference's main.cpp setups, src/main.cpp:20-77), `windowed_interior`
+(:82-113) and the textured fixture `textured_box_scene` (:239-304). The
+flagship scenes are in scene/showcase.py.
 """
 
 from __future__ import annotations
@@ -62,6 +62,38 @@ def cornell_box(extra_materials: bool = False) -> SceneBuilder:
     else:
         b.add_mesh(*box_mesh([-0.35, 0.0, -0.35], [0.25, 1.2, 0.25], rot_y=0.3), white)
         b.add_mesh(*box_mesh([0.4, 0.0, 0.35], [0.25, 0.5, 0.25], rot_y=-0.25), white)
+    return b
+
+
+def windowed_interior(window_half: float = 0.25) -> SceneBuilder:
+    """A closed room lit only through a small window onto an env light:
+    env-lit but mostly enclosed, as Sponza is. The static compaction guess
+    for env-lit scenes ("auto" = split at 2) loses here (few lanes escape
+    within 2 bounces), and the renderer's per-wave autotune
+    (`choose_compaction`) must measure its way off it. The back wall
+    (z = -1) has a centred square hole of half-size `window_half`, built
+    from 4 border quads."""
+    b = SceneBuilder()
+    white = b.add_material(base_color=(0.73, 0.73, 0.73, 1.0), roughness=1.0)
+    s, w = 1.0, float(window_half)
+    cy = 1.0  # window centre height
+    quads = [
+        # floor, ceiling, left, right
+        _quad([-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]),
+        _quad([-s, 2, s], [s, 2, s], [s, 2, -s], [-s, 2, -s]),
+        _quad([-s, 0, s], [-s, 2, s], [-s, 2, -s], [-s, 0, -s]),
+        _quad([s, 0, -s], [s, 2, -s], [s, 2, s], [s, 0, s]),
+        # the front wall behind the camera (z = +1) closes the room
+        _quad([s, 0, s], [s, 2, s], [-s, 2, s], [-s, 0, s]),
+        # the back wall's borders around the window
+        _quad([-s, 0, -s], [-s, cy - w, -s], [s, cy - w, -s], [s, 0, -s]),
+        _quad([-s, cy + w, -s], [-s, 2, -s], [s, 2, -s], [s, cy + w, -s]),
+        _quad([-s, cy - w, -s], [-s, cy + w, -s], [-w, cy + w, -s], [-w, cy - w, -s]),
+        _quad([w, cy - w, -s], [w, cy + w, -s], [s, cy + w, -s], [s, cy - w, -s]),
+    ]
+    for verts, idx in quads:
+        b.add_mesh(verts, idx, white)
+    b.set_env(np.full((8, 8, 3), 2.0, np.float32))
     return b
 
 
