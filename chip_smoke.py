@@ -6,9 +6,10 @@ Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no final "ok" line:
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — build every kernel of the render paths from csrc/ (nvcc)
-               and the scene builder's host library from csrc/host/ (g++:
-               the binned-SAH BVH build and its BVH8 collapse), one
-               compiler per library, all started together.
+               and the host libraries from csrc/host/ (g++: the scene
+               builder's binned-SAH BVH build and its BVH8 collapse, the
+               JPEG decoder's scan decoder), one compiler per library, all
+               started together.
   3. kernel  — B1 (brute-force intersection) against its plain PyTorch twin
                on the card, bitwise, at cornell-mat's triangles with 2^20
                camera rays and at a seeded 4096-triangle soup with 2^20
@@ -238,7 +239,16 @@ exits non-zero and prints no final "ok" line:
                kernel path == twin path bitwise at 2 spp on the GLB scenes
                of 8a (16x16, depth 2), 8b (16x16, depth 4) and cornell-mat
                (B1; 32x32, depth 4); the host seconds of decoding a
-               2048x2048 RGBA PNG with every row Paeth-filtered.
+               2048x2048 RGBA PNG with every row Paeth-filtered; 8d
+               (after 8a) every JPEG fixture of tests/data/jpeg decoded
+               by `io/jpeg.py` (its C++ scan decoder built with g++) to
+               the SHA-256 of PIL's decode in the manifest, PIL never
+               imported, and the host seconds of each; 8a's GLB with the
+               eight opaque atrium textures swapped for their JPEG
+               fixtures (the ivy leaf stays PNG) through the CLI at 8a's
+               settings: B2, B3 `amask`, B5 and B6 (once a bounce), means
+               within 2% of 8a's; the host seconds of the decoder's numpy
+               stages on a 2048x2048 4:2:0 image.
   9. application layer — (`app_layer_phases`, after phase 8) 9a
                atrium-ivy at 512x512, `--spp`, depth 30, +3 EV, "pallas"
                over two ranks spawned on the one card with backend gloo,
@@ -2414,8 +2424,6 @@ def export_glb_instanced(builder, path: str) -> dict:
     them (it flattens instances). Returns export_glb's counts and the
     instance nodes."""
     import copy
-    import json
-    import struct
 
     import numpy as np
 
@@ -2424,11 +2432,8 @@ def export_glb_instanced(builder, path: str) -> dict:
     base = copy.copy(builder)
     base._instances = []
     stats = export_glb(base, path)
-    with open(path, "rb") as f:
-        raw = f.read()
-    (js_len,) = struct.unpack_from("<I", raw, 12)
-    doc = json.loads(raw[20 : 20 + js_len])
-    blob = bytearray(raw[28 + js_len :])
+    doc, blob = read_glb(path)
+    blob = bytearray(blob)
 
     def add_accessor(arr, ctype: int, atype: str, target: int, minmax: bool = False) -> int:
         blob.extend(b"\x00" * ((-len(blob)) % 4))
@@ -2457,15 +2462,8 @@ def export_glb_instanced(builder, path: str) -> dict:
             proto_mesh[pid] = len(doc["meshes"]) - 1
         doc["nodes"].append({"mesh": proto_mesh[pid], "matrix": [float(x) for x in np.asarray(mtx).T.reshape(-1)]})
         doc["scenes"][0]["nodes"].append(len(doc["nodes"]) - 1)
-    blob.extend(b"\x00" * ((-len(blob)) % 4))
-    doc["buffers"] = [{"byteLength": len(blob)}]
-    js = json.dumps(doc, separators=(",", ":")).encode()
-    js += b" " * ((-len(js)) % 4)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob)))
-        f.write(struct.pack("<I", len(js)) + b"JSON" + js + struct.pack("<I", len(blob)) + b"BIN\x00" + bytes(blob))
     return dict(stats, proto_meshes=len(proto_mesh), instance_nodes=len(builder._instances),
-                bytes=28 + len(js) + len(blob))
+                bytes=write_glb(path, doc, blob))
 
 
 @contextlib.contextmanager
@@ -2609,6 +2607,148 @@ def png_decode_case(side: int = 2048) -> dict:
             "decode_s": [round(s, 3) for s in secs]}
 
 
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+
+
+def jpeg_manifest() -> dict:
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def read_glb(path: str) -> tuple:
+    """(JSON document, BIN chunk bytes) of a GLB file."""
+    import struct
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    (js_len,) = struct.unpack_from("<I", raw, 12)
+    (bin_len,) = struct.unpack_from("<I", raw, 20 + js_len)
+    return json.loads(raw[20 : 20 + js_len]), raw[28 + js_len : 28 + js_len + bin_len]
+
+
+def write_glb(path: str, doc: dict, blob) -> int:
+    """Write a GLB of `doc` and its BIN chunk `blob` (padded to 4 bytes,
+    the one buffer's byteLength set); returns the file's size."""
+    import struct
+
+    blob = bytes(blob) + b"\0" * (-len(blob) % 4)
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc, separators=(",", ":")).encode()
+    js += b" " * (-len(js) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<I", len(js)) + b"JSON" + js + struct.pack("<I", len(blob)) + b"BIN\x00" + blob)
+    return 28 + len(js) + len(blob)
+
+
+def glb_image_bytes(doc: dict, blob: bytes, i: int) -> bytes:
+    view = doc["bufferViews"][doc["images"][i]["bufferView"]]
+    start = view.get("byteOffset", 0)
+    return blob[start : start + view["byteLength"]]
+
+
+def glb_swap_images(src: str, dst: str, swap: dict) -> int:
+    """Copy GLB `src` to `dst` with image i's bytes replaced by swap[i]
+    (JPEG, mimeType image/jpeg); every bufferView is laid out anew,
+    4-byte aligned, in its order. Returns the new file's size."""
+    doc, blob = read_glb(src)
+    new = {doc["images"][i]["bufferView"]: data for i, data in swap.items()}
+    for i in swap:
+        doc["images"][i]["mimeType"] = "image/jpeg"
+    parts, off = [], 0
+    for k, view in enumerate(doc["bufferViews"]):
+        start = view.get("byteOffset", 0)
+        data = new.get(k, blob[start : start + view["byteLength"]])
+        parts.append(b"\0" * (-off % 4))
+        off += -off % 4
+        view["byteOffset"], view["byteLength"] = off, len(data)
+        parts.append(data)
+        off += len(data)
+    return write_glb(dst, doc, b"".join(parts))
+
+
+def atrium_jpeg_swaps(glb: str) -> dict:
+    """{image index: fixture bytes} for the images of GLB `glb` that an
+    atrium fixture of tests/data/jpeg replaces (the manifest's SHA-256 of
+    the pixels of the PNG it was encoded from)."""
+    import hashlib
+
+    from yart_tpu_torch.io.png import decode_png
+
+    doc, blob = read_glb(glb)
+    by_png = {e["replaces_png_rgba_sha256"]: name for name, e in jpeg_manifest()["files"].items()
+              if "replaces_png_rgba_sha256" in e}
+    out = {}
+    for i in range(len(doc.get("images", []))):
+        name = by_png.get(hashlib.sha256(decode_png(glb_image_bytes(doc, blob, i)).tobytes()).hexdigest())
+        if name is not None:
+            with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+                out[i] = f.read()
+    return out
+
+
+def jpeg_fixture_case() -> dict:
+    """Every JPEG fixture decoded by io/jpeg.py on this host and hashed
+    against the manifest PIL wrote; the host seconds of each (the first
+    decode also builds the scan decoder with g++) and of all of them."""
+    import hashlib
+    import importlib.util
+
+    from yart_tpu_torch.io.jpeg import _library, decode_jpeg
+
+    t0 = time.time()
+    _library()
+    build_s = time.time() - t0
+    files = jpeg_manifest()["files"]
+    secs, bad = {}, []
+    for name in sorted(files):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        t0 = time.time()
+        rgba = decode_jpeg(data)
+        secs[name] = round(time.time() - t0, 4)
+        if list(rgba.shape) != files[name]["shape"] or \
+                hashlib.sha256(rgba.tobytes()).hexdigest() != files[name]["rgba_sha256"]:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"8d: io/jpeg.py decodes {bad} otherwise than the manifest's PIL decode")
+    if any(m == "PIL" or m.startswith("PIL.") for m in sys.modules):
+        raise AssertionError("8d: PIL was imported")
+    atrium = {k: v for k, v in secs.items() if k.startswith("atrium_")}
+    return {"phase": "scene_file", "case": "8d_jpeg_fixtures", "files": len(secs), "all_match_manifest": True,
+            "pil_importable": importlib.util.find_spec("PIL") is not None, "library_load_s": round(build_s, 3),
+            "decode_s": secs, "decode_all_s": round(sum(secs.values()), 4),
+            "decode_atrium_textures_s": round(sum(atrium.values()), 4)}
+
+
+def jpeg_stage_case(side: int = 2048) -> dict:
+    """Host seconds of io/jpeg.py's numpy stages (the islow IDCT, h2v2
+    fancy upsampling and the YCbCr tables) on the coefficient planes of a
+    side x side 4:2:0 image (random, within the normal range)."""
+    import numpy as np
+
+    from yart_tpu_torch.io.jpeg import component_samples, ycc_to_rgb
+
+    rng = np.random.default_rng(0)
+    q = rng.integers(1, 12, 64)
+    planes = []
+    for n in (side // 8, side // 16, side // 16):
+        c = np.zeros((n, n, 64), np.int16)
+        c[..., 0] = rng.integers(-600, 600, (n, n))
+        c[..., 1:10] = rng.integers(-20, 20, (n, n, 9))
+        planes.append(c)
+    secs = []
+    for _ in range(2):
+        t0 = time.time()
+        rgb = ycc_to_rgb(*(component_samples(c, q, 8 * c.shape[0], 8 * c.shape[1], side // (8 * c.shape[1]),
+                                             side // (8 * c.shape[0])) for c in planes))
+        secs.append(time.time() - t0)
+    if rgb.shape != (side, side, 3):
+        raise AssertionError(f"jpeg stages gave {rgb.shape}")
+    return {"phase": "scene_file", "case": f"jpeg_numpy_stages_{side}x{side}_420",
+            "seconds": [round(s, 3) for s in secs]}
+
+
 def scene_file_phases(dev, spp: int, ivy_builder, ivy_pallas_img, inst_builder, inst, inst_meta,
                       cornell_builder, side_a: int = 512, side_b: int = 128) -> dict:
     """Phase 8: scenes written with the port's exporters to a temporary
@@ -2623,8 +2763,13 @@ def scene_file_phases(dev, spp: int, ivy_builder, ivy_pallas_img, inst_builder, 
     procedural atrium-inst at the same settings; 8c kernel path == twin
     path bitwise at 2 spp on the GLB scenes of 8a (16x16, depth 2), 8b
     (16x16, depth 4) and cornell-mat (B1; 32x32, depth 4); the host
-    seconds of a 2048x2048 Paeth PNG decode.
-    Emits each record; returns them."""
+    seconds of a 2048x2048 Paeth PNG decode; 8d (after 8a) every JPEG
+    fixture of tests/data/jpeg decoded by io/jpeg.py to the manifest's
+    hash, with the host seconds of each, then 8a's GLB with its eight
+    opaque textures swapped for the atrium fixtures rendered at 8a's
+    settings (B2, B3 amask, B5 = B6 = bounces; means within 2% of 8a's),
+    and the host seconds of io/jpeg.py's numpy stages on a 2048x2048 4:2:0
+    image. Emits each record; returns them."""
     import tempfile
 
     import numpy as np
@@ -2664,6 +2809,37 @@ def scene_file_phases(dev, spp: int, ivy_builder, ivy_pallas_img, inst_builder, 
             raise AssertionError(f"8a: B5 / B6 launched {l8a['shade']} / {l8a['draws']} times over "
                                  f"{l8a['bounces']} bounces")
         out["8a"] = (rec, l8a)
+
+        # ---- 8d. the same GLB with its opaque textures as JPEG -------------
+        # The fixtures decode to PIL's bytes on this host without PIL; the
+        # eight atrium fixtures replace the PNGs they were encoded from (the
+        # ivy leaf stays PNG: its alpha drives B3 amask), and the render at
+        # 8a's settings must keep 8a's channel means within 2%.
+        out["8d_fixtures"] = jpeg_fixture_case()
+        emit(out["8d_fixtures"])
+        swaps = atrium_jpeg_swaps(glb)
+        n_atrium = sum(k.startswith("atrium_") for k in jpeg_manifest()["files"])
+        if len(swaps) != n_atrium:
+            raise AssertionError(f"8d: {len(swaps)} of the GLB's images match the {n_atrium} atrium fixtures")
+        glb_j = os.path.join(tmp, "atrium_ivy_jpeg.glb")
+        glb_swap_images(glb, glb_j, swaps)
+        rec, l8d, img_j, _ = cli_render("8d_atrium_ivy_jpeg_glb", [
+            glb_j, "--env-hdr", sky, "--env-scale", repr(ivy_builder._env_scale), "--size", f"{side_a}x{side_a}",
+            "--spp", str(spp), "--max-depth", "30", "--shade-kernel", "pallas",
+            "-o", os.path.join(OUT_DIR, "atrium_ivy_jpeg_glb.png"), *cam_args], dev)
+        rec.update(jpeg_images=len(swaps), glb_bytes=os.path.getsize(glb_j), png_glb_bytes=os.path.getsize(glb),
+                   decode_atrium_textures_s=out["8d_fixtures"]["decode_atrium_textures_s"],
+                   vs_png_glb=means_within("8d atrium-ivy JPEG GLB", img_j, img))
+        emit(rec)
+        modes = l8d["fused_trace_modes"]
+        if l8d["presort_keys"] <= 0 or modes.get("amask", 0) <= 0 or l8d["brute_intersect"] != 0:
+            raise AssertionError(f"8d: the atrium-ivy JPEG GLB did not go through B2 and B3 amask: {l8d}")
+        if l8d["bounces"] <= 0 or l8d["shade"] != l8d["bounces"] or l8d["draws"] != l8d["bounces"]:
+            raise AssertionError(f"8d: B5 / B6 launched {l8d['shade']} / {l8d['draws']} times over "
+                                 f"{l8d['bounces']} bounces")
+        out["8d"] = (rec, l8d)
+        out["jpeg_stages"] = jpeg_stage_case()
+        emit(out["jpeg_stages"])
 
         # ---- 8b. atrium-inst: prototypes as meshes, instances as nodes -----
         glb_i, sky_i = os.path.join(tmp, "atrium_inst.glb"), os.path.join(tmp, "sky_inst.hdr")
@@ -3018,7 +3194,7 @@ def main() -> int:
     compiled = build.build_all()
     emit({"phase": "build", "kernels": list(compiled), "compiled_now": compiled,
           "seconds": round(time.time() - t0, 3), "ptxas": {k: build.ptxas_report(k) for k in build.LIBRARIES},
-          "host_library": build.library_path("yartnative", build.HOST_LIBRARIES["yartnative"])})
+          "host_libraries": {k: build.library_path(k, v) for k, v in build.HOST_LIBRARIES.items()}})
 
     # ---- 3. B1 vs plain twin --------------------------------------------
     scene, meta = cornell_box(extra_materials=True).compile(dev)
@@ -3463,7 +3639,8 @@ def main() -> int:
     emit({"phase": "total", "seconds": round(time.time() - t_start, 3)})
     fused["atrium-ivy-dense"] = p7["7b"]
     fused["atrium-ivy GLB (8a)"] = p8["8a"]
-    l8a, l8b = p8["8a"][1], p8["8b"][1]
+    fused["atrium-ivy JPEG GLB (8d)"] = p8["8d"]
+    l8a, l8b, l8d = p8["8a"][1], p8["8b"][1], p8["8d"][1]
 
     def app_launches(kernel, cases=("9b", "9c") + tuple(f"9d_{k}" for k in APP_SAMPLERS)):
         """Phase 9's launches of `kernel`: each rank's in 9a, then the CLI
@@ -3498,6 +3675,7 @@ def main() -> int:
                               "atrium-ivy": launches_ivy["presort_keys"],
                               "atrium-inst": launches_inst["presort_keys"], **loop_launches("presort_keys"),
                               "atrium-ivy GLB (8a)": l8a["presort_keys"], "atrium-inst GLB (8b)": l8b["presort_keys"],
+                              "atrium-ivy JPEG GLB (8d)": l8d["presort_keys"],
                               **app_launches("presort_keys", ())},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "presort_keys"),
          "max_abs_err": max(r["b2_max_abs_err"] for r in bt_recs + [rec_ic, rec_in, rec_ir]),
@@ -3517,6 +3695,7 @@ def main() -> int:
                               "atrium-inst": launches_inst["fused_trace_modes"], **loop_launches("fused_trace"),
                               "atrium-ivy GLB (8a)": l8a["fused_trace_modes"],
                               "atrium-inst GLB (8b)": l8b["fused_trace_modes"],
+                              "atrium-ivy JPEG GLB (8d)": l8d["fused_trace_modes"],
                               **app_launches("fused_trace_modes", ())},
          "fwdbwd_launches": fwdbwd_launch_table(fwdbwd, "fused_trace"),
          "max_abs_err": max([r["b3_max_abs_err"] for r in bt_recs + [rec_ic, rec_in]]

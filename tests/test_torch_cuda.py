@@ -14,8 +14,9 @@ log2spp and hash; B7a and B7b at round 1 and a windowed round, k = 1, 2,
 24 and 128, a ragged lane count, B7b with the clusters' counts and
 without, and at the edges of their Hopper designs: B7a's culled blocks,
 pad lanes, NaN and zero directions, signed-zero entries at t_min = 0,
-entered pad boxes, cpad 128 and 8192, window edges, blocks with no key
-and with more keys than slots; B7b's clusters of 1 and C triangles,
+entries of -0 and just below 0 kept by t_min < 0, entered pad boxes,
+cpad 128 and 8192, window edges, blocks with no key and with more keys
+than slots; B7b's clusters of 1 and C triangles,
 degenerate triangles, ties within and across slots, t_cur = inf, live
 flags that are no prefix, repeated ids, one block and 2,048 blocks, C =
 30), the
@@ -1168,8 +1169,10 @@ def test_select_and_test_clusters_kernels_equal_plain(quad_soup, n_rays, k, wind
 
 
 B7A_EDGES = ("all_culled", "pad_lanes", "nan_zero_dirs", "tmin0_signed_zero", "far_tcur_pad_boxes", "cpad128",
-             "cpad8192", "window_edge", "live0_and_overflow")
-B7A_REAL = {"cpad128": 100, "cpad8192": 8000}  # real boxes of a case (1,566 of 2,048 otherwise, the bench scene's)
+             "cpad8192", "window_edge", "live0_and_overflow", "tmin_neg_signed_zero")
+# Real boxes of a case (1,566 of 2,048 otherwise, the bench scene's), and its columns.
+B7A_REAL = {"cpad128": 100, "cpad8192": 8000, "tmin_neg_signed_zero": 100}
+B7A_CPAD = {"cpad128": 128, "cpad8192": 8192, "tmin_neg_signed_zero": 128}
 
 
 def _b7a_boxes(rng, n_real: int, cpad: int):
@@ -1189,7 +1192,7 @@ def b7a_edge_case(case: str, dev):
     rng = np.random.default_rng(B7A_EDGES.index(case) + 40)
     n_blocks, k, t_min = 8, 24, 1e-3
     n_real = B7A_REAL.get(case, 1566)
-    box = _b7a_boxes(rng, n_real, {"cpad128": 128, "cpad8192": 8192}.get(case, 2048))
+    box = _b7a_boxes(rng, n_real, B7A_CPAD.get(case, 2048))
     n = n_blocks * 128
     d = rng.normal(size=(n, 3))
     rays = np.zeros((n, 8), np.float32)
@@ -1226,6 +1229,17 @@ def b7a_edge_case(case: str, dev):
         rays[:128, 0:3] *= -1.0
         rays[256:512, 0:3] = box[0:3, rng.integers(0, 128, 256)].T
         rays[512:640, 0:3] = box[3:6, rng.integers(0, 128, 128)].T
+    elif case == "tmin_neg_signed_zero":  # t_min < 0 keeps entries of -0 and just below 0 as keys
+        t_min = -1e-3
+        box[0, :32] = -0.0  # x faces at -0: from an origin at +0 along +x the slab enters at -0 - 0 = -0
+        box[3, :32] = rng.uniform(0.5, 2.0, 32)
+        box[1:3, :32] = -rng.uniform(0.5, 2.0, (2, 32))
+        box[4:6, :32] = rng.uniform(0.5, 2.0, (2, 32))
+        rays[:256, 0:3] = 0.0  # blocks 0-1: every entry into those boxes is -0
+        rays[:256, 3] = np.abs(rays[:256, 3]) + 0.05
+        rays[256:384, 0:3] = 0.0  # block 2: origins just inside the x faces, entries in (-1e-3, 0)
+        rays[256:384, 0] = rng.uniform(1e-6, 4e-5, 128)
+        rays[256:384, 3] = np.abs(rays[256:384, 3]) + 0.05
     elif case == "far_tcur_pad_boxes":  # d = (2, 2, 2) from (c, c, c): every pad box entered at ~1.5e38
         rays[:256, 0:3] = rng.uniform(-1, 1, (256, 1)) + np.float32([20.0] * 128 + [0.0] * 128)[:, None]
         rays[:256, 3:6] = 2.0
@@ -1270,6 +1284,8 @@ def test_select_clusters_edges_equal_plain(dev, case):
         assert (n_live[:2] == 0).all() and (bound_key[4:] != legacy.KEY_DEAD).all()
     elif case == "window_edge":
         assert (n_live[act != 0] > 0).all()
+    elif case == "tmin_neg_signed_zero":  # -0 (bits 0x80000000) is the least key; entries below 0 come next
+        assert (ids[:3] < 32).all() and (bound_key[:3] < 0).all()
     if case in ("pad_lanes", "live0_and_overflow"):  # a retired or missing block keeps no box
         assert (kept[act != 0] < box.shape[1]).any() and (n_live > 0).any()
 

@@ -14,8 +14,11 @@ indices; a file with no materials):
 - the compiled scene tables and meta are bit-equal to the JAX builder's
   (on its numpy BVH path);
 - every malformed file of tests/test_gltf.py raises GltfError with the
-  JAX loader's message, and a JPEG texture, which the JAX loader decodes
-  through PIL, raises GltfError naming JPEG;
+  JAX loader's message;
+- the textured quad with JPEG base-colour, metallic-roughness and normal
+  textures loads bit-equal to the JAX loader (PIL there, io/jpeg.py
+  here), compiles to the same tables and renders like it; a GIF texture,
+  which the JAX loader decodes through PIL, raises GltfError naming GIF;
 - a 24x24 render of the textured quad under an HDR environment (written by
   the port, read by each package's `load_hdr`) agrees with the JAX
   Renderer's (naive integrator) at tests/test_torch_render.py's image bar.
@@ -77,22 +80,22 @@ def _texture_pngs():
     ]
 
 
-def _textured_quad(tmp_path, base_png=None):
+def _textured_quad(tmp_path, replace=None):
     """tests/test_gltf.py's quad with base colour, metallic-roughness,
     normal, emissive and transmission textures; the base colour texture is
-    shared with a second material on a second primitive."""
+    shared with a second material on a second primitive. `replace`:
+    {image index: (bytes, mimeType)} in place of the PNGs."""
     doc, blob = _read_glb(_build_glb(tmp_path))
-    pngs = _texture_pngs()
-    if base_png is not None:
-        pngs[0] = base_png
+    images = [(png, "image/png") for png in _texture_pngs()]
+    images = [(replace or {}).get(i, im) for i, im in enumerate(images)]
     doc["images"] = []
-    for i, png in enumerate(pngs):
+    for i, (data, mime) in enumerate(images):
         if i == 3:
-            doc["images"].append({"uri": "data:image/png;base64," + base64.b64encode(png).decode()})
+            doc["images"].append({"uri": f"data:{mime};base64," + base64.b64encode(data).decode()})
         else:
-            view, blob = _append_view(doc, blob, png)
-            doc["images"].append({"bufferView": view, "mimeType": "image/png"})
-    doc["textures"] = [{"source": i} for i in range(len(pngs))]
+            view, blob = _append_view(doc, blob, data)
+            doc["images"].append({"bufferView": view, "mimeType": mime})
+    doc["textures"] = [{"source": i} for i in range(len(images))]
     m = doc["materials"][0]
     m["pbrMetallicRoughness"]["baseColorTexture"] = {"index": 0}
     m["pbrMetallicRoughness"]["metallicRoughnessTexture"] = {"index": 1}
@@ -359,12 +362,42 @@ def test_malformed_raises_gltf_error(name, tmp_path):
 
 
 def test_jpeg_texture_refused_by_name(tmp_path):
+    """The textured quad with JPEG base-colour (baseline 4:2:0),
+    metallic-roughness (progressive 4:4:4) and normal (optimized 4:2:2)
+    textures: builder arrays, textures and compiled tables bit-equal to the
+    JAX loader's (PIL decodes them there), and a 24x24 render like the JAX
+    Renderer's at test_textured_quad_renders_like_jax's bar. A GIF texture,
+    which PIL also decodes, is still refused by name."""
     image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(1)
+
+    def jpeg(shape, **kw):
+        buf = io.BytesIO()
+        image.fromarray(rng.integers(0, 256, shape).astype(np.uint8)).save(buf, "JPEG", **kw)
+        return buf.getvalue(), "image/jpeg"
+
+    path = _textured_quad(tmp_path, {0: jpeg((16, 16, 3), quality=80, subsampling=2),
+                                     1: jpeg((8, 8, 3), quality=95, subsampling=0, progressive=True),
+                                     2: jpeg((8, 8, 3), quality=90, subsampling=1, optimize=True)})
+    (jb, jw), (tb, tw) = _load_both(path)
+    assert tw == jw
+    compare_builders(jb, tb)
+    assert tb.textures_rgba[0].shape == (16, 16, 4) and tb.textures_2ch[0].shape == (8, 8, 2)
+    assert sorted(t.shape for t in tb.textures_rgb) == [(8, 8, 3), (9, 7, 3)]  # the JPEG normal map, the emissive PNG
+    sky = str(tmp_path / "sky.hdr")
+    save_hdr(sky, np.random.default_rng(8).lognormal(-1, 1, (16, 16, 3)).astype(np.float32))
+    jb.set_env(j_load_hdr(sky), 1.5)
+    tb.set_env(t_load_hdr(sky), 1.5)
+    js, jm, ts, tm = compile_both(jb, tb)
+    assert tm.has_env and tm.any_textures and not tm.any_alpha and tm.n_lights == 2
+    render_matches_jax(js, jm, ts, tm, (2.0, 3.0, 7.0), (0.0, 0.0, -1.0), integrator="naive")
+
     buf = io.BytesIO()
-    image.fromarray(np.random.default_rng(1).integers(0, 256, (8, 8, 3)).astype(np.uint8)).save(buf, "JPEG")
-    path = _textured_quad(tmp_path, base_png=buf.getvalue())
+    image.fromarray(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8)).save(buf, "GIF")
+    (tmp_path / "gif").mkdir()
+    path = _textured_quad(tmp_path / "gif", {0: (buf.getvalue(), "image/gif")})
     assert j_load(path).textures_rgba[0].shape == (8, 8, 4)  # PIL decodes it for the JAX loader
-    with pytest.raises(GltfError, match="texture 0 .*JPEG image.*no JPEG decoder"):
+    with pytest.raises(GltfError, match="texture 0 .*GIF image.*PNG and JPEG"):
         t_load(path)
 
 

@@ -154,6 +154,28 @@ def test_select_twin_equals_pallas(case, k, windowed):
         assert (bound_key[live] != presort.KEY_DEAD).any()  # the window overflowed: more rounds follow
 
 
+def test_select_twin_equals_pallas_negative_tmin_signed_zero():
+    """B7a at t_min < 0 (tests/test_torch_cuda.py's `tmin_neg_signed_zero`
+    case, also held kernel against twin there): entries of -0 (box faces
+    at -0 ahead of origins at +0) give the least key, bits 0x80000000, and
+    entries just below 0 the keys after it; the twin keeps the JAX
+    kernel's ids, bounds and live counts on every block."""
+    from test_torch_cuda import b7a_edge_case
+
+    rays, box, w_key, act, k, t_min = b7a_edge_case("tmin_neg_signed_zero", "cpu")
+    assert t_min < 0
+    entries = BK.block_entries(rays.view(-1, BK.BLOCK, 8), box, t_min).amin(dim=1)
+    assert ((entries == 0) & torch.signbit(entries)).sum() >= 64
+    got = [a.numpy() for a in BK.select_clusters(rays, box, w_key, act, k, t_min)]
+    want = [np.asarray(a) for a in PB.select_clusters_pallas(
+        jnp.asarray(rays.numpy()), jnp.asarray(box.numpy()), jnp.asarray(w_key.numpy()), jnp.asarray(act.numpy()),
+        BK.BLOCK, k, t_min, interpret=True)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[0][:3] < 32).all()  # the boxes with faces at -0 come first
+    assert ((got[1][:2] & ~BK.ID_MASK) == np.int32(-(1 << 31))).all()  # blocks 0-1: the bound is a -0 key too
+
+
 @pytest.mark.parametrize("windowed", [False, True], ids=["round1", "windowed"])
 def test_test_twin_equals_pallas(case, windowed):
     js, _, ts, tm, o, d = case

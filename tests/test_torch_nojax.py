@@ -8,8 +8,9 @@ textured-box and instanced scenes through the renderer and the CLI
 brute, the instanced scene through B3's instanced mode), traces a few rays
 through bin-trace and the round-based block trace (plain and gated), parses the flagship scenes, writes
 the textured box as a GLB and an HDR environment with the port's writers and renders both through the
-CLI (its PNG textures decoded without PIL), renders over two CPU ranks through the CLI (`--devices 2
---device cpu`, `parallel/`), imports the live view (`io/preview.py`), and then checks that no module of
+CLI (its PNG textures decoded without PIL), and again with its opaque textures swapped for a committed
+JPEG fixture (decoded by `io/jpeg.py` and its C++ scan decoder, without PIL), renders over two CPU ranks
+through the CLI (`--devices 2 --device cpu`, `parallel/`), imports the live view (`io/preview.py`), and then checks that no module of
 `jax`, of the JAX package `yart_tpu` or of PIL was ever loaded."""
 
 import os
@@ -116,7 +117,19 @@ with tempfile.TemporaryDirectory() as tmp:
     b = load(glb)
     assert stats["textures"] >= 3 and b.textures_rgba and b.textures_rgb and b.textures_2ch
     assert load_hdr(sky).shape == (8, 16, 3)
-    for scene in (glb, "cornell"):
+    # The same GLB with its opaque textures as JPEG fixtures (io/jpeg.py and
+    # its C++ scan decoder, no PIL).
+    import chip_smoke
+    from yart_tpu_torch.io.png import decode_png
+    doc, blob = chip_smoke.read_glb(glb)
+    opaque = [i for i in range(len(doc["images"]))
+              if (decode_png(chip_smoke.glb_image_bytes(doc, blob, i))[..., 3] == 255).all()]
+    fixture = open(os.path.join(chip_smoke.JPEG_FIXTURES, "grid_37x53_rgb_420_q50.jpg"), "rb").read()
+    glb_j = os.path.join(tmp, "box_jpeg.glb")
+    chip_smoke.glb_swap_images(glb, glb_j, {i: fixture for i in opaque})
+    bj = load(glb_j)
+    assert opaque and sum(t.shape[:2] == (53, 37) for t in bj.textures_rgba + bj.textures_rgb + bj.textures_2ch)
+    for scene in (glb, glb_j, "cornell"):
         assert main([scene, "--env-hdr", sky, "--env-scale", "0.5", "--device", "cpu", "--size", "4x4",
                      "--spp", "1", "--max-depth", "2", "--camera-pos", "0,1.6,3.2", "--quiet",
                      "-o", os.path.join(tmp, "g.png")]) == 0

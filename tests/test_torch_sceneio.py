@@ -6,8 +6,10 @@
   and without a tRNS chunk where PIL writes one), and on PNGs this file
   writes: each of the five row filters alone and mixed, Adam7 interlace,
   every colour type at every bit depth the specification allows, tRNS
-  keys and palettes; exactly, byte for byte. A bad CRC, a truncated
-  stream and a JPEG are refused.
+  keys and palettes; exactly, byte for byte. A bad CRC and a truncated
+  stream are refused. The loader's `_decode_image` decodes a JPEG
+  (tests/test_torch_jpeg.py holds io/jpeg.py to PIL), refuses GIF, BMP,
+  WebP and KTX2 by name, and names the texture of a corrupt image.
 - `load_hdr` / `save_hdr` bit-equal to the JAX package's on a flat file
   and on a run-length file written here; `equirect_to_octahedral` and
   `convert_hdri.main` bitwise.
@@ -235,11 +237,27 @@ def test_png_decoder_refuses_bad_streams():
 
 
 def test_jpeg_texture_raises_gltf_error():
+    """A JPEG texture decodes (io/jpeg.py, to PIL's bytes); GIF, BMP, WebP
+    and KTX2 still raise GltfError naming their format; a corrupt JPEG or
+    PNG raises GltfError naming the texture."""
     image = pytest.importorskip("PIL.Image")
+    rgb = np.random.default_rng(2).integers(0, 256, (9, 7, 3)).astype(np.uint8)
     buf = io.BytesIO()
-    image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
-    with pytest.raises(GltfError, match="JPEG.*no JPEG decoder"):
-        _decode_image(buf.getvalue(), "texture 0")
+    image.fromarray(rgb).save(buf, "JPEG", quality=90)
+    jpeg = buf.getvalue()
+    np.testing.assert_array_equal(_decode_image(jpeg, "texture 0"),
+                                  np.asarray(image.open(io.BytesIO(jpeg)).convert("RGBA")))
+    for fmt in ("GIF", "BMP", "WebP"):
+        buf = io.BytesIO()
+        image.fromarray(rgb).save(buf, fmt.upper())
+        with pytest.raises(GltfError, match=f"texture 1 \\(image 3\\) is a {fmt} image.*PNG and JPEG"):
+            _decode_image(buf.getvalue(), "texture 1 (image 3)")
+    with pytest.raises(GltfError, match="is a KTX2 image"):
+        _decode_image(b"\xabKTX 20\xbb\r\n\x1a\n" + bytes(64), "texture 2")
+    with pytest.raises(GltfError, match="texture 0 \\(image 2\\): scan at byte .*truncated"):
+        _decode_image(jpeg[: jpeg.index(b"\xff\xda") + 20] + b"\xff\xd9", "texture 0 (image 2)")
+    with pytest.raises(GltfError, match="texture 0: .*12-bit"):
+        _decode_image(jpeg.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1), "texture 0")
     with pytest.raises(GltfError, match="texture 0: chunk"):
         _decode_image(encode_test_png(np.zeros((2, 2, 1), np.uint8), 0, 8)[:-8] + b"\x00" * 8, "texture 0")
     np.testing.assert_array_equal(_decode_image(encode_test_png(np.full((2, 2, 1), 7), 0, 8), "t")[..., :3], 7)

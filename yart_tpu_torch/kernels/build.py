@@ -40,6 +40,7 @@ LIBRARIES = {
 # Host libraries, built with g++: name -> its sources under csrc/.
 HOST_LIBRARIES = {
     "yartnative": ("host/bvh_builder.cpp", "host/bvh8_collapse.cpp"),  # native.py
+    "yartjpeg": ("host/jpeg_scan.cpp",),  # io/jpeg.py
 }
 # Headers a library's sources include from csrc/: hashed with them, not compiled alone.
 HEADERS = {"shade": ("shade_lane.cuh",)}
@@ -134,13 +135,14 @@ def nvcc_path() -> str:
 
 
 def gxx_path() -> str:
-    """g++ from PATH; the host BVH builder needs it."""
+    """g++ from PATH; the host libraries need it."""
     found = shutil.which("g++")
     if found:
         return found
     raise RuntimeError(
-        "g++ not found on PATH: the scene builder's native BVH build "
-        "(yart_tpu_torch/csrc/host/) is compiled with g++ at first use"
+        "g++ not found on PATH: the host libraries (yart_tpu_torch/csrc/host/: "
+        "the scene builder's BVH build, the JPEG scan decoder) are compiled "
+        "with g++ at first use"
     )
 
 

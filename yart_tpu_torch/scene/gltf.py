@@ -24,10 +24,11 @@ mapping:
   (gltf.cpp:147-153)
 
 Emissive triangles become area lights in SceneBuilder.compile
-(gltf.cpp:299-314). Textures are decoded by `io/png.py`, equal to what
-PIL's convert("RGBA") gives the JAX loader; an image that is not a PNG
-(JPEG among them) raises GltfError, since the machine with the GPU has no
-JPEG decoder.
+(gltf.cpp:299-314). Textures are decoded by the port's own decoders,
+`io/png.py` and `io/jpeg.py` (glTF 2.0 core's two image types), equal to
+what PIL's convert("RGBA") gives the JAX loader; an image of another
+format (GIF, BMP, WebP, KTX2), or a JPEG variant `io/jpeg.py` does not
+read, raises GltfError naming it.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from yart_tpu_torch.io.jpeg import SOI, JpegError, decode_jpeg
 from yart_tpu_torch.io.png import SIGNATURE, PngError, decode_png
 from yart_tpu_torch.ops.color import gamma2_encode_np, srgb_decode_np
 from yart_tpu_torch.scene.builder import MaterialDesc, SceneBuilder
@@ -62,9 +64,8 @@ _COMPONENT_DTYPES = {
     5126: np.float32,
 }
 _TYPE_COUNTS = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4, "MAT4": 16}
-# Leading bytes of the image formats a glTF file may embed besides PNG.
+# Leading bytes of image formats outside glTF 2.0 core, refused by name.
 _IMAGE_MAGIC = (
-    (b"\xff\xd8\xff", "JPEG"),
     (b"GIF8", "GIF"),
     (b"BM", "BMP"),
     (b"\xabKTX 20\xbb", "KTX2"),
@@ -220,16 +221,20 @@ def _load_buffer_uri(uri: str, base_dir: str) -> bytes:
 
 
 def _decode_image(raw: bytes, what: str) -> np.ndarray:
-    """Encoded image bytes -> uint8 RGBA [H, W, 4]; PNG only."""
-    if not raw.startswith(SIGNATURE):
+    """Encoded image bytes -> uint8 RGBA [H, W, 4]; PNG or JPEG."""
+    if raw.startswith(SIGNATURE):
+        decode, error = decode_png, PngError
+    elif raw.startswith(SOI + b"\xff"):
+        decode, error = decode_jpeg, JpegError
+    else:
         fmt = next((name for magic, name in _IMAGE_MAGIC if raw.startswith(magic)), None)
         if fmt is None and raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
             fmt = "WebP"
-        raise GltfError(f"{what} is a {fmt or 'non-PNG'} image: this loader decodes PNG only (the machine with "
-                        "the GPU has no JPEG decoder, and the port needs no PIL); re-encode it as PNG")
+        raise GltfError(f"{what} is a {fmt or 'non-PNG, non-JPEG'} image: this loader decodes PNG and JPEG "
+                        "(glTF 2.0 core's image types); re-encode it as one of them")
     try:
-        return decode_png(raw)
-    except PngError as e:
+        return decode(raw)
+    except error as e:
         raise GltfError(f"{what}: {e}") from None
 
 

@@ -19,10 +19,11 @@ def _quad(p0, p1, p2, p3):
     return verts, idx
 
 
-def cornell_box(extra_materials: bool = False) -> SceneBuilder:
+def cornell_box(extra_materials: bool = False, boxes: bool = True) -> SceneBuilder:
     """Cornell box in [-1,1]^2 x [0,2]: white walls, red left, green right,
     area light at the ceiling, two boxes (metal + glass with
-    `extra_materials`, the "cornell-mat" scene)."""
+    `extra_materials`, the "cornell-mat" scene; none with `boxes=False`,
+    the reference oracle's empty box)."""
     b = SceneBuilder()
     white = b.add_material(base_color=(0.73, 0.73, 0.73, 1.0), roughness=1.0)
     red = b.add_material(base_color=(0.65, 0.05, 0.05, 1.0), roughness=1.0)
@@ -51,7 +52,7 @@ def cornell_box(extra_materials: bool = False) -> SceneBuilder:
     ]:
         b.add_mesh(verts, idx, mat)
 
-    if extra_materials:
+    if boxes and extra_materials:
         metal = b.add_material(base_color=(0.9, 0.7, 0.3, 1.0), metallic=1.0, roughness=0.2)
         glass = b.add_material(
             base_color=(1.0, 1.0, 1.0, 1.0), transmission=1.0, roughness=0.05,
@@ -59,7 +60,7 @@ def cornell_box(extra_materials: bool = False) -> SceneBuilder:
         )
         b.add_mesh(*box_mesh([-0.35, 0.0, -0.35], [0.25, 1.2, 0.25], rot_y=0.3), metal)
         b.add_mesh(*box_mesh([0.4, 0.0, 0.35], [0.25, 0.5, 0.25], rot_y=-0.25), glass)
-    else:
+    elif boxes:
         b.add_mesh(*box_mesh([-0.35, 0.0, -0.35], [0.25, 1.2, 0.25], rot_y=0.3), white)
         b.add_mesh(*box_mesh([0.4, 0.0, 0.35], [0.25, 0.5, 0.25], rot_y=-0.25), white)
     return b
